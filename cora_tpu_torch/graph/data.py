@@ -18,6 +18,7 @@ l landmark translations]``, N = n(d+1) + l + m.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -88,6 +89,20 @@ class ProblemData:
     def dtype(self) -> torch.dtype:
         return self.rng_r.dtype
 
+    def to(self, device=None, dtype=None) -> "ProblemData":
+        """A copy on `device` with its values in `dtype` (either kept when
+        None); float32 values cast to float64 keep their float32 rounding."""
+        dt = self.dtype() if dtype is None else torch_dtype(dtype)
+        dev = self.device if device is None else torch.device(device)
+        kw = {k: getattr(self, k).to(dev) for k in INDEX_FIELDS}
+        kw.update({k: getattr(self, k).to(dev, dt) for k in VALUE_FIELDS})
+        return dataclasses.replace(self, **kw)
+
+    @functools.cached_property
+    def incidence(self) -> "Incidence":
+        """The fixed-order segment sums of the general-graph ops."""
+        return Incidence.build(self)
+
     @classmethod
     def from_numpy(cls, fields: dict, device="cpu", dtype=np.float64):
         """Build from plain arrays keyed by field name — e.g. the JAX
@@ -102,6 +117,74 @@ class ProblemData:
             kw[k] = torch.as_tensor(
                 np.asarray(fields[k], np.float64), device=device).to(tdtype)
         return cls(**kw)
+
+
+class SegmentSum:
+    """x (E, ...) ↦ out (num, ...), out[k] = Σ x[e] over e with idx[e] = k,
+    in a fixed order: a gather through padded incidence tables and a `sum`
+    over the padding axis, never `index_add_`, whose CUDA atomics make the
+    result depend on the launch. Rows are bucketed by degree (powers of
+    two), so a landmark with thousands of ranges does not pad every pose
+    row to its degree. The tables are built once on the host."""
+
+    def __init__(self, idx, num: int, device):
+        idx = np.asarray(idx, np.int64)
+        self.num = int(num)
+        self.E = len(idx)
+        order = np.argsort(idx, kind="stable")
+        counts = np.bincount(idx, minlength=num)
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        seg = idx[order]
+        rank = np.arange(self.E) - starts[seg]  # place within its row
+        width = np.where(counts > 0, 1 << np.ceil(np.log2(
+            np.maximum(counts, 1))).astype(np.int64), 0)
+        pos = np.zeros(self.num, np.int64)
+        self.buckets = []
+        for K in np.unique(width[width > 0]):
+            rows = np.flatnonzero(width == K)
+            pos[rows] = np.arange(len(rows))
+            sel = width[seg] == K
+            table = np.full((len(rows), K), self.E, np.int64)
+            table[pos[seg[sel]], rank[sel]] = order[sel]
+            self.buckets.append((torch.as_tensor(rows, device=device),
+                                 torch.as_tensor(table, device=device)))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        pad = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+        out = x.new_zeros((self.num,) + x.shape[1:])
+        for rows, table in self.buckets:
+            out[rows] = pad[table].sum(1)
+        return out
+
+
+@dataclasses.dataclass
+class Incidence:
+    """Segment sums over the edge lists of one `ProblemData`:
+
+      * `rot`: onto the n rotation blocks, of the values at
+        [rot_i | rot_j | pm_ti];
+      * `tr`: onto the n + l translations, of the values at
+        [pm_tj | pm_ti | rng_tj | rng_ti];
+      * `rng`: onto the n + l translations, of the values at
+        [rng_ti | rng_tj]."""
+
+    rot: SegmentSum
+    tr: SegmentSum
+    rng: SegmentSum
+
+    @classmethod
+    def build(cls, pd: "ProblemData") -> "Incidence":
+        def host(*ts):
+            return np.concatenate([t.cpu().numpy() for t in ts])
+
+        dev = pd.device
+        T = pd.num_translations
+        return cls(
+            rot=SegmentSum(host(pd.rot_i, pd.rot_j, pd.pm_ti), pd.n, dev),
+            tr=SegmentSum(host(pd.pm_tj, pd.pm_ti, pd.rng_tj, pd.rng_ti), T,
+                          dev),
+            rng=SegmentSum(host(pd.rng_ti, pd.rng_tj), T, dev),
+        )
 
 
 def torch_dtype(dtype) -> torch.dtype:

@@ -22,6 +22,7 @@ This class is pure host-side bookkeeping. Heavy math lives in:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -261,12 +262,44 @@ class Problem:
                                                  device=device)
         return cache[key]
 
+    def operator(self, formulation=Formulation.EXPLICIT, dtype=np.float64,
+                 device="cpu"):
+        """Y ↦ QY on `device` in `dtype` (the explicit formulation; the
+        implicit one is not ported)."""
+        from cora_tpu_torch.ops.quadratic import data_matrix_product
+
+        if formulation != Formulation.EXPLICIT:
+            raise NotImplementedError("the implicit formulation is not ported")
+        return functools.partial(data_matrix_product,
+                                 self.device_data(dtype, device))
+
+    def preconditioner_fn(self, kind, dtype=np.float64, max_cond: float = 1e6,
+                          device="cpu"):
+        """The `PrecondOp` of `kind` on `device` in `dtype`, cached: the
+        banded kinds factor on the host once per key."""
+        import torch
+
+        from cora_tpu_torch import precond
+
+        key = (kind, np.dtype(dtype).name, float(max_cond),
+               str(torch.device(device)))
+        cache = getattr(self, "_precon_cache", None)
+        if cache is None:
+            cache = self._precon_cache = {}
+        if key not in cache:
+            cache[key] = precond.make_preconditioner(
+                self, self.device_data(dtype, device), kind,
+                reg_chol_max_cond=max_cond)
+        return cache[key]
+
     def invalidate(self) -> None:
         """Drop cached derived products after mutating the graph."""
         self._submatrices = None
         self._data_matrix = None
         self._device_data = None
+        self._precon_cache = None
         self._polish_cache = None
         self._band_perm_cache = None
         self._chain_plan_cache = None
         self._kernel_cache = None
+        self._cert_sigma_cache = 0.0

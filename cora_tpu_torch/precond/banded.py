@@ -19,21 +19,24 @@ exactly (no fill) for odometry chains. The factorization is: sphere-row
 elimination → banded Cholesky of B (L_i, M_i blocks) → Woodbury for the
 landmark columns (B⁻¹C and the l×l capacitance inverse).
 
-Host numpy/scipy only. The chain plan (`cora_tpu_torch.ops.chain`)
-turns the factor into the doubling-scan propagators that the kernels
-and their plain versions apply on the device; certification uses
-`factor_banded(..., require_exact=True)` as its exact PSD decision.
+The factorization runs on the host in numpy/scipy, under a reverse
+Cuthill–McKee pose ordering that keeps multi-robot graphs banded. Two
+device forms apply it: the chain plan of the kernels
+(`cora_tpu_torch.ops.chain`, identity ordering, pose-pair blocks) and,
+for any graph, `device_factor` + `banded_apply` below, whose triangular
+solves are log-depth doubling scans with precomputed propagators.
+Certification uses `factor_banded(..., require_exact=True)` as its exact
+PSD decision.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
-
 import numpy as np
 import scipy.sparse as sp
+import torch
 
-from cora_tpu_torch.graph.data import ProblemData
+from cora_tpu_torch.graph.data import ProblemData, torch_dtype
 
 
 @dataclasses.dataclass
@@ -60,6 +63,7 @@ class BandedFactorHost:
     # whether the factored matrix couples sphere rows to the band (False
     # for BlockCholesky, whose sphere block is standalone diagonal)
     sphere_coupled: bool = True
+    bandwidth: int = 0  # scalar bandwidth of the band under the ordering
 
 
 def pose_ordering(pd: ProblemData) -> np.ndarray:
@@ -298,7 +302,7 @@ def factor_banded(
         perm=perm, inv_perm=inv_perm,
         L=L, M=Msub, Linv=Linv, s_sph=s_sph,
         BinvC=BinvC, cap_inv=cap_inv, C=C, E=E,
-        n_dropped=n_dropped, lam=lam, cb=cb,
+        n_dropped=n_dropped, lam=lam, cb=cb, bandwidth=bw_actual,
     )
 
 
@@ -376,3 +380,137 @@ def estimate_spectral_norm(Q: sp.spmatrix, tol: float = 1e-2) -> float:
             x = Q @ x
             x /= np.linalg.norm(x)
         return float(abs(x @ (Q @ x)))
+
+
+def doubling_propagators(F: BandedFactorHost):
+    """(levels, AF): the band's forward solve as a Hillis–Steele doubling
+    scan. With A_i = −L_i⁻¹ M_i the recurrence u_i = A_i u_{i−1} + L_i⁻¹ b_i
+    takes ⌈log₂ nb⌉ levels, level k adding P_i u_{i−2ᵏ} with the propagator
+    P_i = A_i ⋯ A_{i−2ᵏ+1}, stored as AF[k, i] for i ≥ 2ᵏ (host float64)."""
+    nb, w = F.Linv.shape[0], F.q
+    levels = int(np.ceil(np.log2(nb))) if nb > 1 else 0
+    Ak = -np.einsum("nab,nbc->nac", F.Linv, F.M)
+    AF = np.zeros((max(levels, 1), nb, w, w))
+    for k in range(levels):
+        s = 1 << k
+        AF[k, s:] = Ak[s:]
+        if s < nb:
+            An = Ak.copy()
+            An[s:] = np.einsum("nab,nbc->nac", Ak[s:], Ak[:nb - s])
+            Ak = An
+    return levels, AF
+
+
+def device_factor(pd: ProblemData, F: BandedFactorHost, dtype=None) -> dict:
+    """The factor as tensors on `pd`'s device for `banded_apply`, with the
+    doubling propagators formed once in float64 and cast to `dtype`
+    (`pd`'s by default)."""
+    dt = pd.dtype() if dtype is None else torch_dtype(dtype)
+    levels, AF = doubling_propagators(F)
+    # band ∪ landmark rows index the state without its sphere rows
+    m, tr0 = pd.m, pd.rot_size + pd.m
+    perm_src = np.where(F.perm >= tr0, F.perm - m, F.perm)
+    inv_src = np.empty_like(perm_src)
+    inv_src[perm_src] = np.arange(len(perm_src))
+    dev = pd.device
+
+    def T(x):
+        return torch.as_tensor(np.asarray(x, np.float64)).to(dev, dt)
+
+    c_val = (pd.rng_omega * pd.rng_r).to(dt) if F.sphere_coupled else \
+        torch.zeros(m, dtype=dt, device=dev)
+    return dict(
+        Linv=T(F.Linv), AF=T(AF), levels=levels,
+        perm=torch.as_tensor(perm_src, device=dev),
+        inv_perm=torch.as_tensor(inv_src, device=dev),
+        s_sph=T(F.s_sph), c_val=c_val, C=T(F.C), BinvC=T(F.BinvC),
+        cap_inv=T(F.cap_inv), bandwidth=F.bandwidth,
+    )
+
+
+def _solve_band(fac: dict, b: torch.Tensor) -> torch.Tensor:
+    """B⁻¹b for b (nb, w, r): the forward doubling scan L⁻¹ and its exact
+    adjoint, so B⁻¹ = L⁻ᵀL⁻¹ stays symmetric PSD whatever the rounding of
+    the stored propagators."""
+    Linv, AF = fac["Linv"], fac["AF"]
+    nb = Linv.shape[0]
+    u = Linv @ b
+    for k in range(fac["levels"]):
+        s = 1 << k
+        u[s:] += AF[k, s:] @ u[:nb - s]
+    for k in reversed(range(fac["levels"])):
+        s = 1 << k
+        u[:nb - s] += AF[k, s:].transpose(1, 2) @ u[s:]
+    return Linv.transpose(1, 2) @ u
+
+
+def banded_apply(pd: ProblemData, fac: dict, V: torch.Tensor) -> torch.Tensor:
+    """V ↦ M⁻¹V from a `device_factor`: sphere elimination → permuted band
+    solve → Woodbury landmark correction → sphere back-substitution."""
+    Linv = fac["Linv"]
+    V = V.to(Linv.dtype)
+    nb, w = Linv.shape[:2]
+    r = V.shape[1]
+    m, sph0 = pd.m, pd.rot_size
+    tr0 = sph0 + m
+    nq = fac["C"].shape[0]
+    if m:
+        cw = fac["c_val"][:, None] * (V[sph0:tr0] / fac["s_sph"][:, None])
+        v_tr = V[tr0:] - pd.incidence.rng(torch.cat([-cw, cw]))
+    else:
+        v_tr = V[tr0:]
+    v_bl = torch.cat([V[:sph0], v_tr])[fac["perm"]]
+    b = v_bl.new_zeros((nb * w, r))
+    b[:nq] = v_bl[:nq]
+    y1 = _solve_band(fac, b.view(nb, w, r)).reshape(nb * w, r)[:nq]
+    if fac["C"].shape[1]:
+        y2 = fac["cap_inv"] @ (v_bl[nq:] - fac["C"].T @ y1)
+        x_bl = torch.cat([y1 - fac["BinvC"] @ y2, y2])
+    else:
+        x_bl = torch.cat([y1, v_bl[nq:]])
+    out = x_bl[fac["inv_perm"]]  # the state without its sphere rows
+    if not m:
+        return out
+    x_tr = out[sph0:]
+    xs = (V[sph0:tr0] - fac["c_val"][:, None] * (
+        x_tr[pd.rng_tj] - x_tr[pd.rng_ti])) / fac["s_sph"][:, None]
+    return torch.cat([out[:sph0], xs, out[sph0:]])
+
+
+def make_device_apply(pd: ProblemData, F: BandedFactorHost, dtype=None):
+    """The factorization as a `PrecondOp` on `pd`'s device."""
+    from cora_tpu_torch.precond import PrecondOp
+
+    return PrecondOp(banded_apply, device_factor(pd, F, dtype), pd)
+
+
+def banded_cholesky_preconditioner(problem, pd: ProblemData,
+                                   max_cond: float = 1e6, dtype=None):
+    """The RegularizedCholesky preconditioner (Q + λI)⁻¹ with
+    λ = ‖Q‖₂/(κ−1) (reference `CORA_problem.cpp:590-591`)."""
+    Q = problem.data_matrix()
+    lam = estimate_spectral_norm(Q) / (max_cond - 1.0)
+    F = factor_banded(problem, problem.device_data(np.float64, "cpu"), Q, lam)
+    apply = make_device_apply(pd, F, dtype)
+    apply.n_dropped = F.n_dropped
+    return apply
+
+
+def block_cholesky_preconditioner(problem, pd: ProblemData, dtype=None,
+                                  reg: float = 1e-3):
+    """The reference's BlockCholesky: one factor per variable type of
+    Q + 1e-3·I — rotations, unit spheres, translations — with the
+    cross-type blocks dropped (`src/CORA_problem.cpp:513-543`), on the
+    same banded + Woodbury machinery."""
+    Q = problem.data_matrix().tocoo()
+    nd = pd.rot_size
+    type_of = np.digitize(np.arange(pd.size), [nd, nd + pd.m])
+    mask = type_of[Q.row] == type_of[Q.col]
+    Q_bd = sp.csr_matrix((Q.data[mask], (Q.row[mask], Q.col[mask])),
+                         shape=Q.shape)
+    F = dataclasses.replace(
+        factor_banded(None, problem.device_data(np.float64, "cpu"), Q_bd,
+                      reg), sphere_coupled=False)
+    apply = make_device_apply(pd, F, dtype)
+    apply.n_dropped = F.n_dropped
+    return apply

@@ -9,10 +9,11 @@ to its 1e-6 gradient tolerance in double precision
 Newton-CG in float64, preconditioned by the exact banded factor of
 Q + λI, with a batched Armijo backtracking ladder.
 
-It runs on the solve's device, on the plain chain ops
-(`cora_tpu_torch.ops.chain`) of a float64 plan — the H100 has native
-float64, so the polished point is a stationary point of the same
-objective, evaluated by the same operators the solver uses.
+It runs on the solve's device in float64 (the H100 has native float64),
+on every graph with the canonical ops (`cora_tpu_torch.ops.riemannian`)
+and the float64 RegularizedCholesky banded preconditioner
+(`cora_tpu_torch.precond.banded`), as the JAX package's polish does
+(`cora_tpu/solve/polish.py:247-352`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import time
 import numpy as np
 import torch
 
-from cora_tpu_torch.ops import chain
+from cora_tpu_torch.ops import riemannian as rm
+from cora_tpu_torch.ops.quadratic import data_matrix_product
 
 # zero columns are exactly invariant under the whole polish; the JAX
 # package pads to one width to compile once, and the port keeps the same
@@ -53,25 +55,29 @@ def _q_norm(problem) -> float:
     return cached
 
 
-def newton_step(plan, Y, tau: float, max_cg: int):
+def _dot(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return (A * B).sum()
+
+
+def newton_step(pd, precon, Y, tau: float, max_cg: int):
     """f and grad at Y, plus the damped-Newton direction s from a
     preconditioned CG solve of (Hess + τI)s = −grad (negative-curvature
     truncation, superlinear forcing term). Returns (f, grad, ‖grad‖, s,
     ⟨grad, s⟩, CG iterations)."""
-    nablaF = chain.qv(plan, Y)
-    f = 0.5 * float(chain.dot(Y, nablaF))
-    grad = chain.tangent_project(plan, Y, nablaF)
-    gn = float(torch.sqrt(chain.dot(grad, grad)))
+    nablaF = data_matrix_product(pd, Y)
+    f = 0.5 * float(_dot(Y, nablaF))
+    grad = rm.tangent_space_projection(pd, Y, nablaF)
+    gn = float(torch.sqrt(_dot(grad, grad)))
 
     def hess(v):
-        return chain.hvp(plan, Y, nablaF, v) + tau * v
+        return rm.riemannian_hvp(pd, Y, nablaF, v) + tau * v
 
     def prec(v):
-        return chain.tangent_project(plan, Y, chain.precon_solve(plan, v))
+        return rm.tangent_space_projection(pd, Y, precon(v))
 
     tiny = float(np.finfo(np.float64).tiny)
     z0 = prec(grad)
-    rz0 = float(chain.dot(grad, z0))
+    rz0 = float(_dot(grad, z0))
     rz_stop = rz0 * min(0.25, np.sqrt(max(rz0, 0.0))) ** 2
     s = torch.zeros_like(grad)
     r, d, rz = grad, -z0, rz0
@@ -79,7 +85,7 @@ def newton_step(plan, Y, tau: float, max_cg: int):
     done = rz0 <= 0
     while k < max_cg and not done:
         Hd = hess(d)
-        dHd = float(chain.dot(d, Hd))
+        dHd = float(_dot(d, Hd))
         neg = dHd <= 0
         alpha = rz / (tiny if dHd == 0 else dHd)
         if neg:
@@ -88,28 +94,28 @@ def newton_step(plan, Y, tau: float, max_cg: int):
             s = s + alpha * d
         r = r + alpha * Hd
         z = prec(r)
-        rz_new = float(chain.dot(r, z))
+        rz_new = float(_dot(r, z))
         conv = rz_new <= rz_stop
         beta = rz_new / (tiny if rz == 0 else rz)
         d = -z + beta * d
         rz = rz_new
         k += 1
         done = neg or conv
-    gdir = float(chain.dot(grad, s))
+    gdir = float(_dot(grad, s))
     if not gdir < 0:  # not a descent direction: preconditioned steepest
         s, gdir = -z0, -rz0
     return f, grad, gn, s, gdir, k
 
 
-def probe_ladder(plan, Y, s, alphas):
+def probe_ladder(pd, Y, s, alphas):
     """The whole Armijo ladder in one batched pass: the retractions
     project(Y + α s) for every α and their f, with one host read. The
-    trial states go through `qv` side by side as columns (Q acts on each
+    trial states go through Q side by side as columns (Q acts on each
     column alone). Returns (trial states (B, N, r), f (B,) on the host)."""
     N, r = Y.shape
     a = torch.as_tensor(alphas, dtype=Y.dtype, device=Y.device)
-    Yb = chain.project_manifold(plan, Y + a[:, None, None] * s)
-    QYb = chain.qv(plan, Yb.permute(1, 0, 2).reshape(N, -1))
+    Yb = rm.project_to_manifold(pd, Y + a[:, None, None] * s)
+    QYb = data_matrix_product(pd, Yb.permute(1, 0, 2).reshape(N, -1))
     QYb = QYb.reshape(N, len(alphas), r).permute(1, 0, 2)
     f = 0.5 * (Yb * QYb).sum((1, 2))
     return Yb, f.cpu().numpy()
@@ -134,11 +140,13 @@ def polish_solution(
     |grad|). `grad_tol` defaults to 1e-6·‖Q‖₂, the reference's 1e-6
     gradient tolerance (`src/CORA.cpp:100-101`) made scale-invariant.
     """
-    from cora_tpu_torch.solve.tnt_kernel import get_chain_plan
+    from cora_tpu_torch.types import Preconditioner
 
     if grad_tol is None:
         grad_tol = 1e-6 * max(1.0, _q_norm(problem))
-    plan = get_chain_plan(problem, np.float64, device, max_cond)
+    pd = problem.device_data(np.float64, device)
+    precon = problem.preconditioner_fn(
+        Preconditioner.REGULARIZED_CHOLESKY, np.float64, max_cond, device)
     if isinstance(Y, torch.Tensor):
         Y = Y.detach()
     Yin = torch.as_tensor(np.asarray(Y.cpu() if isinstance(Y, torch.Tensor)
@@ -147,7 +155,7 @@ def polish_solution(
     r_pad = max(r_in, POLISH_PAD_RANK)
     Y = torch.zeros((Yin.shape[0], r_pad), dtype=torch.float64)
     Y[:, :r_in] = Yin
-    Y = chain.project_manifold(plan, Y.to(plan.device))
+    Y = rm.project_to_manifold(pd, Y.to(device))
     t0 = time.time()
 
     gn = float("inf")
@@ -158,17 +166,18 @@ def polish_solution(
             status = "time_budget"
             break
         tau = min(1.0, gn if np.isfinite(gn) else 1.0)
-        f, _, gn, s, gdir, _ = newton_step(plan, Y, tau, max_tcg_iterations)
+        f, _, gn, s, gdir, _ = newton_step(pd, precon, Y, tau,
+                                           max_tcg_iterations)
         if gn <= grad_tol:
             status = "gradient_tolerance"
             break
-        Y_props, f_props = probe_ladder(plan, Y, s, ALPHAS)
+        Y_props, f_props = probe_ladder(pd, Y, s, ALPHAS)
         ok = (f_props <= f + 1e-4 * ALPHAS * gdir) | (f_props < f)
         if not ok.any():
             status = "line_search_failure"
             break
         Y = Y_props[int(np.argmax(ok))]  # the largest accepted step
-    f, _, gn, _, _, _ = newton_step(plan, Y, 1.0, 1)
+    f, _, gn, _, _, _ = newton_step(pd, precon, Y, 1.0, 1)
     if gn <= grad_tol:
         status = "gradient_tolerance"
     return PolishResult(

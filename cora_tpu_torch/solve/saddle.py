@@ -1,0 +1,72 @@
+"""Saddle escape along a negative-curvature direction, on the canonical ops.
+
+Parity with `saddleEscape` (reference `src/CORA.cpp:245-350`) and with the
+JAX package's XLA path (`cora_tpu/solve/saddle.py`): after the rank goes
+r → r+1, the uncertified solution Y is lifted by a zero column and a step
+is taken along Ẏ = e_{r+1} vᵀ, v the negative-curvature eigenvector of
+the certificate. The ±α ladder (both signs, since an eigenvector's sign is
+arbitrary; α from max(100·tol/|θ|, 1) halving 24 times) is evaluated
+trial by trial, and the largest step that decreases the objective with
+both gradient norms above the stopping tolerances wins; else the best
+strict decrease; else the lifted saddle itself.
+
+The preconditioned norm here is ‖Proj(P g)‖, the XLA path's; the chain
+kernels' ladder uses √⟨g, P g⟩ as the JAX kernel does, so each path keeps
+its own twin's measure.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cora_tpu_torch.ops.quadratic import data_matrix_product
+from cora_tpu_torch.ops.riemannian import retract, tangent_space_projection
+
+N_ALPHAS = 24  # α ladder: alpha0 / 2^k, k = 0..N_ALPHAS-1
+
+
+def _trial(pd, Y_aug, Ydot, alpha: float, precon):
+    """(f, ‖grad‖, ‖Proj(P grad)‖) at retract(Y_aug, α·Ẏ), on the device."""
+    Y = retract(pd, Y_aug, alpha * Ydot)
+    QY = data_matrix_product(pd, Y)
+    grad = tangent_space_projection(pd, Y, QY)
+    pgrad = tangent_space_projection(pd, Y, precon(grad))
+    return torch.stack([0.5 * (Y * QY).sum(), torch.linalg.vector_norm(grad),
+                        torch.linalg.vector_norm(pgrad)])
+
+
+def saddle_escape(pd, Y: torch.Tensor, theta: float, v, precon,
+                  gradient_tolerance: float = 1e-4,
+                  preconditioned_gradient_tolerance: float = 1e-4,
+                  verbose: bool = False) -> torch.Tensor:
+    """Escape the rank-r saddle Y into rank r+1; returns the (N, r+1)
+    state."""
+    N, _ = Y.shape
+    Y_aug = torch.cat([Y, Y.new_zeros((N, 1))], dim=1)
+    QY = data_matrix_product(pd, Y_aug)
+    f_saddle = float(0.5 * (Y_aug * QY).sum())
+    Ydot = torch.zeros_like(Y_aug)
+    Ydot[:, -1] = torch.as_tensor(np.asarray(v).reshape(N)).to(Ydot)
+
+    # the JAX package's floor 16·α_min (1.6e-5) never binds under 1
+    alpha0 = max(100 * gradient_tolerance / abs(theta), 1.0)
+    alphas = torch.tensor(alpha0 * 0.5 ** np.arange(N_ALPHAS),
+                          dtype=Y.dtype).tolist()
+    signed = np.stack([alphas, [-a for a in alphas]], axis=1).reshape(-1)
+    f, gn, pgn = torch.stack([
+        _trial(pd, Y_aug, Ydot, float(a), precon) for a in signed
+    ], dim=1).cpu().numpy()
+
+    ok = ((f < f_saddle) & (gn > gradient_tolerance)
+          & (pgn > preconditioned_gradient_tolerance))
+    if ok.any():
+        best = int(np.argmax(ok))  # the largest acceptable step
+    elif f.min() < f_saddle:
+        best = int(np.argmin(f))  # the best strict decrease
+    else:
+        if verbose:
+            print("WARNING: saddle-escape line search failed to escape the "
+                  "saddle point")
+        return Y_aug
+    return retract(pd, Y_aug, float(signed[best]) * Ydot)

@@ -79,7 +79,7 @@ def tnt_solve_tiles(
             k + chunk_iters, iter_cap)
         fscal.copy_(torch.tensor(
             [f, gn, pgn, Delta, lift_grad_norm, stall_tol, 0.0, 0.0],
-            dtype=torch.float32))
+            dtype=fscal.dtype))
         iscal.copy_(torch.tensor(
             [k, status, finish, dec, stp, chunk_end, tcg_cap,
              int(ramp_iterations), int(ramp_tcg), int(stall_window),

@@ -32,7 +32,8 @@ IDS = ["2d", "3d", "2d-n14"]
 
 def test_port_imports_without_jax():
     code = ("import sys, cora_tpu_torch, cora_tpu_torch.solve.staircase, "
-            "cora_tpu_torch.ops.tnt_kernels; "
+            "cora_tpu_torch.ops.tnt_kernels, cora_tpu_torch.io.pyfg, "
+            "cora_tpu_torch.models.init, cora_tpu_torch.precond.banded; "
             "assert 'jax' not in sys.modules; "
             "assert 'cora_tpu' not in sys.modules")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

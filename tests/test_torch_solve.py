@@ -37,7 +37,7 @@ from cora_tpu.types import SolverConfig as JaxConfig  # noqa: E402
 from cora_tpu.types import TNTParams as JaxTNTParams  # noqa: E402
 from cora_tpu.utils.evaluation import evaluate_ate as jax_ate  # noqa: E402
 from cora_tpu_torch.models.synthetic import synthetic_problem  # noqa: E402
-from cora_tpu_torch.ops import chain  # noqa: E402
+from cora_tpu_torch.ops.riemannian import project_to_manifold  # noqa: E402
 from cora_tpu_torch.solve import staircase  # noqa: E402
 from cora_tpu_torch.solve.certify import certify_solution  # noqa: E402
 from cora_tpu_torch.solve.polish import ALPHAS, probe_ladder  # noqa: E402
@@ -136,11 +136,11 @@ def test_polish_ladder_matches_jax(g):
     against the JAX package's `probe_ladder`, to 1e-12 in float64."""
     jp = jax_problem(**g)
     jax_ladder = _jax_polish_kernels(jp, 1e6)[3]
-    plan = chain.build_chain_plan(synthetic_problem(**g), dtype=np.float64)
-    Y = chain.project_manifold(plan, torch.as_tensor(
+    pd = synthetic_problem(**g).device_data(np.float64)
+    Y = project_to_manifold(pd, torch.as_tensor(
         _x0(jp.data_matrix_size, g["dim"] + 1)))
     s = torch.as_tensor(np.random.default_rng(5).standard_normal(Y.shape))
-    Yb, f = probe_ladder(plan, Y, s, ALPHAS)
+    Yb, f = probe_ladder(pd, Y, s, ALPHAS)
     ref_Yb, ref_f = jax_ladder(jnp.asarray(Y.numpy()), jnp.asarray(s.numpy()),
                                jnp.asarray(ALPHAS))
     ref_Yb, ref_f = np.asarray(ref_Yb), np.asarray(ref_f)
