@@ -7,11 +7,20 @@ Phases, each printing its results before the next starts; any failure
 raises and the script exits non-zero:
 
   1. device — the card's name and power limit (nvidia-smi), the torch and
-     CUDA versions, and the build of the CUDA kernels from `ops/csrc/`;
+     CUDA versions, the build of the CUDA kernels from `ops/csrc/` and, in
+     parallel, of `scripts/probe_cluster_sync.cu`; the probe's barrier
+     costs (`__syncthreads`, `cluster.sync()` at 2-16 CTAs, `grid.sync()`)
+     and L2 read rates, and the cluster size C of `chunk` and `tcg`;
   2. kernels — each of `step`, `tcg`, `chunk` and `ladder` against its
      plain PyTorch version on the card, on the plaza2-shaped graph (2D,
      ranks 4 and 6) and the single_drone-shaped graph (3D, rank 5), with
-     the CPU tests' tolerances; both timed (median of 20, CUDA events);
+     the CPU tests' tolerances; both timed (median of 20, CUDA events).
+     `chunk` and `tcg` run as one cluster of C CTAs; their single-CTA
+     comparators (`chunk_block`, `tcg_block`) are held to the plain
+     versions too and timed against them in turns (block, cluster,
+     cluster, block), with µs per tCG iteration. `tcg` runs a case that
+     stops at the boundary after one iteration and one that runs tens of
+     iterations (∇F = 0, Δ = 1e8); the second is timed and bounded;
   3. slice — `solve_cora` on both graphs with bench.py's configuration and
      the kernels, from the numpy-seeded start, and on the plaza2-shaped
      graph from rank d (the run that takes a saddle escape), each gated
@@ -23,7 +32,8 @@ raises and the script exits non-zero:
      on the card. Every solve's first TNT level is also held, iteration
      by iteration over its first chunk, to the JAX run's first level from
      the same projected start: a check that does not depend on where the
-     rest of the staircase lands;
+     rest of the staircase lands. Each solve prints its total tCG
+     iterations and the TNT phases' wall per tCG iteration;
   4. level f64 — the single_drone-shaped graph's first level (rank 5) in
      float64 on the card, with the canonical `tnt_solve` and with the chain
      plain path on a float64 plan, from the fixture's start, against the
@@ -41,10 +51,15 @@ raises and the script exits non-zero:
      launched (the canonical path is plain PyTorch).
 
 The kernels' launch counts are zeroed just before the timed kernel-path
-solves and read just after them. The line before the last is one JSON
-object with the route, source, launches, error and times of each kernel
-the main path launches (`chunk`, `step`, `ladder`; `tcg`, whose loop runs
-inside `chunk`, gets a line of its own); the last line is
+solves and read just after them; the main path must launch the cluster
+`chunk`, `step` and `ladder`, and never a single-CTA comparator. The line
+before the last is one JSON object with the route, source, launches,
+error, times and bound of each kernel the main path launches (`chunk`,
+`step`, `ladder`; `tcg`, whose loop runs inside `chunk`, gets a line of its
+own). A kernel's bound is the larger of its bytes (inputs read once,
+outputs written once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s, and its
+dependent group-barrier phases (`tnt_kernels.work_counts`) times the
+barrier cost the probe measured in this run; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -113,7 +128,36 @@ def median_ms(fn, torch, prepare=None):
     return statistics.median(times[2:])
 
 
+def ptxas_summary(log):
+    """(kernel, registers, spill store bytes, spill load bytes) per entry
+    of nvcc's `-Xptxas -v` output."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(step|tcg|chunk|ladder)_kernelILi(\d)E(\d+\w+?G"
+                          r"roup(?:ILi(\d+)E)?)?", m.group(1))
+            name = (f"{k.group(1)}<d={k.group(2)}"
+                    + (f", cluster {k.group(4)}"
+                       if k.group(4) else
+                       ", one CTA" if k.group(3) else "") + ">") if k else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
+
+
 def phase_device():
+    """The card, the build of the kernels and of the barrier probe (one
+    nvcc each, started together), and the probe's numbers."""
+    import concurrent.futures
+
     import torch
 
     if not torch.cuda.is_available():
@@ -129,28 +173,69 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import probe_cluster_sync as probe
+
     from cora_tpu_torch.ops import tnt_kernels
 
     t0 = time.time()
-    tnt_kernels.load_library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        kernels = pool.submit(tnt_kernels.load_library)
+        probe_lib = pool.submit(probe.build)
+        kernels.result()
+        probe_lib = probe_lib.result()
     build_s = time.time() - t0
+    C, info = tnt_kernels.CLUSTER, tnt_kernels.BUILD_INFO
     print(smi, flush=True)
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | python "
-          f"{sys.version.split()[0]} | kernels built in {build_s:.1f} s "
-          f"({tnt_kernels.BUILD_INFO['path']})", flush=True)
+          f"{sys.version.split()[0]} | kernels and probe built in "
+          f"{build_s:.1f} s ({info['path']})", flush=True)
+    for name, regs, st, ld in ptxas_summary(info["log"]):
+        print(f"[device] ptxas {name}: {regs} registers, spills {st} B stored"
+              f" / {ld} B loaded", flush=True)
+    res = probe.measure(probe_lib, quick=True)
+    print("[device] probe: __syncthreads (1024 threads) "
+          f"{res['syncthreads_us']:.4f} us; cluster.sync " + ", ".join(
+              f"{c} CTAs {v:.4f} us ({res['max_active_clusters'][c]} fit)"
+              for c, v in res["cluster_sync_us"].items())
+          + f"; grid.sync ({res['grid_blocks']} CTAs) {res['grid_sync_us']:.4f}"
+          " us; L2 read " + ", ".join(
+              f"{b} SMs {v:.1f} GB/s" for b, v in res["l2_read_GBps"].items()),
+          flush=True)
+    print(f"[device] chunk and tcg: one cluster of C = {C} CTAs of 1024 "
+          "threads", flush=True)
+    check(res["max_active_clusters"][str(C)] >= 1,
+          f"no cluster of {C} CTAs fits on the card")
+    return res
 
 
-def phase_kernels(problems, hp):
+def bound(wc, barrier_us):
+    """(bound ms, bound_by, term): the larger of the bytes over 3.35 TB/s,
+    the FLOPs over the float32 peak (67 TFLOP/s) and the dependent
+    group-barrier phases times the measured barrier."""
+    terms = {"bytes": wc["bytes"] / 3.35e12 * 1e3,
+             "flops": wc["flops"] / 67e12 * 1e3,
+             "barriers": wc["phases"] * barrier_us * 1e-3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def phase_kernels(problems, hp, probe):
     import numpy as np
     import torch
 
-    from cora_tpu_torch.ops import chain
+    from cora_tpu_torch.ops import tnt_kernels
     from cora_tpu_torch.ops.riemannian import random_initial_guess
     from cora_tpu_torch.ops.tnt_kernels import CudaTNT, PlainTNT
     from cora_tpu_torch.solve.tnt_kernel import get_chain_plan
 
     stats = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in REPLACES}
+    C = tnt_kernels.CLUSTER
+    barrier_us = {"step": probe["syncthreads_us"],
+                  "ladder": probe["syncthreads_us"],
+                  "tcg": probe["cluster_sync_us"][str(C)],
+                  "chunk": probe["cluster_sync_us"][str(C)]}
 
     def note(name, a, b, tol, what):
         e = rel(a, b)
@@ -158,6 +243,12 @@ def phase_kernels(problems, hp):
         s = stats[name]
         s["max_abs_err"] = max(s["max_abs_err"], absdiff(a, b))
         s["max_rel_err"] = max(s["max_rel_err"], e)
+
+    def in_turns(run):
+        """Median times of run(block) in turns block, cluster, cluster,
+        block: (block ms, cluster ms, all four)."""
+        t = [run(b) for b in (True, False, False, True)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
     for ci, (gname, rank) in enumerate(KERNEL_CASES):
         problem = problems[gname]
@@ -168,7 +259,7 @@ def phase_kernels(problems, hp):
         Y = random_initial_guess(pd, rank, gen).contiguous()
         V = (0.1 * torch.randn(Y.shape, generator=gen, dtype=torch.float64)
              ).to(Y).contiguous()
-        times = {}
+        times, extra, work = {}, {}, {}
 
         for flag in (1, 0):
             a, b = cu.step(Y, V, flag), pl.step(Y, V, flag)
@@ -179,20 +270,53 @@ def phase_kernels(problems, hp):
                      f"flag {flag} scalar {i}")
         times["step"] = (median_ms(lambda: cu.step(Y, V, 1), torch),
                          median_ms(lambda: pl.step(Y, V, 1), torch))
+        work["step"] = tnt_kernels.work_counts(plan, rank, 0, "step")
 
         _, QY, G, _ = pl.step(Y, V, False)
-        (sa, ta), (sb, tb) = cu.tcg(G, Y, QY, 5.0, 80), pl.tcg(G, Y, QY, 5.0, 80)
-        ta, tb = ta.tolist(), tb.tolist()
-        check(abs(ta[2] - tb[2]) <= 2, f"tcg iterations {ta[2]} vs {tb[2]}")
-        check(ta[1] == tb[1], f"tcg hit {ta[1]} vs {tb[1]}")
-        check(abs(ta[0] - tb[0]) <= TOL_MDEC * abs(tb[0]), f"tcg mdec {ta} {tb}")
-        check(abs(ta[3] - tb[3]) <= TOL_SNORM * abs(tb[3]), f"tcg |s| {ta} {tb}")
-        stats["tcg"]["max_abs_err"] = max(stats["tcg"]["max_abs_err"],
-                                         absdiff(sa, sb))
-        stats["tcg"]["max_rel_err"] = max(stats["tcg"]["max_rel_err"],
-                                         rel(sa, sb))
-        times["tcg"] = (median_ms(lambda: cu.tcg(G, Y, QY, 5.0, 80), torch),
-                        median_ms(lambda: pl.tcg(G, Y, QY, 5.0, 80), torch))
+        # two tCG cases: Δ = 5 at ∇F = QY stops at the boundary (negative
+        # curvature) within an iteration or so; ∇F = 0 drops the Hessian's
+        # Weingarten term, leaving the projected Q, positive semidefinite,
+        # and Δ = 1e8 never binds, so the solve runs tens of iterations to
+        # its residual test: the case that is timed and bounded
+        cases = {"boundary": (QY, 5.0), "long": (torch.zeros_like(QY), 1e8)}
+        iters = {}
+        for case, (nF, delta) in cases.items():
+            sb, tb = pl.tcg(G, Y, nF, delta, 80)
+            tb = tb.tolist()
+            for block in (False, True):  # the cluster kernel, its comparator
+                sa, ta = cu.tcg(G, Y, nF, delta, 80, block=block)
+                ta = ta.tolist()
+                what = f"tcg {case}" + (" (one CTA)" if block else "")
+                check(abs(ta[2] - tb[2]) <= 2,
+                      f"{what} iterations {ta[2]} vs {tb[2]}")
+                check(ta[1] == tb[1], f"{what} hit {ta[1]} vs {tb[1]}")
+                check(abs(ta[0] - tb[0]) <= TOL_MDEC * abs(tb[0]),
+                      f"{what} mdec {ta} {tb}")
+                check(abs(ta[3] - tb[3]) <= TOL_SNORM * abs(tb[3]),
+                      f"{what} |s| {ta} {tb}")
+                if not block:
+                    stats["tcg"]["max_abs_err"] = max(
+                        stats["tcg"]["max_abs_err"], absdiff(sa, sb))
+                    stats["tcg"]["max_rel_err"] = max(
+                        stats["tcg"]["max_rel_err"], rel(sa, sb))
+                iters[case, block] = ta[2]
+        print(f"[kernels] {gname} r={rank}: tcg iterations (cluster, one CTA)"
+              f": " + ", ".join(f"{c} {iters[c, False]:.0f}, "
+                                f"{iters[c, True]:.0f}" for c in cases),
+              flush=True)
+        check(iters["long", False] >= 10,
+              f"tcg long case ran {iters['long', False]} iterations")
+        nF, delta = cases["long"]
+        blk, clu, turns = in_turns(lambda b: median_ms(
+            lambda: cu.tcg(G, Y, nF, delta, 80, block=b), torch))
+        times["tcg"] = (clu, median_ms(lambda: pl.tcg(G, Y, nF, delta, 80),
+                                       torch))
+        extra["tcg"] = dict(
+            block_ms=blk, turns_ms=turns,
+            us_per_tcg_iter=1e3 * clu / iters["long", False],
+            block_us_per_tcg_iter=1e3 * blk / iters["long", True])
+        work["tcg"] = tnt_kernels.work_counts(
+            plan, rank, int(iters["long", False]), "tcg", parts=C)
 
         def chunk_args():
             fs = torch.tensor([0, 0, 0, 5.0, float("inf"), 1e-4, 0, 0],
@@ -203,17 +327,36 @@ def phase_kernels(problems, hp):
             return (Y.clone(), torch.zeros_like(Y), torch.zeros_like(Y), fs,
                     isc, hist)
 
-        ra, rb = chunk_args(), chunk_args()
-        cu.chunk(*ra)
+        rb = chunk_args()
         pl.chunk(*rb)
-        check(ra[4][:5].tolist() == rb[4][:5].tolist(),
-              f"chunk k/status/streaks {ra[4][:5].tolist()} vs "
-              f"{rb[4][:5].tolist()}")
-        note("chunk", ra[0], rb[0], TOL_STATE, "Y")
-        note("chunk", ra[3][:1], rb[3][:1], TOL_F, "f")
-        note("chunk", ra[5][0, :8], rb[5][0, :8], TOL_F, "f history")
-        times["chunk"] = (median_ms(cu.chunk, torch, chunk_args),
-                          median_ms(pl.chunk, torch, chunk_args))
+        its = {}
+        for block in (False, True):
+            ra = chunk_args()
+            cu.chunk(*ra, block=block)
+            what = "chunk (one CTA)" if block else "chunk"
+            check(ra[4][:5].tolist() == rb[4][:5].tolist(),
+                  f"{what} k/status/streaks {ra[4][:5].tolist()} vs "
+                  f"{rb[4][:5].tolist()}")
+            if block:
+                check(rel(ra[0], rb[0]) < TOL_STATE and
+                      rel(ra[3][:1], rb[3][:1]) < TOL_F and
+                      rel(ra[5][0, :8], rb[5][0, :8]) < TOL_F,
+                      f"{what}: state, f or f history off the plain version")
+            else:
+                note("chunk", ra[0], rb[0], TOL_STATE, "Y")
+                note("chunk", ra[3][:1], rb[3][:1], TOL_F, "f")
+                note("chunk", ra[5][0, :8], rb[5][0, :8], TOL_F, "f history")
+                outer = int(ra[4][0])
+            its[block] = float(ra[5][4, :8].sum())
+        blk, clu, turns = in_turns(lambda b: median_ms(
+            lambda *a: cu.chunk(*a, block=b), torch, chunk_args))
+        times["chunk"] = (clu, median_ms(pl.chunk, torch, chunk_args))
+        extra["chunk"] = dict(block_ms=blk, turns_ms=turns,
+                              us_per_tcg_iter=1e3 * clu / its[False],
+                              block_us_per_tcg_iter=1e3 * blk / its[True])
+        work["chunk"] = tnt_kernels.work_counts(
+            plan, rank, int(its[False]), "chunk", outer_iters=outer,
+            init=True, parts=C)
 
         al = 4.0 * 0.5 ** np.arange(24)
         al = torch.tensor(np.stack([al, -al], 1).reshape(-1),
@@ -223,22 +366,45 @@ def phase_kernels(problems, hp):
             note("ladder", la[i], lb[i], tol, f"row {i}")
         times["ladder"] = (median_ms(lambda: cu.ladder(Y, V, al), torch),
                            median_ms(lambda: pl.ladder(Y, V, al), torch))
+        work["ladder"] = tnt_kernels.work_counts(plan, rank, 0, "ladder",
+                                                 alphas=len(al))
         torch.cuda.synchronize()
         line = " | ".join(f"{k} {v[0]:.3f} ms (plain {v[1]:.3f} ms)"
                           for k, v in times.items())
         print(f"[kernels] {gname} r={rank}: {line}", flush=True)
+        for k, e in extra.items():
+            print(f"[kernels] {gname} r={rank}: {k} one CTA {e['block_ms']:.3f}"
+                  f" ms against the {C}-CTA cluster {times[k][0]:.3f} ms (in "
+                  f"turns block, cluster, cluster, block: " + ", ".join(
+                      f"{t:.3f}" for t in e["turns_ms"]) + f" ms); per tCG "
+                  f"iteration {e['block_us_per_tcg_iter']:.2f} against "
+                  f"{e['us_per_tcg_iter']:.2f} us", flush=True)
         if ci == 0:  # the main path's first level: the reported times
             for k, v in times.items():
-                stats[k]["ms"], stats[k]["plain_ms"] = v
+                b_ms, b_by, b_term = bound(work[k], barrier_us[k])
+                stats[k].update(ms=v[0], plain_ms=v[1], bound_ms=b_ms,
+                                bound_by=b_by, bound_term=b_term,
+                                library_ms=None, work=work[k])
+                if k in extra:
+                    stats[k].update(
+                        group=f"cluster of {C} CTAs",
+                        **{x: extra[k][x] for x in (
+                            "us_per_tcg_iter", "block_ms",
+                            "block_us_per_tcg_iter")})
+                else:
+                    stats[k]["group"] = "one CTA per launch"
     print("[kernels] max errors vs plain: " + " | ".join(
         f"{k} abs {v['max_abs_err']:.3e} rel {v['max_rel_err']:.3e}"
+        for k, v in stats.items()), flush=True)
+    print("[kernels] bounds (plaza2-shaped, r=4): " + " | ".join(
+        f"{k} {v['bound_ms']:.4f} ms by {v['bound_term']} ({v['work']})"
         for k, v in stats.items()), flush=True)
     return stats
 
 
 def solve_once(problem, cfg, x0, device="cuda"):
-    """`solve_cora` from x0: (result, wall s, ATE, the first TNT level's
-    result). The staircase's `tnt_solve_tiles` (chain kernels) and
+    """`solve_cora` from x0: (result, wall s, ATE, every TNT level's result
+    in order). The staircase's `tnt_solve_tiles` (chain kernels) and
     `tnt_solve` (canonical path) are wrapped for the call to keep the level
     results."""
     import torch
@@ -269,7 +435,7 @@ def solve_once(problem, cfg, x0, device="cuda"):
             setattr(staircase, name, solve)
     ate = float(evaluate_ate(problem,
                              staircase.extract_solution(problem, cfg, res)))
-    return res, wall, ate, levels[0]
+    return res, wall, ate, levels
 
 
 def check_first_level(name, level, ref):
@@ -397,8 +563,13 @@ def phase_slice(problems, reference):
     warm = {name: solve_once(problems[name], config(name, "auto"),
                              starts[name])[0] for name in bench}
     tnt_kernels.reset_launch_counts()
-    results = {name: solve_once(problems[name], config(name, "auto"),
-                                starts[name]) for name in runs}
+    results, per_solve, before = {}, {}, {}
+    for name in runs:
+        results[name] = solve_once(problems[name], config(name, "auto"),
+                                   starts[name])
+        per_solve[name] = {k: v - before.get(k, 0)
+                           for k, v in tnt_kernels.LAUNCHES.items() if v}
+        before = dict(tnt_kernels.LAUNCHES)
     launches = dict(tnt_kernels.LAUNCHES)
     # the kernels and the float64 polish reduce in a fixed order: a second
     # solve from the same start ends on the same bits
@@ -407,9 +578,9 @@ def phase_slice(problems, reference):
         print(f"[slice] {name}: warm-up and timed solve end on the same "
               f"state: {same}", flush=True)
         check(same, f"{name}: two solves from one start differ")
-    for name, (res, wall, ate, level) in results.items():
+    for name, (res, wall, ate, levels) in results.items():
         ref = runs[name]
-        check_first_level(name, level, ref)
+        check_first_level(name, levels[0], ref)
         gate(name, problems[name], res, ate, ref)
         t_cert = (res.elapsed_to_certificate
                   if np.isfinite(res.elapsed_to_certificate) else wall)
@@ -422,15 +593,23 @@ def phase_slice(problems, reference):
               f"wall {wall:.3f} s phases "
               + json.dumps({k: round(v, 4) for k, v in res.phases.items()}),
               flush=True)
+        tcg_iters = int(sum(lv.inner_iterations.sum() for lv in levels))
+        tnt_s = res.phases.get("tnt_level", 0.0) + res.phases.get(
+            "tnt_refine", 0.0)
+        print(f"[slice] {name}: {tcg_iters} tCG iterations over "
+              f"{len(levels)} TNT levels; tnt_level + tnt_refine "
+              f"{tnt_s:.3f} s, {1e6 * tnt_s / max(tcg_iters, 1):.2f} us per "
+              f"tCG iteration", flush=True)
         print(f"[slice] {name} reference (JAX, CPU): " + json.dumps(
             {k: ref[k] for k in ("certified", "sdp_cost", "f", "ate",
                                  "ranks", "spread") if k in ref}), flush=True)
     print(f"[slice] launches in the timed kernel-path solves: "
-          f"{json.dumps(launches)}", flush=True)
+          f"{json.dumps(launches)}; per solve {json.dumps(per_solve)}",
+          flush=True)
     for name in bench:
-        res, wall, ate, level = solve_once(
+        res, wall, ate, levels = solve_once(
             problems[name], config(name, "never"), starts[name])
-        check_first_level(name + " (plain)", level, runs[name])
+        check_first_level(name + " (plain)", levels[0], runs[name])
         gate(name + " (plain)", problems[name], res, ate, runs[name])
         print(f"[slice] {name} plain: ranks {res.ranks_visited} certified "
               f"{res.certified} sdp_cost {res.sdp_cost:.6f} f "
@@ -560,7 +739,7 @@ def phase_general(reference, device="cuda"):
                            initialization=Initialization.ODOMETRY)
         tnt_kernels.reset_launch_counts()
         first = solve_once(problem, cfg, None, device)[0]
-        res, wall, ate, level = solve_once(problem, cfg, None, device)
+        res, wall, ate, levels = solve_once(problem, cfg, None, device)
         launches = dict(tnt_kernels.LAUNCHES)
         same = bool(torch.equal(first.result.x, res.result.x))
         fac = problem.preconditioner_fn(cfg.preconditioner, cfg.dtype,
@@ -573,7 +752,7 @@ def phase_general(reference, device="cuda"):
         check(same, f"{name}: two solves from one start differ")
         check(not any(launches.values()),
               f"{name}: the canonical path launched kernels {launches}")
-        check_first_level(name, level, ref)
+        check_first_level(name, levels[0], ref)
         spread = ref.get("spread")
         levels = max(len(r) for r in spread["ranks"]) if spread else \
             len(ref["ranks"])
@@ -597,7 +776,7 @@ def phase_general(reference, device="cuda"):
 
 def main():
     t_start = time.time()
-    phase_device()
+    probe = phase_device()
     import torch
 
     from cora_tpu_torch.models.synthetic import synthetic_problem
@@ -617,21 +796,31 @@ def main():
         return out
 
     stats = timed("kernels", phase_kernels, problems,
-                  HashableParams(TNTParams()))
+                  HashableParams(TNTParams()), probe)
     launches = timed("slice", phase_slice, problems, reference)
     for name in PATH_KERNELS:
         check(launches[name] > 0,
               f"{name} kernel not launched on the main path: {launches}")
+    check(launches["chunk_block"] == 0 and launches["tcg_block"] == 0,
+          f"the main path launched a single-CTA comparator: {launches}")
     timed("level_f64", phase_level_f64, problems, reference)
     timed("general", phase_general, reference)
     print("[smoke] seconds per phase: " + json.dumps(
         {k: round(v, 1) for k, v in took.items()}), flush=True)
 
-    kernels = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-                    launches=launches[k], max_abs_err=v["max_abs_err"],
-                    max_rel_err=v["max_rel_err"], ms=v["ms"],
-                    plain_ms=v["plain_ms"])
-               for k, v in stats.items()]
+    kernels = []
+    for k, v in stats.items():
+        entry = dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+                     launches=launches[k], max_abs_err=v["max_abs_err"],
+                     max_rel_err=v["max_rel_err"], ms=v["ms"],
+                     plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                     bound_by=v["bound_by"], bound_term=v["bound_term"],
+                     library_ms=v["library_ms"], group=v["group"])
+        if k in ("chunk", "tcg"):
+            entry.update(us_per_tcg_iter=v["us_per_tcg_iter"],
+                         block_ms=v["block_ms"],
+                         block_us_per_tcg_iter=v["block_us_per_tcg_iter"])
+        kernels.append(entry)
     # `tcg` is checked and timed in phase 2, but the main path runs its loop
     # inside `chunk`, not as a launch of its own: the JSON line lists the
     # kernels the path launches

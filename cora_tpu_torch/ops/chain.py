@@ -240,6 +240,79 @@ def build_chain_plan(problem, dtype=np.float32, device="cpu",
     )
 
 
+@dataclasses.dataclass
+class ClusterPartition:
+    """Which CTA of a `parts`-CTA group owns what (host numpy, int32).
+
+    CTA c owns the band blocks [blk_ptr[c], blk_ptr[c+1]), the poses of
+    those blocks (2·cb, 2·cb+1, below n), the ranges in those poses' slot
+    rows, and the state rows of them all (rotation, bearing and translation
+    rows); CTA 0 also owns the landmark rows. Every table lists a CTA's
+    entries in ascending order, so one part (parts = 1) is the identity."""
+
+    parts: int
+    blk_ptr: np.ndarray  # (parts + 1,)
+    row_ptr: np.ndarray  # (parts + 1,) rows own_rows[row_ptr[c]:row_ptr[c+1]]
+    own_rows: np.ndarray  # (N,)
+    rng_ptr: np.ndarray  # (parts + 1,) ranges own_rng[rng_ptr[c]:rng_ptr[c+1]]
+    own_rng: np.ndarray  # (m,)
+    lmc_ptr: np.ndarray  # (parts·l + 1,) CTA c's ranges of landmark k are
+    lmc_rng: np.ndarray  # (m,)  lmc_rng[lmc_ptr[c·l+k]:lmc_ptr[c·l+k+1]]
+
+    def poses(self, c: int, n: int) -> tuple[int, int]:
+        """CTA c's poses [g0, g1)."""
+        return (min(2 * int(self.blk_ptr[c]), n),
+                min(2 * int(self.blk_ptr[c + 1]), n))
+
+    def propagator_slice(self, c: int, k: int, nb: int,
+                         adjoint: bool) -> tuple[int, int]:
+        """The blocks [a, b) of propagator level k that CTA c reads: its own
+        blocks in the forward pass, and in the adjoint pass (x_cb +=
+        A_k[cb + 2ᵏ]ᵀ x_cb+2ᵏ for its own cb) the same range shifted by 2ᵏ,
+        cut at nb. Block cb's propagator sits at cb − blk_ptr[c] either way."""
+        b0, b1 = int(self.blk_ptr[c]), int(self.blk_ptr[c + 1])
+        s = (1 << k) if adjoint else 0
+        return min(b0 + s, nb), min(b1 + s, nb)
+
+
+def cluster_partition(plan: ChainPlan, parts: int) -> ClusterPartition:
+    """Split the band blocks into `parts` contiguous ranges of as equal a
+    size as the count allows, and give each CTA the poses, ranges and rows
+    that hang on its blocks (see `ClusterPartition`)."""
+    if parts < 1:
+        raise ValueError(f"parts={parts}")
+    n, m, l, nb, d = plan.n, plan.m, plan.l, plan.nb, plan.d
+    blk_ptr = (np.arange(parts + 1, dtype=np.int64) * nb) // parts
+    rng_pose = plan.rng_pose.cpu().numpy().astype(np.int64)
+    rng_lm = plan.rng_lm.cpu().numpy().astype(np.int64)
+    # the CTA of pose g: the one whose block range holds g // 2
+    owner = np.searchsorted(blk_ptr, np.arange(n) // 2, side="right") - 1
+    rng_owner = owner[rng_pose]
+    own_rng = np.argsort(rng_owner, kind="stable")
+    rng_ptr = np.searchsorted(rng_owner[own_rng], np.arange(parts + 1))
+    nd, tr0 = n * d, n * d + m
+    rows, row_ptr = [], [0]
+    for c in range(parts):
+        g0, g1 = (min(2 * int(blk_ptr[c]), n), min(2 * int(blk_ptr[c + 1]), n))
+        part = [np.arange(g0 * d, g1 * d),
+                nd + own_rng[rng_ptr[c]:rng_ptr[c + 1]],
+                np.arange(tr0 + g0, tr0 + g1)]
+        if c == 0:
+            part.append(np.arange(tr0 + n, tr0 + n + l))
+        rows.append(np.concatenate(part))
+        row_ptr.append(row_ptr[-1] + len(rows[-1]))
+    lm_rng = plan.lm_rng.cpu().numpy().astype(np.int64)
+    key = rng_owner[lm_rng] * max(l, 1) + rng_lm[lm_rng]
+    lmc_rng = lm_rng[np.argsort(key, kind="stable")]
+    lmc_ptr = np.searchsorted(np.sort(key), np.arange(parts * l + 1))
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    return ClusterPartition(
+        parts=parts, blk_ptr=i32(blk_ptr),
+        row_ptr=i32(row_ptr), own_rows=i32(np.concatenate(rows)),
+        rng_ptr=i32(rng_ptr), own_rng=i32(own_rng), lmc_ptr=i32(lmc_ptr),
+        lmc_rng=i32(lmc_rng))
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions of the device functions (canonical (N, r) state)
 # ---------------------------------------------------------------------------

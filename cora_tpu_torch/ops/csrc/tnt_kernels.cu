@@ -10,20 +10,45 @@
 //   ladder — (f, ‖grad‖, √<g, Pg>) at retract(Y, α·Ẏ) for every α, one CTA
 //            per α (replaces PallasTNT.ladder, pallas_tcg.py:755-804)
 //
-// step, tcg and chunk are persistent single-CTA kernels of 1024 threads:
-// the Pallas design's counterpart, where one core holds everything. chunk
-// is a whole solver loop with data-dependent trip counts, a barrier per
-// scan level and scalar control flow, so it stays one kernel launch per
-// chunk; between chunks only the 12 scalars go back to the host. Every
-// thread computes the same scalars from the same block-reduced values, so
-// the control flow is uniform across the block.
+// chunk and tcg are persistent kernels over ONE thread-block cluster of
+// CORA_CLUSTER CTAs of 1024 threads on neighbouring SMs (ClusterGroup in
+// chain_ops.cuh), launched with cudaLaunchKernelEx and a cluster-dimension
+// attribute. chunk is a whole solver loop with data-dependent trip counts,
+// a group barrier per scan level and scalar control flow, so it stays one
+// launch per chunk; between chunks only the 12 scalars go back to the host.
+// What bounds them is the chain of dependent passes, each ended by a
+// cluster barrier (2·levels + 5 per tCG iteration: 27 × 0.76 µs = 20.5 µs at
+// plaza2's shapes, r = 4, measured by scripts/probe_cluster_sync.py), and
+// the latency of each pass's loads, not bytes (a call reads ~5 MB of inputs
+// once; a tCG iteration streams ~22 MB of L2, ~20 µs over 16 SMs) or FLOPs.
+// The cluster spreads each pass over CORA_CLUSTER SMs' L2 paths and keeps
+// the barrier in hardware; chunk's time against one CTA's is in PERF.md.
+// Every CTA computes the same scalars from the same rank-ordered cluster
+// sums, so the control flow is uniform across the cluster; only CTA 0
+// writes the scalars and histories back.
+//
+// step and ladder stay single-CTA kernels (BlockGroup: step runs twice per
+// saddle escape, ladder runs one CTA per α on 48 SMs). chunk_block and
+// tcg_block are the same loops on one CTA: the comparator that chip_smoke.py
+// times against the cluster kernels; the solver never launches them.
 //
 // Plain C interface (bound with ctypes from ops/tnt_kernels.py): each entry
 // launches on the given stream, allocates nothing (the caller passes the
-// scratch `work`), and returns cudaGetLastError() after the launch.
+// scratch `work`), and returns the launch's CUDA error code. The plan of a
+// cluster kernel carries the partition of CORA_CLUSTER parts, that of a
+// single-CTA kernel the partition of one part.
+#include <utility>
+
 #include "chain_ops.cuh"
 
+#ifndef CORA_CLUSTER
+#define CORA_CLUSTER 16
+#endif
+static_assert(CORA_CLUSTER >= 1 && CORA_CLUSTER <= 16, "cluster of 1..16 CTAs");
+
 namespace {
+
+using Cluster = ClusterGroup<CORA_CLUSTER>;
 
 constexpr int RUNNING = 0, GRAD_TOL = 1, PRECON_GRAD_TOL = 2,
               REL_DECREASE = 3, STEPSIZE = 4, DELTA_TOL = 5, RAMP_EXIT = 8;
@@ -37,25 +62,37 @@ struct Carver {
   }
 };
 
+// The context of this CTA: its share of the partition, the scan scratch
+// and the ring of partial sums.
+template <class G>
 __device__ Ctx make_ctx(const ChainPlanArgs& P, int r, Carver& w) {
+  __shared__ float ring[CORA_RING * CORA_RING_W];
   Ctx c;
   c.P = P;
   c.r = r;
   const size_t band = (size_t)P.nb * P.w * r;
   c.band0 = w.take(band);
   c.band1 = w.take(band);
+  c.rank = G::rank();
+  c.b0 = P.blk_ptr[c.rank];
+  c.b1 = P.blk_ptr[c.rank + 1];
+  c.g0 = min(2 * c.b0, P.n);
+  c.g1 = min(2 * c.b1, P.n);
+  c.ring = ring;
+  c.nsum = 0;
   return c;
 }
 
 template <int D>
-__global__ void __launch_bounds__(CORA_NTHREADS)
+__global__ void __launch_bounds__(CORA_NTHREADS, 1)
 step_kernel(ChainPlanArgs P, int r, const float* Y, const float* s,
             int do_retract, float* Yn, float* QY, float* grad, float* scal,
             float* work) {
   Carver w{work};
-  Ctx c = make_ctx(P, r, w);
+  Ctx c = make_ctx<BlockGroup>(P, r, w);
   float* pg = w.take((size_t)P.N * r);
-  StepOut o = step_core<D>(c, Y, s, 1.f, do_retract, Yn, QY, grad, pg);
+  StepOut o = step_core<D, BlockGroup>(c, Y, s, 1.f, do_retract, Yn, QY,
+                                       grad, pg);
   if (threadIdx.x == 0) {
     scal[0] = o.f;
     scal[1] = o.gradnorm;
@@ -63,26 +100,27 @@ step_kernel(ChainPlanArgs P, int r, const float* Y, const float* s,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(CORA_NTHREADS)
+template <int D, class G>
+__global__ void __launch_bounds__(CORA_NTHREADS, 1)
 tcg_kernel(ChainPlanArgs P, int r, const float* g, const float* Y,
            const float* nF, float delta, int max_iters, float kappa,
            float theta, float* s, float* scal, float* work) {
   Carver w{work};
-  Ctx c = make_ctx(P, r, w);
+  Ctx c = make_ctx<G>(P, r, w);
   const size_t NR = (size_t)P.N * r;
   float* rv = w.take(NR);
   float* dv = w.take(NR);
   float* z = w.take(NR);
   float* Hd = w.take(NR);
-  TcgOut o = tcg_core<D>(c, g, Y, nF, delta, max_iters, kappa, theta, s, rv,
-                         dv, z, Hd);
-  if (threadIdx.x == 0) {
+  TcgOut o = tcg_core<D, G>(c, g, Y, nF, delta, max_iters, kappa, theta, s,
+                            rv, dv, z, Hd);
+  if (c.rank == 0 && threadIdx.x == 0) {
     scal[0] = o.mdec;
     scal[1] = (float)o.hit;
     scal[2] = (float)o.iters;
     scal[3] = o.step_norm;
   }
+  G::sync();  // no CTA leaves while another may still read its ring
 }
 
 // fs (8):  [f, gradnorm, pgradnorm, Delta, lift_grad_norm, stall_tol, 0, 0]
@@ -90,13 +128,13 @@ tcg_kernel(ChainPlanArgs P, int r, const float* g, const float* Y,
 //           ramp_until, ramp_tcg, stall_window, init_flag, 0]
 // hist (5, H): f, ‖grad‖, √<g,Pg>, accepted step norm, tCG iterations
 // Y, G, NF are updated in place; fs[0:4] and is[0:5] are written back.
-template <int D>
-__global__ void __launch_bounds__(CORA_NTHREADS)
-chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* G,
+template <int D, class G>
+__global__ void __launch_bounds__(CORA_NTHREADS, 1)
+chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* Gr,
              float* NF, float* fs, int* is, float* hist, int H,
              float* work) {
   Carver w{work};
-  Ctx c = make_ctx(P, r, w);
+  Ctx c = make_ctx<G>(P, r, w);
   const size_t NR = (size_t)P.N * r;
   float* s = w.take(NR);
   float* rv = w.take(NR);
@@ -108,6 +146,8 @@ chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* G,
   float* Gp = w.take(NR);
   float* pg = w.take(NR);
   const float tiny = FLT_MIN;
+  const int ra = P.row_ptr[c.rank] * r, rb = P.row_ptr[c.rank + 1] * r;
+  const bool writer = c.rank == 0 && threadIdx.x == 0;
 
   float f = fs[0], gn = fs[1], pgn = fs[2], Delta = fs[3];
   const float lift_grad_norm = fs[4], stall_tol = fs[5];
@@ -116,10 +156,10 @@ chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* G,
   int dec = is[3], stp = is[4];
   const int stop_at = is[5], tcg_cap = is[6], ramp_until = is[7],
             ramp_tcg = is[8], sw = is[9], init = is[10];
-  barrier();  // every thread has read the scalars before any write-back
+  G::sync();  // every thread has read the scalars before any write-back
 
   if (init == 1) {  // first chunk of a solve: evaluate the start in-kernel
-    StepOut o = step_core<D>(c, Y, nullptr, 0.f, 0, Y, NF, G, pg);
+    StepOut o = step_core<D, G>(c, Y, nullptr, 0.f, 0, Y, NF, Gr, pg);
     f = o.f;
     gn = o.gradnorm;
     pgn = o.pgradnorm;
@@ -130,19 +170,20 @@ chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* G,
 
   while (k < stop_at && status == RUNNING) {
     const bool in_ramp = !finish && k < ramp_until;
-    const TcgOut t = tcg_core<D>(c, G, Y, NF, Delta,
-                                 in_ramp ? ramp_tcg : tcg_cap, T.kappa,
-                                 T.theta, s, rv, dv, z, Hd);
-    const StepOut o = step_core<D>(c, Y, s, 1.f, 1, Yp, QYp, Gp, pg);
+    const TcgOut t = tcg_core<D, G>(c, Gr, Y, NF, Delta,
+                                    in_ramp ? ramp_tcg : tcg_cap, T.kappa,
+                                    T.theta, s, rv, dv, z, Hd);
+    const StepOut o = step_core<D, G>(c, Y, s, 1.f, 1, Yp, QYp, Gp, pg);
     const float rho = (f - o.f) / (t.mdec == 0.f ? tiny : t.mdec);
     const bool accept = rho >= T.eta1 && t.mdec > 0.f;
     if (accept) {
-      for (size_t i = threadIdx.x; i < NR; i += blockDim.x) {
-        Y[i] = Yp[i];
-        G[i] = Gp[i];
-        NF[i] = QYp[i];
+      for (int i = ra + threadIdx.x; i < rb; i += blockDim.x) {
+        const int x = own_elem<G>(c, i);
+        Y[x] = Yp[x];
+        Gr[x] = Gp[x];
+        NF[x] = QYp[x];
       }
-      barrier();
+      __syncthreads();
     }
     const float f_new = accept ? o.f : f;
     if (accept) {
@@ -164,15 +205,16 @@ chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* G,
              : stp >= 3                ? STEPSIZE
              : Delta_new < T.delta_tol ? DELTA_TOL
                                        : RUNNING;
-    // histories first: the plateau test below reads the lagged f
-    if (threadIdx.x == 0) {
+    // histories first: the plateau test below reads the lagged f, which
+    // CTA 0 wrote
+    if (writer) {
       hist[k] = f_new;
       hist[H + k] = gn;
       hist[2 * H + k] = pgn;
       hist[3 * H + k] = accept ? t.step_norm : 0.f;
       hist[4 * H + k] = (float)t.iters;
     }
-    barrier();
+    G::sync();
     const float f_lag = hist[k - sw > 0 ? k - sw : 0];
     const bool plateaued = sw > 0 && k >= sw &&
                            (f_lag - f_new) < (float)sw * stall_tol * fabsf(f_new);
@@ -195,7 +237,7 @@ chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* G,
     k += 1;
   }
 
-  if (threadIdx.x == 0) {
+  if (writer) {
     fs[0] = f;
     fs[1] = gn;
     fs[2] = pgn;
@@ -206,23 +248,24 @@ chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* G,
     is[3] = dec;
     is[4] = stp;
   }
+  G::sync();  // no CTA leaves while another may still read its ring
 }
 
 // One CTA per signed step length: out = [f (A) | ‖grad‖ (A) | √<g,Pg> (A)].
 template <int D>
-__global__ void __launch_bounds__(CORA_NTHREADS)
+__global__ void __launch_bounds__(CORA_NTHREADS, 1)
 ladder_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
               const float* alphas, int A, float* out, float* work) {
   const size_t NR = (size_t)P.N * r;
   const size_t per = 4 * NR + 2 * (size_t)P.nb * P.w * r;
   Carver w{work + blockIdx.x * per};
-  Ctx c = make_ctx(P, r, w);
+  Ctx c = make_ctx<BlockGroup>(P, r, w);
   float* Yn = w.take(NR);
   float* QY = w.take(NR);
   float* G = w.take(NR);
   float* pg = w.take(NR);
   const float a = alphas[blockIdx.x];
-  StepOut o = step_core<D>(c, Y, Ydot, a, 1, Yn, QY, G, pg);
+  StepOut o = step_core<D, BlockGroup>(c, Y, Ydot, a, 1, Yn, QY, G, pg);
   if (threadIdx.x == 0) {
     out[blockIdx.x] = o.f;
     out[A + blockIdx.x] = o.gradnorm;
@@ -230,9 +273,58 @@ ladder_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
   }
 }
 
+// The kernel's attribute (a non-portable cluster size) and the
+// configuration of one cluster of CORA_CLUSTER CTAs of CORA_NTHREADS threads.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t err;
+  template <class... Exp>
+  ClusterLaunch(void (*kernel)(Exp...), cudaStream_t st) {
+    err = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CORA_CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg = {};
+    cfg.gridDim = dim3(CORA_CLUSTER, 1, 1);
+    cfg.blockDim = dim3(CORA_NTHREADS, 1, 1);
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <class... Exp, class... Act>
+int launch_cluster(void (*kernel)(Exp...), cudaStream_t st, Act&&... args) {
+  ClusterLaunch L(kernel, st);
+  if (L.err != cudaSuccess) return (int)L.err;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&L.cfg, kernel, std::forward<Act>(args)...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of the kernel's configuration fit on the card at once.
+template <class... Exp>
+int cluster_capacity(void (*kernel)(Exp...), int* clusters) {
+  ClusterLaunch L(kernel, nullptr);
+  if (L.err != cudaSuccess) return (int)L.err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
+                                             &L.cfg);
+}
+
 }  // namespace
 
 extern "C" {
+
+int cora_cluster_size() { return CORA_CLUSTER; }
+
+int cora_cluster_capacity(const ChainPlanArgs* P, int* clusters) {
+  if (P->d == 2) return cluster_capacity(chunk_kernel<2, Cluster>, clusters);
+  return cluster_capacity(chunk_kernel<3, Cluster>, clusters);
+}
 
 int cora_step(const ChainPlanArgs* P, int r, const float* Y, const float* s,
               int do_retract, float* Yn, float* QY, float* grad, float* scal,
@@ -252,13 +344,23 @@ int cora_tcg(const ChainPlanArgs* P, int r, const float* g, const float* Y,
              float theta, float* s, float* scal, float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (P->d == 2)
-    tcg_kernel<2><<<1, CORA_NTHREADS, 0, st>>>(*P, r, g, Y, nF, delta,
-                                               max_iters, kappa, theta, s,
-                                               scal, work);
+    return launch_cluster(tcg_kernel<2, Cluster>, st, *P, r, g, Y, nF,
+                          delta, max_iters, kappa, theta, s, scal, work);
+  return launch_cluster(tcg_kernel<3, Cluster>, st, *P, r, g, Y, nF,
+                        delta, max_iters, kappa, theta, s, scal, work);
+}
+
+int cora_tcg_block(const ChainPlanArgs* P, int r, const float* g,
+                   const float* Y, const float* nF, float delta, int max_iters,
+                   float kappa, float theta, float* s, float* scal,
+                   float* work, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (P->d == 2)
+    tcg_kernel<2, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
+        *P, r, g, Y, nF, delta, max_iters, kappa, theta, s, scal, work);
   else
-    tcg_kernel<3><<<1, CORA_NTHREADS, 0, st>>>(*P, r, g, Y, nF, delta,
-                                               max_iters, kappa, theta, s,
-                                               scal, work);
+    tcg_kernel<3, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
+        *P, r, g, Y, nF, delta, max_iters, kappa, theta, s, scal, work);
   return (int)cudaGetLastError();
 }
 
@@ -267,11 +369,22 @@ int cora_chunk(const ChainPlanArgs* P, const TNTArgs* T, int r, float* Y,
                float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (P->d == 2)
-    chunk_kernel<2><<<1, CORA_NTHREADS, 0, st>>>(*P, *T, r, Y, G, NF, fs, is,
-                                                 hist, H, work);
+    return launch_cluster(chunk_kernel<2, Cluster>, st, *P, *T, r, Y, G,
+                          NF, fs, is, hist, H, work);
+  return launch_cluster(chunk_kernel<3, Cluster>, st, *P, *T, r, Y, G,
+                        NF, fs, is, hist, H, work);
+}
+
+int cora_chunk_block(const ChainPlanArgs* P, const TNTArgs* T, int r,
+                     float* Y, float* G, float* NF, float* fs, int* is,
+                     float* hist, int H, float* work, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (P->d == 2)
+    chunk_kernel<2, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
+        *P, *T, r, Y, G, NF, fs, is, hist, H, work);
   else
-    chunk_kernel<3><<<1, CORA_NTHREADS, 0, st>>>(*P, *T, r, Y, G, NF, fs, is,
-                                                 hist, H, work);
+    chunk_kernel<3, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
+        *P, *T, r, Y, G, NF, fs, is, hist, H, work);
   return (int)cudaGetLastError();
 }
 

@@ -21,17 +21,28 @@ semantics. `kernels_for` picks one from the device of the solve: the plain
 versions run only for tensors on the CPU (or when the caller asks for them
 with `use_kernels="never"`); on a CUDA device the kernels launch or raise.
 
-What should bound the kernels on the card: one SM runs each solve
-(single-CTA persistent kernels), so the limit is that SM's L2 bandwidth
-for the preconditioner's doubling-scan propagators and the barrier count
-per tCG iteration, not the card's FLOP rate (not yet measured with a
-per-kernel trace). `ladder` runs its 48 trial points on 48 SMs. Times on
-the card beside the plain versions' are in PERF.md.
+What bounds them on the card: a tCG iteration is a chain of dependent
+passes over ≤ 56k-element vectors, each ended by a group barrier —
+2·levels + 5 per iteration (`work_counts`), 27 × 0.76 µs = 20.5 µs on the
+plaza2-shaped graph at r = 4 (`scripts/probe_cluster_sync.py`) — and the
+latency of each pass's loads; not bytes (each call reads its ~5 MB of
+inputs once; a tCG iteration streams ~22 MB through L2, ~20 µs over 16
+SMs) and not FLOPs. So `chunk` and `tcg` run as one thread-block cluster
+of `CLUSTER` CTAs on neighbouring SMs: each pass spread over `CLUSTER`
+SMs' L2 paths, the barrier in hardware (cluster.sync), each CTA owning a
+contiguous range of band blocks and the rows that hang on them
+(`chain.cluster_partition`). Measured, a tCG iteration takes 95-132 µs
+inside a solve. `step` and `ladder` stay single-CTA kernels (`ladder`
+runs its 48 trial points on 48 SMs); `chunk_block` and `tcg_block` are
+the single-CTA comparators that chip_smoke.py times against the cluster
+kernels. Times on the card beside the plain versions' and the bounds are
+in PERF.md.
 
 Build: `nvcc -O3 -gencode=arch=compute_90a,code=sm_90a` (no fast math)
 into `<repo>/.torch_ext_build/`, a shared library with a plain C interface
 loaded with ctypes — seconds to build, where a source that includes
-PyTorch's headers takes minutes.
+PyTorch's headers takes minutes. The cluster size is a constant of the
+build (`-DCORA_CLUSTER`): the reduction order depends on it.
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ import time
 import torch
 
 from cora_tpu_torch.ops import chain
-from cora_tpu_torch.ops.chain import ChainPlan
+from cora_tpu_torch.ops.chain import ChainPlan, ClusterPartition
 from cora_tpu_torch.solve.tnt import (
     DELTA_TOL,
     GRAD_TOL,
@@ -61,11 +72,16 @@ from cora_tpu_torch.solve.tnt import (
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
 SOURCES = ("chain_ops.cuh", "tnt_kernels.cu")
+# CTAs in the cluster of `chunk` and `tcg` (scripts/probe_cluster_sync.py
+# and PERF.md say why 16)
+CLUSTER = 16
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DCORA_CLUSTER={CLUSTER}")
 
 # launches per kernel; each CudaTNT wrapper adds one where it launches
-LAUNCHES = {"step": 0, "tcg": 0, "chunk": 0, "ladder": 0}
+LAUNCHES = {"step": 0, "tcg": 0, "chunk": 0, "ladder": 0, "chunk_block": 0,
+            "tcg_block": 0}
 # how the library was built (for reports): path, seconds, ptxas output
 BUILD_INFO: dict = {}
 STREAK = 3
@@ -83,17 +99,18 @@ class KernelBuildError(RuntimeError):
 
 
 class KernelLaunchError(RuntimeError):
-    """A kernel launch returned a CUDA error."""
+    """A kernel launch returned a CUDA error, or cannot be scheduled."""
 
 
 class _PlanArgs(ctypes.Structure):
     _fields_ = (
         [(k, ctypes.c_int) for k in
-         ("d", "n", "m", "l", "N", "nb", "w", "S", "levels", "pad_")]
+         ("d", "n", "m", "l", "N", "nb", "w", "S", "levels", "parts")]
         + [(k, ctypes.c_void_p) for k in
            ("kap", "R", "tau", "tvec", "slot", "rng_pose", "rng_lm", "lm_ptr",
             "lm_rng", "rr", "om", "spiv", "cval", "Linv", "AF", "Ct",
-            "BinvCt", "capinv", "qdwh")]
+            "BinvCt", "capinv", "qdwh", "blk_ptr", "row_ptr", "own_rows",
+            "rng_ptr", "own_rng", "lmc_ptr", "lmc_rng")]
     )
 
 
@@ -140,15 +157,82 @@ def load_library():
         raise KernelBuildError(f"cannot load {so}: {e}") from e
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cora_step.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp]
-    lib.cora_tcg.argtypes = [vp, ci, vp, vp, vp, cf, ci, cf, cf, vp, vp, vp,
-                             vp]
-    lib.cora_chunk.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp]
+    for fn in (lib.cora_tcg, lib.cora_tcg_block):
+        fn.argtypes = [vp, ci, vp, vp, vp, cf, ci, cf, cf, vp, vp, vp, vp]
+    for fn in (lib.cora_chunk, lib.cora_chunk_block):
+        fn.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp]
     lib.cora_ladder.argtypes = [vp, ci, vp, vp, vp, ci, vp, vp, vp]
-    for fn in (lib.cora_step, lib.cora_tcg, lib.cora_chunk, lib.cora_ladder):
+    lib.cora_cluster_capacity.argtypes = [vp, vp]
+    lib.cora_cluster_size.argtypes = []
+    for fn in (lib.cora_step, lib.cora_tcg, lib.cora_tcg_block,
+               lib.cora_chunk, lib.cora_chunk_block, lib.cora_ladder,
+               lib.cora_cluster_capacity, lib.cora_cluster_size):
         fn.restype = ci
+    if lib.cora_cluster_size() != CLUSTER:
+        raise KernelBuildError(f"{so} was built for another cluster")
     BUILD_INFO.update(path=str(so), seconds=time.time() - t0, log=log)
     _LIB = lib
     return lib
+
+
+def work_counts(plan: ChainPlan, r: int, tcg_iters: int, kernel: str = "chunk",
+                outer_iters: int = 0, init: bool = False, alphas: int = 0,
+                parts: int = 1) -> dict:
+    """What one call of `kernel` must do, from the plan's shapes and this
+    call's iteration counts: `bytes` (each input read once, each output
+    written once), `flops` (the products and sums of the algorithm) and
+    `phases` (dependent passes, each ended by a group barrier that spans
+    all the CTAs of the call: 2·levels + 3 per tCG iteration, + 2 with
+    landmarks). `parts` is the partition's CTA count, whose tables the
+    kernel also reads."""
+    n, m, l, d, N = plan.n, plan.m, plan.l, plan.d, plan.N
+    nb, w, S, L = plan.nb, plan.w, plan.S, plan.levels
+    lm = 1 if l > 0 else 0
+    f4 = 4
+    plan_bytes = f4 * (
+        n * (2 + d * d + d) + n * S + 2 * m + (l + 1) + m + 4 * m
+        + nb * w * w * (1 + L) + 2 * l * nb * w + l * l + 24
+        + 3 * (parts + 1) + N + m + parts * l + 1 + m)
+    state = f4 * N * r
+    # dependent group-barrier phases
+    precon = 2 * L + lm
+    qv = 1 + lm
+    step = qv + 3 + precon
+    per_tcg = qv + 1 + precon + 1
+    tcg_fixed = precon + 2
+    # FLOPs: doubling scan and its adjoint, Linv and Linvᵀ, Woodbury,
+    # Q·Y, the Weingarten and projection terms, elementwise updates and dots
+    f_precon = 2 * r * (2 * L * nb * w * w + 2 * nb * w * w
+                        + 2 * l * nb * w + l * l) + 8 * m * r
+    f_qv = r * (n * (4 * d * d + 8 * d + 4 + 4 * S) + 12 * m)
+    f_proj = r * (n * 4 * d * d + 4 * m)
+    f_hvp = f_qv + 3 * f_proj
+    f_dot = 2 * N * r
+    f_step = f_qv + 2 * f_proj + f_precon + 3 * f_dot + r * n * 8 * d * d
+    f_tcg = f_hvp + f_precon + f_proj + 2 * f_dot + 6 * N * r
+    if kernel == "chunk":
+        outs = 3 * state + f4 * (5 * outer_iters + 9)
+        nbytes = plan_bytes + 3 * state + f4 * 20 + outs
+        phases = (2 + (step if init else 0) + tcg_iters * per_tcg
+                  + outer_iters * (tcg_fixed + step + 1))
+        flops = (f_step * (outer_iters + int(init)) + f_tcg * tcg_iters
+                 + outer_iters * (f_precon + f_proj + 2 * f_dot + 3 * N * r))
+    elif kernel == "tcg":
+        nbytes = plan_bytes + 3 * state + state + f4 * 4
+        phases = tcg_fixed + tcg_iters * per_tcg + 1
+        flops = f_tcg * tcg_iters + f_precon + f_proj + 2 * f_dot
+    elif kernel == "step":
+        nbytes = plan_bytes + 2 * state + 3 * state + f4 * 3
+        phases = step
+        flops = f_step
+    elif kernel == "ladder":
+        nbytes = plan_bytes + 2 * state + f4 * 4 * alphas
+        phases = step
+        flops = f_step * alphas
+    else:
+        raise ValueError(f"kernel={kernel!r}")
+    return dict(bytes=int(nbytes), flops=int(flops), phases=int(phases),
+                phases_per_tcg=per_tcg)
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -163,7 +247,9 @@ def _check_state(x: torch.Tensor, N: int, r: int, name: str):
 
 
 class CudaTNT:
-    """The CUDA kernels for one chain plan (float32, on a CUDA device)."""
+    """The CUDA kernels for one chain plan (float32, on a CUDA device).
+    `chunk` and `tcg` launch one cluster of the library's cluster size;
+    construction raises KernelLaunchError if the card cannot hold one."""
 
     route = "cuda"
 
@@ -177,6 +263,7 @@ class CudaTNT:
         self.plan = plan
         self.params = params
         self.lib = load_library()
+        self.cluster = CLUSTER
         i32 = torch.int32
         keep = dict(
             kap=plan.kap, R=plan.R, tau=plan.tau, tvec=plan.tvec,
@@ -190,12 +277,20 @@ class CudaTNT:
         )
         # the device buffers must outlive every launch that reads them
         self._keep = {k: v.contiguous() for k, v in keep.items()}
-        args = _PlanArgs(d=plan.d, n=plan.n, m=plan.m, l=plan.l, N=plan.N,
-                         nb=plan.nb, w=plan.w, S=plan.S, levels=plan.levels,
-                         pad_=0)
-        for k, v in self._keep.items():
-            setattr(args, k, v.data_ptr() if v.numel() else None)
-        self._args = args
+        self._tables = {}
+        self.parts = {1: chain.cluster_partition(plan, 1),
+                      self.cluster: chain.cluster_partition(plan, self.cluster)}
+        self._args1 = self._plan_args(self.parts[1])
+        self._argsC = self._plan_args(self.parts[self.cluster])
+        clusters = ctypes.c_int(0)
+        err = self.lib.cora_cluster_capacity(ctypes.byref(self._argsC),
+                                             ctypes.byref(clusters))
+        if err != 0 or clusters.value < 1:
+            raise KernelLaunchError(
+                f"a cluster of {self.cluster} CTAs of 1024 threads cannot be "
+                f"scheduled (CUDA error {err}, {clusters.value} active "
+                f"clusters)")
+        self.max_clusters = clusters.value
         p = params
         self._tnt = _TNTArgs(
             eta1=p.eta1, eta2=p.eta2, alpha1=p.alpha1, alpha2=p.alpha2,
@@ -204,6 +299,19 @@ class CudaTNT:
             rel_dec_tol=p.relative_decrease_tolerance,
             step_tol=p.stepsize_tolerance, delta_tol=p.delta_tolerance,
             kappa=p.kappa_fgr, theta=p.theta)
+
+    def _plan_args(self, part: ClusterPartition) -> _PlanArgs:
+        plan = self.plan
+        tables = {k: torch.as_tensor(getattr(part, k)).to(plan.device)
+                  for k in ("blk_ptr", "row_ptr", "own_rows", "rng_ptr",
+                            "own_rng", "lmc_ptr", "lmc_rng")}
+        self._tables[part.parts] = tables  # outlive the launches, as _keep
+        args = _PlanArgs(d=plan.d, n=plan.n, m=plan.m, l=plan.l, N=plan.N,
+                         nb=plan.nb, w=plan.w, S=plan.S, levels=plan.levels,
+                         parts=part.parts)
+        for k, v in (*self._keep.items(), *tables.items()):
+            setattr(args, k, v.data_ptr() if v.numel() else None)
+        return args
 
     def _work(self, r: int, states: int, copies: int = 1) -> torch.Tensor:
         P = self.plan
@@ -237,31 +345,35 @@ class CudaTNT:
         Yn, QY, grad = (torch.empty_like(Y) for _ in range(3))
         scal = torch.empty(3, dtype=torch.float32, device=Y.device)
         err = self.lib.cora_step(
-            ctypes.byref(self._args), r, _ptr(Y), _ptr(s), int(bool(do_retract)),
-            _ptr(Yn), _ptr(QY), _ptr(grad), _ptr(scal),
+            ctypes.byref(self._args1), r, _ptr(Y), _ptr(s),
+            int(bool(do_retract)), _ptr(Yn), _ptr(QY), _ptr(grad), _ptr(scal),
             _ptr(self._work(r, 1)), self._stream())
         self._done("step", err)
         return Yn, QY, grad, scal
 
-    def tcg(self, grad, Y, nablaF, delta: float, max_iters: int):
-        """Full Steihaug–Toint solve → (s, [mdec, hit, iters, ‖s‖])."""
+    def tcg(self, grad, Y, nablaF, delta: float, max_iters: int,
+            block: bool = False):
+        """Full Steihaug–Toint solve → (s, [mdec, hit, iters, ‖s‖]), on the
+        cluster, or with `block` on one CTA (the comparator)."""
         r = self._rank(Y)
         N = self.plan.N
         for x, nm in ((grad, "grad"), (Y, "Y"), (nablaF, "nablaF")):
             _check_state(x, N, r, nm)
         s = torch.empty_like(Y)
         scal = torch.empty(4, dtype=torch.float32, device=Y.device)
-        err = self.lib.cora_tcg(
-            ctypes.byref(self._args), r, _ptr(grad), _ptr(Y), _ptr(nablaF),
-            float(delta), int(max_iters), float(self.params.kappa_fgr),
-            float(self.params.theta), _ptr(s), _ptr(scal),
-            _ptr(self._work(r, 4)), self._stream())
-        self._done("tcg", err)
+        fn, args = ((self.lib.cora_tcg_block, self._args1) if block
+                    else (self.lib.cora_tcg, self._argsC))
+        err = fn(ctypes.byref(args), r, _ptr(grad), _ptr(Y), _ptr(nablaF),
+                 float(delta), int(max_iters), float(self.params.kappa_fgr),
+                 float(self.params.theta), _ptr(s), _ptr(scal),
+                 _ptr(self._work(r, 4)), self._stream())
+        self._done("tcg_block" if block else "tcg", err)
         return s, scal
 
-    def chunk(self, Y, grad, nablaF, fscal, iscal, hist):
+    def chunk(self, Y, grad, nablaF, fscal, iscal, hist, block: bool = False):
         """TNT outer iterations until `stop_at` or termination; Y, grad,
-        nablaF, fscal (8,), iscal (12,) and hist (5, H) update in place."""
+        nablaF, fscal (8,), iscal (12,) and hist (5, H) update in place. On
+        the cluster, or with `block` on one CTA (the comparator)."""
         r = self._rank(Y)
         N = self.plan.N
         for x, nm in ((Y, "Y"), (grad, "grad"), (nablaF, "nablaF")):
@@ -276,11 +388,13 @@ class CudaTNT:
             if x.device != Y.device or not x.is_contiguous():
                 raise ValueError("scalars and histories must be contiguous "
                                  "on the state's device")
-        err = self.lib.cora_chunk(
-            ctypes.byref(self._args), ctypes.byref(self._tnt), r, _ptr(Y),
-            _ptr(grad), _ptr(nablaF), _ptr(fscal), _ptr(iscal), _ptr(hist),
-            int(hist.shape[1]), _ptr(self._work(r, 9)), self._stream())
-        self._done("chunk", err)
+        fn, args = ((self.lib.cora_chunk_block, self._args1) if block
+                    else (self.lib.cora_chunk, self._argsC))
+        err = fn(ctypes.byref(args), ctypes.byref(self._tnt), r, _ptr(Y),
+                 _ptr(grad), _ptr(nablaF), _ptr(fscal), _ptr(iscal),
+                 _ptr(hist), int(hist.shape[1]), _ptr(self._work(r, 9)),
+                 self._stream())
+        self._done("chunk_block" if block else "chunk", err)
         return fscal, iscal
 
     def ladder(self, Y, Ydot, alphas):
@@ -293,7 +407,7 @@ class CudaTNT:
         A = int(alphas.numel())
         out = torch.empty((3, A), dtype=torch.float32, device=Y.device)
         err = self.lib.cora_ladder(
-            ctypes.byref(self._args), r, _ptr(Y), _ptr(Ydot), _ptr(alphas), A,
+            ctypes.byref(self._args1), r, _ptr(Y), _ptr(Ydot), _ptr(alphas), A,
             _ptr(out), _ptr(self._work(r, 4, copies=A)), self._stream())
         self._done("ladder", err)
         return out

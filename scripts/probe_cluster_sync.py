@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Measure the barriers and the L2 read rate that decide the cluster size
+of the `chunk` and `tcg` kernels, on one NVIDIA GPU.
+
+    python3 scripts/probe_cluster_sync.py [--quick] [--out FILE]
+
+Builds `scripts/probe_cluster_sync.cu` with nvcc into `.torch_ext_build/`
+and measures, with CUDA events around launches of a barrier loop (the time
+of `iters` barriers less that of none, over `iters`; median of 5):
+  (a) `__syncthreads()` in one CTA of 1024 threads;
+  (b) `cluster.sync()` in one cluster of C = 2, 4, 8 and 16 CTAs of 1024
+      threads, with the number of such clusters the card holds at once;
+  (c) `grid.sync()` in a cooperative launch of one 1024-thread CTA per SM;
+  (d) the L2 read rate of 1, 8, 16 and all SMs (one CTA each) streaming
+      the plaza2-shaped graph's propagators' size (3 240 864 B) from L2.
+Prints one line per measurement and, last, one JSON object of them all
+with the card's name and power limit. `--quick` runs 10× fewer barriers
+and reads (what `chip_smoke.py` uses); `--out` also writes the JSON there.
+"""
+
+import argparse
+import ctypes
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(REPO, "scripts", "probe_cluster_sync.cu")
+CLUSTERS = (2, 4, 8, 16)
+# the plaza2-shaped graph's propagators: 11 levels × 2046 blocks × 6 × 6
+L2_BYTES = 11 * 2046 * 36 * 4
+
+
+def build():
+    """nvcc the probe into a shared library (cached by source hash); the
+    library, loaded, with its argument types set."""
+    sys.path.insert(0, REPO)
+    from cora_tpu_torch.ops.tnt_kernels import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+    with open(SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"probe_cluster_sync_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), SOURCE],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.probe_block_sync.argtypes = [ci, vp, vp]
+    lib.probe_cluster_sync.argtypes = [ci, ci, vp, vp, vp]
+    lib.probe_grid_sync.argtypes = [ci, ci, vp, vp]
+    lib.probe_l2_read.argtypes = [ci, vp, ci, ci, vp, vp]
+    for fn in (lib.probe_block_sync, lib.probe_cluster_sync,
+               lib.probe_grid_sync, lib.probe_l2_read):
+        fn.restype = ci
+    return lib
+
+
+def _ms(torch, launch, reps=5):
+    """Median device time of one launch (CUDA events), after a warm-up."""
+    times = []
+    for _ in range(reps + 1):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        err = launch()
+        t1.record()
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"probe launch failed: CUDA error {err}")
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times[1:])
+
+
+def measure(lib, quick=False):
+    """The four measurements, as a dict of plain numbers."""
+    import torch
+
+    iters = 2000 if quick else 20000
+    reps = 20 if quick else 200
+    stream = torch.cuda.current_stream().cuda_stream
+    sink = torch.zeros(1, device="cuda")
+    sp = sink.data_ptr()
+
+    def per_barrier_us(launch):
+        return 1e3 * (_ms(torch, lambda: launch(iters)) -
+                      _ms(torch, lambda: launch(0))) / iters
+
+    out = {"syncthreads_us": per_barrier_us(
+        lambda it: lib.probe_block_sync(it, sp, stream))}
+    out["cluster_sync_us"], out["max_active_clusters"] = {}, {}
+    for C in CLUSTERS:
+        mc = ctypes.c_int(0)
+        out["cluster_sync_us"][str(C)] = per_barrier_us(
+            lambda it, C=C: lib.probe_cluster_sync(C, it, sp, ctypes.byref(mc),
+                                                   stream))
+        out["max_active_clusters"][str(C)] = mc.value
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["grid_blocks"] = sms
+    out["grid_sync_us"] = per_barrier_us(
+        lambda it: lib.probe_grid_sync(sms, it, sp, stream))
+    buf = torch.ones(L2_BYTES // 4, device="cuda")
+    n4 = buf.numel() // 4
+    out["l2_bytes"] = L2_BYTES
+    out["l2_read_GBps"] = {}
+    for blocks in (1, 8, 16, sms):
+        ms = _ms(torch, lambda b=blocks: lib.probe_l2_read(
+            b, buf.data_ptr(), n4, reps, sp, stream))
+        out["l2_read_GBps"][str(blocks)] = reps * L2_BYTES / (ms * 1e6)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_cluster_sync: no CUDA device available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    res = measure(build(), args.quick)
+    print(f"[probe] __syncthreads (1024 threads): {res['syncthreads_us']:.4f} us",
+          flush=True)
+    for C in CLUSTERS:
+        print(f"[probe] cluster.sync, {C} CTAs: "
+              f"{res['cluster_sync_us'][str(C)]:.4f} us "
+              f"({res['max_active_clusters'][str(C)]} clusters fit)",
+              flush=True)
+    print(f"[probe] grid.sync, {res['grid_blocks']} CTAs: "
+          f"{res['grid_sync_us']:.4f} us", flush=True)
+    for b, r in res["l2_read_GBps"].items():
+        print(f"[probe] L2 read, {b} SMs: {r:.1f} GB/s", flush=True)
+    res.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    line = json.dumps(res)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line)
+
+
+if __name__ == "__main__":
+    main()

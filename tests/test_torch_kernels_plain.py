@@ -108,6 +108,29 @@ def test_tcg_plain_vs_pallas(dim, rank):
     np.testing.assert_allclose(t_snorm, float(snorm), rtol=2e-2)
 
 
+@pytest.mark.parametrize("dim,rank", CASES)
+def test_tcg_many_iterations_plain_vs_pallas(dim, rank):
+    """∇F = 0 drops the Hessian's Weingarten term, leaving the projected Q,
+    which is positive semidefinite, and Δ = 1e8 never binds: the solve
+    runs until its residual test, many iterations (the per-iteration case
+    that chip_smoke.py times)."""
+    plan_t, jk, pk, Y, V = _setup(dim, rank)
+    _, QY, grad, _ = pk.step(torch.as_tensor(Y), torch.as_tensor(V), False)
+    nF = torch.zeros_like(QY)
+    s, mdec, hit, k, snorm = jk.tcg(
+        T.to_tiles(plan_t, jnp.asarray(grad.numpy())),
+        T.to_tiles(plan_t, jnp.asarray(Y)),
+        T.to_tiles(plan_t, jnp.asarray(nF.numpy())),
+        jnp.asarray(1e8, jnp.float32), jnp.asarray(80, jnp.int32))
+    ts, scal = pk.tcg(grad, torch.as_tensor(Y), nF, 1e8, 80)
+    t_mdec, t_hit, t_k, t_snorm = scal.tolist()
+    assert not bool(hit) and not bool(t_hit)
+    assert int(k) >= 5
+    assert abs(int(t_k) - int(k)) <= 2
+    np.testing.assert_allclose(t_mdec, float(mdec), rtol=2e-2)
+    np.testing.assert_allclose(t_snorm, float(snorm), rtol=2e-2)
+
+
 def _chunk_inputs(tcg_cap=80, stop_at=8):
     fscal = np.array([0, 0, 0, 5.0, np.inf, 1e-4, 0, 0], np.float32)
     iscal = np.array([0, 0, 0, 0, 0, stop_at, tcg_cap, 60, 24, 10, 1, 0],
