@@ -10,17 +10,22 @@ raises and the script exits non-zero:
      CUDA versions, the build of the CUDA kernels from `ops/csrc/` and, in
      parallel, of `scripts/probe_cluster_sync.cu`; the probe's barrier
      costs (`__syncthreads`, `cluster.sync()` at 2-16 CTAs, `grid.sync()`)
-     and L2 read rates, and the cluster size C of `chunk` and `tcg`;
+     and L2 read rates, and the cluster size C of the kernels;
   2. kernels — each of `step`, `tcg`, `chunk` and `ladder` against its
      plain PyTorch version on the card, on the plaza2-shaped graph (2D,
      ranks 4 and 6) and the single_drone-shaped graph (3D, rank 5), with
      the CPU tests' tolerances; both timed (median of 20, CUDA events).
-     `chunk` and `tcg` run as one cluster of C CTAs; their single-CTA
-     comparators (`chunk_block`, `tcg_block`) are held to the plain
-     versions too and timed against them in turns (block, cluster,
-     cluster, block), with µs per tCG iteration. `tcg` runs a case that
-     stops at the boundary after one iteration and one that runs tens of
-     iterations (∇F = 0, Δ = 1e8); the second is timed and bounded;
+     `chunk`, `tcg` and `step` run as one cluster of C CTAs, `ladder` as
+     K clusters each batching its share of the 48 trial points; their
+     single-CTA comparators (`chunk_block`, `tcg_block`, `step_block`, and
+     `ladder_block` with one CTA per α) are held to the plain versions too
+     and timed against them in turns (block, cluster, cluster, block),
+     with µs per tCG iteration. `tcg` runs a case that stops at the
+     boundary after one iteration and one that runs tens of iterations
+     (∇F = 0, Δ = 1e8); the second is timed and bounded. `ladder` gives
+     the same bits at K = 1 and at the chosen K, agrees at each α with the
+     cluster `step` at s = α·Ẏ within 1e-6 (and says at how many α it is
+     bit-equal), and is timed at K = 1, 2, 3, 4, 6, 8 where they fit;
   3. slice — `solve_cora` on both graphs with bench.py's configuration and
      the kernels, from the numpy-seeded start, and on the plaza2-shaped
      graph from rank d (the run that takes a saddle escape), each gated
@@ -59,7 +64,7 @@ error, times and bound of each kernel the main path launches (`chunk`,
 own). A kernel's bound is the larger of its bytes (inputs read once,
 outputs written once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s, and its
 dependent group-barrier phases (`tnt_kernels.work_counts`) times the
-barrier cost the probe measured in this run; the last line is
+C-CTA cluster barrier the probe measured in this run; the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -88,8 +93,12 @@ TOL_MDEC = TOL_SNORM = 2e-2
 # test_torch_solve.py) for float32 sums a thousand times longer
 FIRST_CHUNK, TOL_LEVEL_F, TOL_LEVEL_GN = 8, 1e-3, 1e-2
 REPS = 20
+# ladder cluster counts timed in phase 2 (those the card holds)
+LADDER_SWEEP = (1, 2, 3, 4, 6, 7, 8)
 # the kernels the main path launches (`tcg` is the body of `chunk`)
 PATH_KERNELS = ("chunk", "step", "ladder")
+# the single-CTA comparators, which only phase 2 launches
+COMPARATORS = ("step_block", "ladder_block", "chunk_block", "tcg_block")
 KERNEL_CASES = [("plaza2_shaped", 4), ("plaza2_shaped", 6),
                 ("single_drone_shaped", 5)]
 # the float64 level against the JAX package's, per iteration in f
@@ -137,12 +146,13 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(step|tcg|chunk|ladder)_kernelILi(\d)E(\d+\w+?G"
-                          r"roup(?:ILi(\d+)E)?)?", m.group(1))
-            name = (f"{k.group(1)}<d={k.group(2)}"
-                    + (f", cluster {k.group(4)}"
-                       if k.group(4) else
-                       ", one CTA" if k.group(3) else "") + ">") if k else None
+            k = re.search(r"(step|tcg|chunk|ladder)(_block)?_kernelILi(\d)E"
+                          r"(\d+\w+?Group(?:ILi(\d+)E)?)?", m.group(1))
+            name = (f"{k.group(1)}<d={k.group(3)}"
+                    + (f", cluster {k.group(5)}"
+                       if k.group(5) else
+                       ", one CTA" if k.group(4) or k.group(2) else "")
+                    + ">") if k else None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = (int(m.group(1)), int(m.group(2)))
@@ -203,8 +213,8 @@ def phase_device():
           " us; L2 read " + ", ".join(
               f"{b} SMs {v:.1f} GB/s" for b, v in res["l2_read_GBps"].items()),
           flush=True)
-    print(f"[device] chunk and tcg: one cluster of C = {C} CTAs of 1024 "
-          "threads", flush=True)
+    print(f"[device] chunk, tcg, step: one cluster of C = {C} CTAs of 1024 "
+          "threads; ladder: several such clusters", flush=True)
     check(res["max_active_clusters"][str(C)] >= 1,
           f"no cluster of {C} CTAs fits on the card")
     return res
@@ -225,17 +235,15 @@ def phase_kernels(problems, hp, probe):
     import numpy as np
     import torch
 
-    from cora_tpu_torch.ops import tnt_kernels
+    from cora_tpu_torch.ops import chain, tnt_kernels
     from cora_tpu_torch.ops.riemannian import random_initial_guess
     from cora_tpu_torch.ops.tnt_kernels import CudaTNT, PlainTNT
     from cora_tpu_torch.solve.tnt_kernel import get_chain_plan
 
     stats = {k: dict(max_abs_err=0.0, max_rel_err=0.0) for k in REPLACES}
     C = tnt_kernels.CLUSTER
-    barrier_us = {"step": probe["syncthreads_us"],
-                  "ladder": probe["syncthreads_us"],
-                  "tcg": probe["cluster_sync_us"][str(C)],
-                  "chunk": probe["cluster_sync_us"][str(C)]}
+    # every kernel's passes end in a barrier over one cluster of C CTAs
+    barrier_us = probe["cluster_sync_us"][str(C)]
 
     def note(name, a, b, tol, what):
         e = rel(a, b)
@@ -249,6 +257,13 @@ def phase_kernels(problems, hp, probe):
         block: (block ms, cluster ms, all four)."""
         t = [run(b) for b in (True, False, False, True)]
         return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+    def near(name, pairs, what):
+        """A comparator against the plain version, with the tolerances of
+        its kernel (not counted in the kernel's errors)."""
+        for x, y, tol, part in pairs:
+            e = rel(x, y)
+            check(e < tol, f"{name}: {what} {part} rel err {e:.3e} > {tol}")
 
     for ci, (gname, rank) in enumerate(KERNEL_CASES):
         problem = problems[gname]
@@ -268,9 +283,19 @@ def phase_kernels(problems, hp, probe):
             for i, tol in enumerate((TOL_F, TOL_GN, TOL_PGN)):
                 note("step", a[3][i:i + 1], b[3][i:i + 1], tol,
                      f"flag {flag} scalar {i}")
-        times["step"] = (median_ms(lambda: cu.step(Y, V, 1), torch),
-                         median_ms(lambda: pl.step(Y, V, 1), torch))
-        work["step"] = tnt_kernels.work_counts(plan, rank, 0, "step")
+            a = cu.step(Y, V, flag, block=True)
+            near("step (one CTA)", [(a[0], b[0], TOL_STATE, "Y"),
+                                    (a[2], b[2], TOL_GN, "grad")] + [
+                (a[3][i:i + 1], b[3][i:i + 1], tol, f"scalar {i}")
+                for i, tol in enumerate((TOL_F, TOL_GN, TOL_PGN))],
+                f"flag {flag}")
+        blk, clu, turns = in_turns(lambda b: median_ms(
+            lambda: cu.step(Y, V, 1, block=b), torch))
+        check(clu < blk, f"step: cluster {clu:.3f} ms, one CTA {blk:.3f} ms")
+        times["step"] = (clu, median_ms(lambda: pl.step(Y, V, 1), torch))
+        extra["step"] = dict(block_ms=blk, turns_ms=turns)
+        work["step"] = tnt_kernels.work_counts(plan, rank, 0, "step",
+                                               parts=C)
 
         _, QY, G, _ = pl.step(Y, V, False)
         # two tCG cases: Δ = 5 at ∇F = QY stops at the boundary (negative
@@ -361,38 +386,89 @@ def phase_kernels(problems, hp, probe):
         al = 4.0 * 0.5 ** np.arange(24)
         al = torch.tensor(np.stack([al, -al], 1).reshape(-1),
                           dtype=torch.float32)
+        K, A = min(cu.ladder_clusters, len(al)), len(al)
         la, lb = cu.ladder(Y, V, al), pl.ladder(Y, V, al)
         for i, tol in enumerate((TOL_F, TOL_GN, TOL_PGN)):
             note("ladder", la[i], lb[i], tol, f"row {i}")
-        times["ladder"] = (median_ms(lambda: cu.ladder(Y, V, al), torch),
-                           median_ms(lambda: pl.ladder(Y, V, al), torch))
-        work["ladder"] = tnt_kernels.work_counts(plan, rank, 0, "ladder",
-                                                 alphas=len(al))
+        near("ladder (one CTA per α)", [
+            (cu.ladder(Y, V, al, block=True)[i], lb[i], tol, f"row {i}")
+            for i, tol in enumerate((TOL_F, TOL_GN, TOL_PGN))], "")
+        # a trial point's arithmetic does not depend on its batch
+        one = cu.ladder(Y, V, al, clusters=1)
+        check(torch.equal(one, la),
+              f"ladder: K = 1 and K = {K} differ by {absdiff(one, la):.3e}")
+        # ... and is the cluster step's at s = α·Ẏ (s rounded as the
+        # saddle escape forms it)
+        worst, equal = 0.0, 0
+        for i, a in enumerate(al.tolist()):
+            s = (torch.tensor(a, dtype=torch.float32, device="cuda") * V
+                 ).contiguous()
+            sc = cu.step(Y, s, 1)[3]
+            worst = max(worst, rel(la[:, i], sc))
+            equal += int(torch.equal(la[:, i], sc))
+        print(f"[kernels] {gname} r={rank}: ladder (K = {K}) against the "
+              f"cluster step at each of {A} α: max rel {worst:.3e}, "
+              f"bit-equal at {equal} of {A}; K = 1 and K = {K} bit-equal",
+              flush=True)
+        check(worst <= 1e-6, f"ladder vs cluster step: rel {worst:.3e}")
+        sweep = {}
+        Ks = [k for k in LADDER_SWEEP if k <= cu.ladder_max_clusters]
+        for k in Ks + Ks[::-1]:  # in turns, forward then back
+            sweep.setdefault(k, []).append(median_ms(
+                lambda: cu.ladder(Y, V, al, clusters=k), torch))
+        sweep = {k: sum(v) / 2 for k, v in sweep.items()}
+        scratch_mb = {k: 4e-6 * chain.ladder_layout(
+            plan, rank, chain.ladder_groups(A, k)).total for k in sweep}
+        plan_mb = 1e-6 * tnt_kernels.work_counts(
+            plan, rank, 0, "ladder", alphas=A, parts=C)["bytes"]
+        print(f"[kernels] {gname} r={rank}: ladder K sweep (ms, in turns; "
+              f"working set: {plan_mb:.1f} MB of plan and inputs, each "
+              f"cluster reading Linv and the propagators, + scratch): "
+              + ", ".join(f"K={k} {v:.3f} ms ({scratch_mb[k]:.1f} MB)"
+                          for k, v in sweep.items())
+              + f"; the card holds {cu.ladder_max_clusters} clusters",
+              flush=True)
+        blk, clu, turns = in_turns(lambda b: median_ms(
+            lambda: cu.ladder(Y, V, al, block=b), torch))
+        check(clu < blk, f"ladder: {K} clusters {clu:.3f} ms, one CTA per α "
+              f"{blk:.3f} ms")
+        times["ladder"] = (clu, median_ms(lambda: pl.ladder(Y, V, al),
+                                          torch))
+        extra["ladder"] = dict(block_ms=blk, turns_ms=turns, sweep_ms=sweep,
+                               scratch_mb=scratch_mb, clusters=K)
+        work["ladder"] = tnt_kernels.work_counts(
+            plan, rank, 0, "ladder", alphas=A, parts=C, clusters=K)
         torch.cuda.synchronize()
         line = " | ".join(f"{k} {v[0]:.3f} ms (plain {v[1]:.3f} ms)"
                           for k, v in times.items())
         print(f"[kernels] {gname} r={rank}: {line}", flush=True)
         for k, e in extra.items():
-            print(f"[kernels] {gname} r={rank}: {k} one CTA {e['block_ms']:.3f}"
-                  f" ms against the {C}-CTA cluster {times[k][0]:.3f} ms (in "
-                  f"turns block, cluster, cluster, block: " + ", ".join(
-                      f"{t:.3f}" for t in e["turns_ms"]) + f" ms); per tCG "
-                  f"iteration {e['block_us_per_tcg_iter']:.2f} against "
-                  f"{e['us_per_tcg_iter']:.2f} us", flush=True)
+            per = (f"; per tCG iteration {e['block_us_per_tcg_iter']:.2f} "
+                   f"against {e['us_per_tcg_iter']:.2f} us"
+                   if "us_per_tcg_iter" in e else "")
+            print(f"[kernels] {gname} r={rank}: {k} one CTA"
+                  + (" per α" if k == "ladder" else "")
+                  + f" {e['block_ms']:.3f} ms against the {C}-CTA cluster"
+                  + (f"s (K = {e['clusters']})" if k == "ladder" else "")
+                  + f" {times[k][0]:.3f} ms (in turns block, cluster, "
+                  "cluster, block: " + ", ".join(
+                      f"{t:.3f}" for t in e["turns_ms"]) + " ms)" + per,
+                  flush=True)
         if ci == 0:  # the main path's first level: the reported times
             for k, v in times.items():
-                b_ms, b_by, b_term = bound(work[k], barrier_us[k])
+                b_ms, b_by, b_term = bound(work[k], barrier_us)
                 stats[k].update(ms=v[0], plain_ms=v[1], bound_ms=b_ms,
                                 bound_by=b_by, bound_term=b_term,
-                                library_ms=None, work=work[k])
-                if k in extra:
-                    stats[k].update(
-                        group=f"cluster of {C} CTAs",
-                        **{x: extra[k][x] for x in (
-                            "us_per_tcg_iter", "block_ms",
-                            "block_us_per_tcg_iter")})
-                else:
-                    stats[k]["group"] = "one CTA per launch"
+                                library_ms=None, work=work[k],
+                                block_ms=extra[k]["block_ms"],
+                                group=f"cluster of {C} CTAs")
+                for x in ("us_per_tcg_iter", "block_us_per_tcg_iter",
+                          "sweep_ms", "scratch_mb"):
+                    if x in extra[k]:
+                        stats[k][x] = extra[k][x]
+                if k == "ladder":
+                    stats[k]["group"] = (f"{extra[k]['clusters']} clusters of "
+                                         f"{C} CTAs")
     print("[kernels] max errors vs plain: " + " | ".join(
         f"{k} abs {v['max_abs_err']:.3e} rel {v['max_rel_err']:.3e}"
         for k, v in stats.items()), flush=True)
@@ -801,7 +877,7 @@ def main():
     for name in PATH_KERNELS:
         check(launches[name] > 0,
               f"{name} kernel not launched on the main path: {launches}")
-    check(launches["chunk_block"] == 0 and launches["tcg_block"] == 0,
+    check(not any(launches[k] for k in COMPARATORS),
           f"the main path launched a single-CTA comparator: {launches}")
     timed("level_f64", phase_level_f64, problems, reference)
     timed("general", phase_general, reference)
@@ -815,11 +891,12 @@ def main():
                      max_rel_err=v["max_rel_err"], ms=v["ms"],
                      plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                      bound_by=v["bound_by"], bound_term=v["bound_term"],
-                     library_ms=v["library_ms"], group=v["group"])
-        if k in ("chunk", "tcg"):
-            entry.update(us_per_tcg_iter=v["us_per_tcg_iter"],
-                         block_ms=v["block_ms"],
-                         block_us_per_tcg_iter=v["block_us_per_tcg_iter"])
+                     library_ms=v["library_ms"], group=v["group"],
+                     block_ms=v["block_ms"])
+        for x in ("us_per_tcg_iter", "block_us_per_tcg_iter", "sweep_ms",
+                  "scratch_mb"):
+            if x in v:
+                entry[x] = v[x]
         kernels.append(entry)
     # `tcg` is checked and timed in phase 2, but the main path runs its loop
     # inside `chunk`, not as a launch of its own: the JSON line lists the

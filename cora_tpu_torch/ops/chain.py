@@ -50,6 +50,7 @@ from cora_tpu_torch.ops.manifolds import (
     stiefel_project,
     stiefel_tangent_project,
 )
+from cora_tpu_torch.utils.device import check_device
 
 S_MAX = 8  # max range slots per pose the kernels support
 L_MAX = 16  # max landmarks
@@ -143,12 +144,13 @@ class ChainPlan:
         return self.n * self.d
 
 
-def build_chain_plan(problem, dtype=np.float32, device="cpu",
+def build_chain_plan(problem, dtype=np.float32, device="cuda",
                      max_cond: float = 1e6,
                      lam: float | None = None) -> ChainPlan:
     """All constants of the chain ops for one problem (host numpy/scipy,
-    then one upload). The banded factor uses the identity pose ordering and
-    λ = ‖Q‖₂/(κ−1), as the JAX package's `build_tile_plan` does
+    then one upload to `device`, the card unless the caller asks for
+    another; raises without one). The banded factor uses the identity pose
+    ordering and λ = ‖Q‖₂/(κ−1), as the JAX package's `build_tile_plan` does
     (reference `CORA_problem.cpp:590-591`). Coefficients come from the
     problem data in `dtype`, so a float32 plan carries float32-rounded
     measurements like the float32 solve."""
@@ -158,6 +160,7 @@ def build_chain_plan(problem, dtype=np.float32, device="cpu",
         factor_banded,
     )
 
+    dev = check_device(device)
     pd = problem.device_data(dtype=dtype, device="cpu")
     reason = plan_supported(pd)
     if reason is not None:
@@ -218,7 +221,6 @@ def build_chain_plan(problem, dtype=np.float32, device="cpu",
           for a, b, c in qdwh_weights(qdwh_l0(torch_dtype(dtype)), 8)]
 
     tdt = torch_dtype(dtype)
-    dev = torch.device(device)
 
     def T(x):
         return torch.as_tensor(np.asarray(x, np.float64)).to(dev, tdt)
@@ -311,6 +313,66 @@ def cluster_partition(plan: ChainPlan, parts: int) -> ClusterPartition:
         row_ptr=i32(row_ptr), own_rows=i32(np.concatenate(rows)),
         rng_ptr=i32(rng_ptr), own_rng=i32(own_rng), lmc_ptr=i32(lmc_ptr),
         lmc_rng=i32(lmc_rng))
+
+
+def ladder_groups(A: int, K: int) -> np.ndarray:
+    """The α-batched `ladder`'s split of A trial points over K clusters:
+    cluster k evaluates α[grp[k]:grp[k+1]], contiguous groups whose sizes
+    differ by at most one. (K + 1,) int32."""
+    if A < 1 or K < 1:
+        raise ValueError(f"A={A}, K={K}")
+    return ((np.arange(K + 1, dtype=np.int64) * A) // K).astype(np.int32)
+
+
+@dataclasses.dataclass
+class LadderLayout:
+    """The α-batched `ladder`'s float32 scratch, in elements. Trial point
+    a (global index) owns three (N, r) states at `state(a)`: the retracted
+    Yn, then QY (whose rows hold P·grad once grad is formed), then grad.
+    Cluster k owns two band buffers of (nb, w, cols(k)) at `band_off[k]`
+    and `band_off[k] + band_len(k)`: one banded solve for its AB trial
+    points' right-hand sides, trial point al's in columns al·r .. al·r + r,
+    the column count rounded up to a multiple of 4 (float4 rows) and the
+    buffers 16-byte aligned."""
+
+    N: int
+    r: int
+    nbw: int  # nb · w
+    grp: np.ndarray  # ladder_groups(A, K)
+
+    @property
+    def A(self) -> int:
+        return int(self.grp[-1])
+
+    @property
+    def state_stride(self) -> int:
+        return 3 * self.N * self.r
+
+    def state(self, a: int) -> int:
+        return a * self.state_stride
+
+    def cols(self, k: int) -> int:
+        return -(-int(self.grp[k + 1] - self.grp[k]) * self.r // 4) * 4
+
+    def band_len(self, k: int) -> int:
+        return self.nbw * self.cols(k)
+
+    @property
+    def band_off(self) -> np.ndarray:
+        """(K + 1,) int64: cluster k's band buffers fill
+        [band_off[k], band_off[k + 1])."""
+        base = -(-self.A * self.state_stride // 4) * 4
+        lens = [2 * self.band_len(k) for k in range(len(self.grp) - 1)]
+        return base + np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+    @property
+    def total(self) -> int:
+        return int(self.band_off[-1])
+
+
+def ladder_layout(plan: ChainPlan, r: int, grp: np.ndarray) -> LadderLayout:
+    return LadderLayout(N=plan.N, r=r, nbw=plan.nb * plan.w,
+                        grp=np.asarray(grp, np.int32))
 
 
 # ---------------------------------------------------------------------------

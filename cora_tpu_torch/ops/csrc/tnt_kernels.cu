@@ -7,11 +7,12 @@
 //   chunk  — TNT outer iterations up to stop_at: tCG, step at the trial
 //            point, ρ test, Δ update, stopping rules, ramp/finish, histories
 //            (replaces PallasTNT.chunk, pallas_tcg.py:443-753)
-//   ladder — (f, ‖grad‖, √<g, Pg>) at retract(Y, α·Ẏ) for every α, one CTA
-//            per α (replaces PallasTNT.ladder, pallas_tcg.py:755-804)
+//   ladder — (f, ‖grad‖, √<g, Pg>) at retract(Y, α·Ẏ) for every α, the
+//            trial points batched over a few clusters
+//            (replaces PallasTNT.ladder, pallas_tcg.py:755-804)
 //
-// chunk and tcg are persistent kernels over ONE thread-block cluster of
-// CORA_CLUSTER CTAs of 1024 threads on neighbouring SMs (ClusterGroup in
+// chunk, tcg and step are persistent kernels over ONE thread-block cluster
+// of CORA_CLUSTER CTAs of 1024 threads on neighbouring SMs (ClusterGroup in
 // chain_ops.cuh), launched with cudaLaunchKernelEx and a cluster-dimension
 // attribute. chunk is a whole solver loop with data-dependent trip counts,
 // a group barrier per scan level and scalar control flow, so it stays one
@@ -22,15 +23,25 @@
 // the latency of each pass's loads, not bytes (a call reads ~5 MB of inputs
 // once; a tCG iteration streams ~22 MB of L2, ~20 µs over 16 SMs) or FLOPs.
 // The cluster spreads each pass over CORA_CLUSTER SMs' L2 paths and keeps
-// the barrier in hardware; chunk's time against one CTA's is in PERF.md.
+// the barrier in hardware; the times against one CTA's are in PERF.md.
 // Every CTA computes the same scalars from the same rank-ordered cluster
 // sums, so the control flow is uniform across the cluster; only CTA 0
 // writes the scalars and histories back.
 //
-// step and ladder stay single-CTA kernels (BlockGroup: step runs twice per
-// saddle escape, ladder runs one CTA per α on 48 SMs). chunk_block and
-// tcg_block are the same loops on one CTA: the comparator that chip_smoke.py
-// times against the cluster kernels; the solver never launches them.
+// ladder evaluates A (48) trial points of one step each. It launches K
+// clusters of CORA_CLUSTER CTAs, cluster k taking a contiguous group of
+// about A/K trial points (chain.ladder_groups) and running step's ~28
+// dependent passes once for its whole group (ladder_core): the barriers
+// and the pass latency are paid once per cluster, and each propagator row
+// is read once per pass for the group's AB·r band columns. Its partial-sum
+// ring is AB trial points wide, in dynamic shared memory. K is at most the
+// clusters the card holds at once (cora_ladder_capacity); chip_smoke.py
+// sweeps it.
+//
+// step_block, ladder_block, chunk_block and tcg_block are the single-CTA
+// versions (ladder_block: one CTA per α): the comparators that
+// chip_smoke.py times against the cluster kernels; the solver never
+// launches them.
 //
 // Plain C interface (bound with ctypes from ops/tnt_kernels.py): each entry
 // launches on the given stream, allocates nothing (the caller passes the
@@ -83,21 +94,21 @@ __device__ Ctx make_ctx(const ChainPlanArgs& P, int r, Carver& w) {
   return c;
 }
 
-template <int D>
+template <int D, class G>
 __global__ void __launch_bounds__(CORA_NTHREADS, 1)
 step_kernel(ChainPlanArgs P, int r, const float* Y, const float* s,
             int do_retract, float* Yn, float* QY, float* grad, float* scal,
             float* work) {
   Carver w{work};
-  Ctx c = make_ctx<BlockGroup>(P, r, w);
+  Ctx c = make_ctx<G>(P, r, w);
   float* pg = w.take((size_t)P.N * r);
-  StepOut o = step_core<D, BlockGroup>(c, Y, s, 1.f, do_retract, Yn, QY,
-                                       grad, pg);
-  if (threadIdx.x == 0) {
+  StepOut o = step_core<D, G>(c, Y, s, 1.f, do_retract, Yn, QY, grad, pg);
+  if (c.rank == 0 && threadIdx.x == 0) {
     scal[0] = o.f;
     scal[1] = o.gradnorm;
     scal[2] = o.pgradnorm;
   }
+  G::sync();  // no CTA leaves while another may still read its ring
 }
 
 template <int D, class G>
@@ -251,11 +262,12 @@ chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* Gr,
   G::sync();  // no CTA leaves while another may still read its ring
 }
 
-// One CTA per signed step length: out = [f (A) | ‖grad‖ (A) | √<g,Pg> (A)].
+// The comparator: one CTA per signed step length,
+// out = [f (A) | ‖grad‖ (A) | √<g,Pg> (A)].
 template <int D>
 __global__ void __launch_bounds__(CORA_NTHREADS, 1)
-ladder_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
-              const float* alphas, int A, float* out, float* work) {
+ladder_block_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
+                    const float* alphas, int A, float* out, float* work) {
   const size_t NR = (size_t)P.N * r;
   const size_t per = 4 * NR + 2 * (size_t)P.nb * P.w * r;
   Carver w{work + blockIdx.x * per};
@@ -273,23 +285,86 @@ ladder_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
   }
 }
 
-// The kernel's attribute (a non-portable cluster size) and the
-// configuration of one cluster of CORA_CLUSTER CTAs of CORA_NTHREADS threads.
+// Dynamic shared memory of the α-batched ladder for at most `ab` trial
+// points per cluster: the ring, the warp partials, lmA, lmB and the sums.
+size_t ladder_smem(const ChainPlanArgs& P, int r, int ab) {
+  const int lr = P.l * r;
+  const size_t W = (size_t)ab * (lr > 1 ? lr : 1);
+  return sizeof(float) *
+         (CORA_RING * W + 32 * (size_t)ab + 2 * (size_t)ab * lr + 3 * (size_t)ab);
+}
+
+// The α-batched ladder: cluster k of the grid evaluates the trial points
+// α[grp[k] .. grp[k+1]) together (ladder_core), its scratch laid out as
+// chain.LadderLayout says: trial point a's states at a·3·N·r, cluster k's
+// two band buffers in [band_off[k], band_off[k+1]).
+// out = [f (A) | ‖grad‖ (A) | √<g,Pg> (A)].
+template <int D, class G>
+__global__ void __launch_bounds__(CORA_NTHREADS, 1)
+ladder_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
+              const float* alphas, int A, const int* grp,
+              const long long* band_off, float* out, float* work) {
+  extern __shared__ float smem[];
+  const int k = blockIdx.x / G::kSize;
+  const int a0 = grp[k], AB = grp[k + 1] - a0, lr = P.l * r;
+  const size_t NR = (size_t)P.N * r, st = 3 * NR;
+  const size_t nbw = (size_t)P.nb * P.w;
+  Batch B;
+  B.AB = AB;
+  B.Rp = (int)((band_off[k + 1] - band_off[k]) / (2 * nbw));
+  B.st = st;
+  B.W = AB * (lr > 1 ? lr : 1);
+  Ctx c;
+  c.P = P;
+  c.r = r;
+  c.band0 = work + band_off[k];
+  c.band1 = c.band0 + nbw * B.Rp;
+  c.rank = G::rank();
+  c.b0 = P.blk_ptr[c.rank];
+  c.b1 = P.blk_ptr[c.rank + 1];
+  c.g0 = min(2 * c.b0, P.n);
+  c.g1 = min(2 * c.b1, P.n);
+  c.ring = smem;
+  c.nsum = 0;
+  B.part = smem + CORA_RING * B.W;
+  B.lmA = B.part + 32 * AB;
+  B.lmB = B.lmA + AB * lr;
+  float* res = B.lmB + AB * lr;
+  ladder_core<D, G>(c, B, Y, Ydot, alphas + a0, work + a0 * st, res);
+  if (c.rank == 0)
+    for (int al = threadIdx.x; al < AB; al += blockDim.x) {
+      const float gn = sqrtf(res[AB + al]), ip = res[2 * AB + al];
+      out[a0 + al] = 0.5f * res[al];
+      out[A + a0 + al] = gn;
+      out[2 * A + a0 + al] = ip > 0.f ? sqrtf(fmaxf(ip, 0.f)) : gn;
+    }
+  G::sync();  // no CTA leaves while another may still read its ring
+}
+
+// The kernel's attributes (a non-portable cluster size, its dynamic shared
+// memory) and the configuration of `clusters` clusters of CORA_CLUSTER CTAs
+// of CORA_NTHREADS threads.
 struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   cudaError_t err;
   template <class... Exp>
-  ClusterLaunch(void (*kernel)(Exp...), cudaStream_t st) {
+  ClusterLaunch(void (*kernel)(Exp...), cudaStream_t st, int clusters = 1,
+                size_t smem = 0) {
     err = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess && smem > 0)
+      err = cudaFuncSetAttribute((const void*)kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = CORA_CLUSTER;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg = {};
-    cfg.gridDim = dim3(CORA_CLUSTER, 1, 1);
+    cfg.gridDim = dim3(CORA_CLUSTER * clusters, 1, 1);
     cfg.blockDim = dim3(CORA_NTHREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = st;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
@@ -297,8 +372,9 @@ struct ClusterLaunch {
 };
 
 template <class... Exp, class... Act>
-int launch_cluster(void (*kernel)(Exp...), cudaStream_t st, Act&&... args) {
-  ClusterLaunch L(kernel, st);
+int launch_clusters(void (*kernel)(Exp...), cudaStream_t st, int clusters,
+                    size_t smem, Act&&... args) {
+  ClusterLaunch L(kernel, st, clusters, smem);
   if (L.err != cudaSuccess) return (int)L.err;
   const cudaError_t e =
       cudaLaunchKernelEx(&L.cfg, kernel, std::forward<Act>(args)...);
@@ -306,10 +382,15 @@ int launch_cluster(void (*kernel)(Exp...), cudaStream_t st, Act&&... args) {
   return (int)cudaGetLastError();
 }
 
+template <class... Exp, class... Act>
+int launch_cluster(void (*kernel)(Exp...), cudaStream_t st, Act&&... args) {
+  return launch_clusters(kernel, st, 1, 0, std::forward<Act>(args)...);
+}
+
 // How many clusters of the kernel's configuration fit on the card at once.
 template <class... Exp>
-int cluster_capacity(void (*kernel)(Exp...), int* clusters) {
-  ClusterLaunch L(kernel, nullptr);
+int cluster_capacity(void (*kernel)(Exp...), int* clusters, size_t smem = 0) {
+  ClusterLaunch L(kernel, nullptr, 1, smem);
   if (L.err != cudaSuccess) return (int)L.err;
   return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
                                              &L.cfg);
@@ -326,16 +407,35 @@ int cora_cluster_capacity(const ChainPlanArgs* P, int* clusters) {
   return cluster_capacity(chunk_kernel<3, Cluster>, clusters);
 }
 
+int cora_ladder_capacity(const ChainPlanArgs* P, int r, int ab,
+                         int* clusters) {
+  const size_t smem = ladder_smem(*P, r, ab);
+  if (P->d == 2)
+    return cluster_capacity(ladder_kernel<2, Cluster>, clusters, smem);
+  return cluster_capacity(ladder_kernel<3, Cluster>, clusters, smem);
+}
+
 int cora_step(const ChainPlanArgs* P, int r, const float* Y, const float* s,
               int do_retract, float* Yn, float* QY, float* grad, float* scal,
               float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (P->d == 2)
-    step_kernel<2><<<1, CORA_NTHREADS, 0, st>>>(*P, r, Y, s, do_retract, Yn,
-                                                QY, grad, scal, work);
+    return launch_cluster(step_kernel<2, Cluster>, st, *P, r, Y, s,
+                          do_retract, Yn, QY, grad, scal, work);
+  return launch_cluster(step_kernel<3, Cluster>, st, *P, r, Y, s, do_retract,
+                        Yn, QY, grad, scal, work);
+}
+
+int cora_step_block(const ChainPlanArgs* P, int r, const float* Y,
+                    const float* s, int do_retract, float* Yn, float* QY,
+                    float* grad, float* scal, float* work, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (P->d == 2)
+    step_kernel<2, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
+        *P, r, Y, s, do_retract, Yn, QY, grad, scal, work);
   else
-    step_kernel<3><<<1, CORA_NTHREADS, 0, st>>>(*P, r, Y, s, do_retract, Yn,
-                                                QY, grad, scal, work);
+    step_kernel<3, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
+        *P, r, Y, s, do_retract, Yn, QY, grad, scal, work);
   return (int)cudaGetLastError();
 }
 
@@ -389,15 +489,28 @@ int cora_chunk_block(const ChainPlanArgs* P, const TNTArgs* T, int r,
 }
 
 int cora_ladder(const ChainPlanArgs* P, int r, const float* Y,
-                const float* Ydot, const float* alphas, int A, float* out,
+                const float* Ydot, const float* alphas, int A, const int* grp,
+                const long long* band_off, int clusters, int ab, float* out,
                 float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = ladder_smem(*P, r, ab);
   if (P->d == 2)
-    ladder_kernel<2><<<A, CORA_NTHREADS, 0, st>>>(*P, r, Y, Ydot, alphas, A,
-                                                  out, work);
+    return launch_clusters(ladder_kernel<2, Cluster>, st, clusters, smem, *P,
+                           r, Y, Ydot, alphas, A, grp, band_off, out, work);
+  return launch_clusters(ladder_kernel<3, Cluster>, st, clusters, smem, *P, r,
+                         Y, Ydot, alphas, A, grp, band_off, out, work);
+}
+
+int cora_ladder_block(const ChainPlanArgs* P, int r, const float* Y,
+                      const float* Ydot, const float* alphas, int A,
+                      float* out, float* work, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (P->d == 2)
+    ladder_block_kernel<2><<<A, CORA_NTHREADS, 0, st>>>(*P, r, Y, Ydot, alphas,
+                                                        A, out, work);
   else
-    ladder_kernel<3><<<A, CORA_NTHREADS, 0, st>>>(*P, r, Y, Ydot, alphas, A,
-                                                  out, work);
+    ladder_block_kernel<3><<<A, CORA_NTHREADS, 0, st>>>(*P, r, Y, Ydot, alphas,
+                                                        A, out, work);
   return (int)cudaGetLastError();
 }
 

@@ -27,16 +27,20 @@ passes over ≤ 56k-element vectors, each ended by a group barrier —
 plaza2-shaped graph at r = 4 (`scripts/probe_cluster_sync.py`) — and the
 latency of each pass's loads; not bytes (each call reads its ~5 MB of
 inputs once; a tCG iteration streams ~22 MB through L2, ~20 µs over 16
-SMs) and not FLOPs. So `chunk` and `tcg` run as one thread-block cluster
-of `CLUSTER` CTAs on neighbouring SMs: each pass spread over `CLUSTER`
-SMs' L2 paths, the barrier in hardware (cluster.sync), each CTA owning a
-contiguous range of band blocks and the rows that hang on them
+SMs) and not FLOPs. So `chunk`, `tcg` and `step` run as one thread-block
+cluster of `CLUSTER` CTAs on neighbouring SMs: each pass spread over
+`CLUSTER` SMs' L2 paths, the barrier in hardware (cluster.sync), each CTA
+owning a contiguous range of band blocks and the rows that hang on them
 (`chain.cluster_partition`). Measured, a tCG iteration takes 95-132 µs
-inside a solve. `step` and `ladder` stay single-CTA kernels (`ladder`
-runs its 48 trial points on 48 SMs); `chunk_block` and `tcg_block` are
-the single-CTA comparators that chip_smoke.py times against the cluster
-kernels. Times on the card beside the plain versions' and the bounds are
-in PERF.md.
+inside a solve. `ladder` is one step at each of A = 48 trial points: it
+launches K clusters (`LADDER_CLUSTERS`, at most what the card holds at
+once), each evaluating a contiguous group of trial points
+(`chain.ladder_groups`) in one pass chain, its band a solve with AB·r
+columns (`chain.LadderLayout`). `step_block`, `ladder_block` (one CTA per
+α), `chunk_block` and `tcg_block` are the single-CTA comparators that
+chip_smoke.py times against the cluster kernels; the solver never launches
+them. Times on the card beside the plain versions' and the bounds are in
+PERF.md.
 
 Build: `nvcc -O3 -gencode=arch=compute_90a,code=sm_90a` (no fast math)
 into `<repo>/.torch_ext_build/`, a shared library with a plain C interface
@@ -55,6 +59,7 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from cora_tpu_torch.ops import chain
@@ -72,16 +77,20 @@ from cora_tpu_torch.solve.tnt import (
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
 SOURCES = ("chain_ops.cuh", "tnt_kernels.cu")
-# CTAs in the cluster of `chunk` and `tcg` (scripts/probe_cluster_sync.py
-# and PERF.md say why 16)
+# CTAs in a cluster of `chunk`, `tcg`, `step` and `ladder`
+# (scripts/probe_cluster_sync.py and PERF.md say why 16)
 CLUSTER = 16
+# clusters of the α-batched `ladder` (chip_smoke.py's sweep, PERF.md)
+LADDER_CLUSTERS = 7
+# trial points one ladder cluster may batch (its ring is that wide)
+LADDER_MAX_BATCH = 48
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DCORA_CLUSTER={CLUSTER}")
 
 # launches per kernel; each CudaTNT wrapper adds one where it launches
-LAUNCHES = {"step": 0, "tcg": 0, "chunk": 0, "ladder": 0, "chunk_block": 0,
-            "tcg_block": 0}
+LAUNCHES = {"step": 0, "tcg": 0, "chunk": 0, "ladder": 0, "step_block": 0,
+            "ladder_block": 0, "chunk_block": 0, "tcg_block": 0}
 # how the library was built (for reports): path, seconds, ptxas output
 BUILD_INFO: dict = {}
 STREAK = 3
@@ -156,17 +165,23 @@ def load_library():
     except OSError as e:
         raise KernelBuildError(f"cannot load {so}: {e}") from e
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cora_step.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp]
+    for fn in (lib.cora_step, lib.cora_step_block):
+        fn.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp]
     for fn in (lib.cora_tcg, lib.cora_tcg_block):
         fn.argtypes = [vp, ci, vp, vp, vp, cf, ci, cf, cf, vp, vp, vp, vp]
     for fn in (lib.cora_chunk, lib.cora_chunk_block):
         fn.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp]
-    lib.cora_ladder.argtypes = [vp, ci, vp, vp, vp, ci, vp, vp, vp]
+    lib.cora_ladder.argtypes = [vp, ci, vp, vp, vp, ci, vp, vp, ci, ci, vp,
+                                vp, vp]
+    lib.cora_ladder_block.argtypes = [vp, ci, vp, vp, vp, ci, vp, vp, vp]
     lib.cora_cluster_capacity.argtypes = [vp, vp]
+    lib.cora_ladder_capacity.argtypes = [vp, ci, ci, vp]
     lib.cora_cluster_size.argtypes = []
-    for fn in (lib.cora_step, lib.cora_tcg, lib.cora_tcg_block,
-               lib.cora_chunk, lib.cora_chunk_block, lib.cora_ladder,
-               lib.cora_cluster_capacity, lib.cora_cluster_size):
+    for fn in (lib.cora_step, lib.cora_step_block, lib.cora_tcg,
+               lib.cora_tcg_block, lib.cora_chunk, lib.cora_chunk_block,
+               lib.cora_ladder, lib.cora_ladder_block,
+               lib.cora_cluster_capacity, lib.cora_ladder_capacity,
+               lib.cora_cluster_size):
         fn.restype = ci
     if lib.cora_cluster_size() != CLUSTER:
         raise KernelBuildError(f"{so} was built for another cluster")
@@ -177,14 +192,16 @@ def load_library():
 
 def work_counts(plan: ChainPlan, r: int, tcg_iters: int, kernel: str = "chunk",
                 outer_iters: int = 0, init: bool = False, alphas: int = 0,
-                parts: int = 1) -> dict:
+                parts: int = 1, clusters: int = 1) -> dict:
     """What one call of `kernel` must do, from the plan's shapes and this
     call's iteration counts: `bytes` (each input read once, each output
     written once), `flops` (the products and sums of the algorithm) and
     `phases` (dependent passes, each ended by a group barrier that spans
-    all the CTAs of the call: 2·levels + 3 per tCG iteration, + 2 with
+    all the CTAs of a cluster: 2·levels + 3 per tCG iteration, + 2 with
     landmarks). `parts` is the partition's CTA count, whose tables the
-    kernel also reads."""
+    kernel also reads. `ladder`'s `clusters` each read the propagators
+    and Linv once for their group of trial points, which run their passes
+    side by side: its phases are one step's."""
     n, m, l, d, N = plan.n, plan.m, plan.l, plan.d, plan.N
     nb, w, S, L = plan.nb, plan.w, plan.S, plan.levels
     lm = 1 if l > 0 else 0
@@ -223,11 +240,14 @@ def work_counts(plan: ChainPlan, r: int, tcg_iters: int, kernel: str = "chunk",
         flops = f_tcg * tcg_iters + f_precon + f_proj + 2 * f_dot
     elif kernel == "step":
         nbytes = plan_bytes + 2 * state + 3 * state + f4 * 3
-        phases = step
+        phases = step + 1
         flops = f_step
     elif kernel == "ladder":
-        nbytes = plan_bytes + 2 * state + f4 * 4 * alphas
-        phases = step
+        propagators = f4 * nb * w * w * (1 + L)
+        # + the group table (int32) and the band offsets (int64)
+        nbytes = (plan_bytes + (clusters - 1) * propagators + 2 * state
+                  + f4 * 4 * alphas + 12 * (clusters + 1))
+        phases = step + 1
         flops = f_step * alphas
     else:
         raise ValueError(f"kernel={kernel!r}")
@@ -248,8 +268,9 @@ def _check_state(x: torch.Tensor, N: int, r: int, name: str):
 
 class CudaTNT:
     """The CUDA kernels for one chain plan (float32, on a CUDA device).
-    `chunk` and `tcg` launch one cluster of the library's cluster size;
-    construction raises KernelLaunchError if the card cannot hold one."""
+    `chunk`, `tcg` and `step` launch one cluster of the library's cluster
+    size, `ladder` up to `ladder_clusters` of them; construction raises
+    KernelLaunchError if the card cannot hold one."""
 
     route = "cuda"
 
@@ -291,6 +312,18 @@ class CudaTNT:
                 f"scheduled (CUDA error {err}, {clusters.value} active "
                 f"clusters)")
         self.max_clusters = clusters.value
+        # the ladder's room at its largest shared memory (a full batch at
+        # the largest rank); the card holds one 1024-thread CTA per SM
+        # whatever the batch, so this is its capacity at every batch
+        err = self.lib.cora_ladder_capacity(
+            ctypes.byref(self._argsC), chain.R_MAX, LADDER_MAX_BATCH,
+            ctypes.byref(clusters))
+        if err != 0 or clusters.value < 1:
+            raise KernelLaunchError(
+                f"no ladder cluster of {self.cluster} CTAs can be scheduled "
+                f"(CUDA error {err}, {clusters.value} active clusters)")
+        self.ladder_max_clusters = clusters.value
+        self.ladder_clusters = min(LADDER_CLUSTERS, self.ladder_max_clusters)
         p = params
         self._tnt = _TNTArgs(
             eta1=p.eta1, eta2=p.eta2, alpha1=p.alpha1, alpha2=p.alpha2,
@@ -335,20 +368,22 @@ class CudaTNT:
             raise ValueError(f"rank {r} outside 1..{chain.R_MAX}")
         return r
 
-    def step(self, Y, s, do_retract: bool):
+    def step(self, Y, s, do_retract: bool, block: bool = False):
         """(Y, s) → (Y_new, ∇F = QY_new, grad, [f, ‖grad‖, √⟨g,Pg⟩]);
-        with do_retract False the state is evaluated as is."""
+        with do_retract False the state is evaluated as is. On the cluster,
+        or with `block` on one CTA (the comparator)."""
         r = self._rank(Y)
         N = self.plan.N
         _check_state(Y, N, r, "Y")
         _check_state(s, N, r, "s")
         Yn, QY, grad = (torch.empty_like(Y) for _ in range(3))
         scal = torch.empty(3, dtype=torch.float32, device=Y.device)
-        err = self.lib.cora_step(
-            ctypes.byref(self._args1), r, _ptr(Y), _ptr(s),
-            int(bool(do_retract)), _ptr(Yn), _ptr(QY), _ptr(grad), _ptr(scal),
-            _ptr(self._work(r, 1)), self._stream())
-        self._done("step", err)
+        fn, args = ((self.lib.cora_step_block, self._args1) if block
+                    else (self.lib.cora_step, self._argsC))
+        err = fn(ctypes.byref(args), r, _ptr(Y), _ptr(s),
+                 int(bool(do_retract)), _ptr(Yn), _ptr(QY), _ptr(grad),
+                 _ptr(scal), _ptr(self._work(r, 1)), self._stream())
+        self._done("step_block" if block else "step", err)
         return Yn, QY, grad, scal
 
     def tcg(self, grad, Y, nablaF, delta: float, max_iters: int,
@@ -397,8 +432,12 @@ class CudaTNT:
         self._done("chunk_block" if block else "chunk", err)
         return fscal, iscal
 
-    def ladder(self, Y, Ydot, alphas):
-        """(3, A): f, ‖grad‖, √⟨g,Pg⟩ at retract(Y, α·Ẏ) for each α."""
+    def ladder(self, Y, Ydot, alphas, clusters: int | None = None,
+               block: bool = False):
+        """(3, A): f, ‖grad‖, √⟨g,Pg⟩ at retract(Y, α·Ẏ) for each α: the
+        trial points batched over `clusters` clusters (default
+        `ladder_clusters`; at most A and what the card holds), or with
+        `block` one CTA per α (the comparator)."""
         r = self._rank(Y)
         N = self.plan.N
         _check_state(Y, N, r, "Y")
@@ -406,9 +445,30 @@ class CudaTNT:
         alphas = alphas.to(Y.device, torch.float32).contiguous()
         A = int(alphas.numel())
         out = torch.empty((3, A), dtype=torch.float32, device=Y.device)
+        if block:
+            err = self.lib.cora_ladder_block(
+                ctypes.byref(self._args1), r, _ptr(Y), _ptr(Ydot),
+                _ptr(alphas), A, _ptr(out),
+                _ptr(self._work(r, 4, copies=A)), self._stream())
+            self._done("ladder_block", err)
+            return out
+        K = min(clusters or self.ladder_clusters, A)
+        if not 1 <= K <= self.ladder_max_clusters:
+            raise ValueError(f"{K} ladder clusters; the card holds "
+                             f"{self.ladder_max_clusters}")
+        grp = chain.ladder_groups(A, K)
+        ab = int(np.diff(grp).max())
+        if ab > LADDER_MAX_BATCH:
+            raise ValueError(f"{ab} trial points in one cluster > "
+                             f"{LADDER_MAX_BATCH}")
+        layout = chain.ladder_layout(self.plan, r, grp)
+        grp_t = torch.as_tensor(grp).to(Y.device)
+        off_t = torch.as_tensor(layout.band_off).to(Y.device)
+        work = torch.empty(layout.total, dtype=torch.float32, device=Y.device)
         err = self.lib.cora_ladder(
-            ctypes.byref(self._args1), r, _ptr(Y), _ptr(Ydot), _ptr(alphas), A,
-            _ptr(out), _ptr(self._work(r, 4, copies=A)), self._stream())
+            ctypes.byref(self._argsC), r, _ptr(Y), _ptr(Ydot), _ptr(alphas), A,
+            _ptr(grp_t), _ptr(off_t), K, ab, _ptr(out), _ptr(work),
+            self._stream())
         self._done("ladder", err)
         return out
 

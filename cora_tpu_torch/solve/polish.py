@@ -26,6 +26,7 @@ import torch
 
 from cora_tpu_torch.ops import riemannian as rm
 from cora_tpu_torch.ops.quadratic import data_matrix_product
+from cora_tpu_torch.utils.device import check_device
 
 # zero columns are exactly invariant under the whole polish; the JAX
 # package pads to one width to compile once, and the port keeps the same
@@ -129,7 +130,7 @@ def polish_solution(
     max_tcg_iterations: int = 60,
     max_cond: float = 1e6,
     time_budget: float | None = None,
-    device="cpu",
+    device="cuda",
 ) -> PolishResult:
     """Polish Y to a float64 (near-)critical point of f(Y) = ½tr(YᵀQY)
     on the product manifold (translation-explicit formulation).
@@ -142,6 +143,7 @@ def polish_solution(
     """
     from cora_tpu_torch.types import Preconditioner
 
+    device = check_device(device)
     if grad_tol is None:
         grad_tol = 1e-6 * max(1.0, _q_norm(problem))
     pd = problem.device_data(np.float64, device)

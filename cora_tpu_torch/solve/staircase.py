@@ -63,6 +63,7 @@ from cora_tpu_torch.types import (
     Preconditioner,
     SolverConfig,
 )
+from cora_tpu_torch.utils.device import check_device
 from cora_tpu_torch.utils.timing import PhaseTimer
 
 SADDLE_GRAD_TOL = 1e-4  # reference `CORA.cpp:191-192`
@@ -110,20 +111,6 @@ def kernel_path_reason(config: SolverConfig, pd) -> str | None:
     return chain.plan_supported(pd)
 
 
-def _check_device(device: torch.device) -> None:
-    if device.type != "cuda":
-        return
-    if not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but no CUDA device is available")
-    # reduced-precision float32 matmuls break the polar/QDWH retraction
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be "
-                           "False for the float32 solve")
-    if torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError("torch.get_float32_matmul_precision() must be "
-                           "'highest' for the float32 solve")
-
-
 def solve_cora(
     problem: Problem,
     x0=None,
@@ -138,8 +125,7 @@ def solve_cora(
     manifold; otherwise the odometry start (`Initialization.ODOMETRY`) or
     a random start, both from `config.seed`."""
     config = config or SolverConfig()
-    device = torch.device(device)
-    _check_device(device)
+    device = check_device(device)
     if config.formulation != Formulation.EXPLICIT:
         raise NotImplementedError("the implicit formulation is not ported")
     if config.log_iterates:

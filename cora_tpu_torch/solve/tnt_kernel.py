@@ -140,9 +140,10 @@ def get_kernel_backend(problem, params: TNTParams, max_cond: float = 1e6,
     return cache[key]
 
 
-def get_chain_plan(problem, dtype=np.float32, device="cpu",
+def get_chain_plan(problem, dtype=np.float32, device="cuda",
                    max_cond: float = 1e6) -> chain.ChainPlan:
-    """`build_chain_plan`, cached on the problem."""
+    """`build_chain_plan`, cached on the problem (on the card unless the
+    caller asks for another device)."""
     key = (np.dtype(dtype).name, str(torch.device(device)), float(max_cond))
     cache = getattr(problem, "_chain_plan_cache", None)
     if cache is None:

@@ -80,7 +80,8 @@ def _torch_out(plan, op, Y, V, nablaF):
 @pytest.mark.parametrize("dim,rank,g", GRAPHS, ids=IDS)
 def test_chain_op_f64_vs_canonical(dim, rank, g, op):
     jp, jpd, Y, V = _inputs(g, rank, np.float64)
-    plan = chain.build_chain_plan(synthetic_problem(**g), dtype=np.float64)
+    plan = chain.build_chain_plan(synthetic_problem(**g), dtype=np.float64,
+                                 device="cpu")
     nablaF = np.asarray(data_matrix_product(jpd, jnp.asarray(Y)))
     jY, jV = jnp.asarray(Y), jnp.asarray(V)
     if op == "qv":
@@ -107,7 +108,8 @@ def test_chain_op_f32_vs_tile_math(dim, rank, g, op):
     jp, jpd, Y, V = _inputs(g, rank, np.float32)
     plan_t = T.build_tile_plan(jp, jpd, rank, dtype=np.float32)
     ops = T.make_host_ops(plan_t)
-    plan = chain.build_chain_plan(synthetic_problem(**g), dtype=np.float32)
+    plan = chain.build_chain_plan(synthetic_problem(**g), dtype=np.float32,
+                                 device="cpu")
     nablaF = np.asarray(data_matrix_product(jpd, jnp.asarray(Y)))
     Yt = T.to_tiles(plan_t, jnp.asarray(Y))
     Vt = T.to_tiles(plan_t, jnp.asarray(V))

@@ -4,12 +4,18 @@ The CUDA kernels run only on the card; everything they take from the host
 is checked here: the partition tables of `chain.cluster_partition` (who owns
 which band block, pose, range and state row), a plain PyTorch emulation of
 the partitioned preconditioner solve driven only by those tables, the
-rank-ordered cluster sum and `tnt_kernels.work_counts`.
+rank-ordered cluster sum and `tnt_kernels.work_counts`; and for the
+α-batched `ladder`, the split of the trial points over clusters
+(`chain.ladder_groups`), its scratch layout (`chain.LadderLayout`) and the
+batched banded solve on that layout.
 
 Tolerances: the emulation reorders only the sums of the landmark
 right-hand side and the Woodbury products (per CTA, then in rank order), so
 in float64 it agrees with `chain.precon_solve` to rounding, 1e-14 relative;
-the doubling scan does the same products as `chain._solve_B`. The cluster
+the doubling scan does the same products as `chain._solve_B`; the batched
+solve, AB trial points' right-hand sides side by side as AB·r columns of
+one band, agrees with `chain.precon_solve` per trial point to the same
+1e-14 (the columns never mix). The cluster
 sum is held to `torch.sum` at 1e-6 relative in float32 (a 56k-term sum in
 another order).
 """
@@ -47,7 +53,7 @@ def _plan(name, dtype=np.float64):
     key = (name, np.dtype(dtype).name)
     if key not in _PLANS:
         _PLANS[key] = chain.build_chain_plan(synthetic_problem(**GRAPHS[name]),
-                                             dtype=dtype)
+                                             dtype=dtype, device="cpu")
     return _PLANS[key]
 
 
@@ -253,7 +259,7 @@ def test_work_counts_hand_count():
     # landmark with 2 ranges (slots S = 1 or 2)
     problem = synthetic_problem(n_poses=3, n_landmarks=1, n_ranges=2, dim=2,
                                 seed=0)
-    plan = chain.build_chain_plan(problem, dtype=np.float32)
+    plan = chain.build_chain_plan(problem, dtype=np.float32, device="cpu")
     n, m, l, N, nb, w, S, L = 3, 2, 1, 3 * 2 + 2 + 3 + 1, 2, 6, plan.S, 1
     assert (plan.n, plan.m, plan.l, plan.N, plan.nb, plan.w, plan.levels) \
         == (n, m, l, N, nb, w, L)
@@ -273,8 +279,9 @@ def test_work_counts_hand_count():
                   + 3 * 2 + N + m + 1 * l + 1 + m)  # partition of one part
     assert wc["bytes"] == 4 * (plan_words + 3 * N * r + N * r + 4)
     st = tnt_kernels.work_counts(plan, r, 0, kernel="step")
-    # Q·Y (2) + ⟨Y, QY⟩ + ‖grad‖ + ⟨g, Pg⟩ + the preconditioner (3)
-    assert st["phases"] == 2 + 3 + 3
+    # Q·Y (2) + ⟨Y, QY⟩ + ‖grad‖ + ⟨g, Pg⟩ + the preconditioner (3) + the
+    # exit barrier
+    assert st["phases"] == 2 + 3 + 3 + 1
     assert st["bytes"] == 4 * (plan_words + 5 * N * r + 3)
     ch = tnt_kernels.work_counts(plan, r, tcg_iters=5, kernel="chunk",
                                  outer_iters=2, init=True)
@@ -283,3 +290,141 @@ def test_work_counts_hand_count():
     assert ch["phases"] == 2 + 8 + 5 * 7 + 2 * (5 + 8 + 1)
     assert ch["bytes"] == 4 * (plan_words + 6 * N * r + 20 + 5 * 2 + 9)
 
+
+
+def _plan_words(plan, parts):
+    n, m, l, N, nb, w, S, L = (plan.n, plan.m, plan.l, plan.N, plan.nb,
+                               plan.w, plan.S, plan.levels)
+    d = plan.d
+    return (n * (1 + d * d + 1 + d)  # kap, R, tau, tvec
+            + n * S + 2 * m + (l + 1) + m  # slot, range/landmark tables
+            + 4 * m  # rr, om, spiv, cval
+            + nb * w * w * (1 + L)  # Linv, the propagator levels
+            + 2 * l * nb * w + l * l + 24  # Ct, BinvCt, capinv, qdwh
+            + 3 * (parts + 1) + N + m + parts * l + 1 + m)  # partition
+
+
+def test_work_counts_step_ladder_parts():
+    problem = synthetic_problem(n_poses=3, n_landmarks=1, n_ranges=2, dim=2,
+                                seed=0)
+    plan = chain.build_chain_plan(problem, dtype=np.float32, device="cpu")
+    nb, w, L, N, r, parts = 2, 6, 1, 12, 3, 16
+    assert (plan.nb, plan.w, plan.levels, plan.N) == (nb, w, L, N)
+    words = _plan_words(plan, parts)
+    st = tnt_kernels.work_counts(plan, r, 0, kernel="step", parts=parts)
+    # Q·Y (2), three dots, the preconditioner (1 + 1 levels + Woodbury),
+    # the exit barrier: every one spans the 16 CTAs
+    assert st["phases"] == 2 + 3 + 3 + 1
+    # Y and s in; Yn, QY, grad out; three scalars
+    assert st["bytes"] == 4 * (words + 5 * N * r + 3)
+    one = tnt_kernels.work_counts(plan, r, 0, kernel="ladder", alphas=6,
+                                  parts=parts)
+    lad = tnt_kernels.work_counts(plan, r, 0, kernel="ladder", alphas=6,
+                                  parts=parts, clusters=3)
+    # the trial points run side by side: one step's phases, at any K
+    assert one["phases"] == lad["phases"] == st["phases"]
+    # Y and Ẏ, 6 α in and 3 × 6 scalars out, the group table (K + 1
+    # int32) and the band offsets (K + 1 int64), and Linv and the
+    # propagators once more for each cluster past the first
+    assert one["bytes"] == 4 * (words + 2 * N * r + 4 * 6) + 12 * 2
+    assert lad["bytes"] == 4 * (words + 2 * nb * w * w * (1 + L)
+                                + 2 * N * r + 4 * 6) + 12 * 4
+    assert lad["flops"] == one["flops"] == 6 * st["flops"]
+
+
+@pytest.mark.parametrize("K", [1, 3, 8, 48])
+@pytest.mark.parametrize("A", [2, 48])
+def test_ladder_groups_cover_every_alpha_once(A, K):
+    grp = chain.ladder_groups(A, K)
+    assert grp.dtype == np.int32 and len(grp) == K + 1
+    assert grp[0] == 0 and grp[-1] == A
+    sizes = np.diff(grp)
+    assert (sizes >= 0).all() and sizes.max() - sizes.min() <= 1  # balanced
+    # contiguous groups: concatenated, they list every α once, in order
+    alphas = np.concatenate([np.arange(grp[k], grp[k + 1]) for k in range(K)])
+    assert np.array_equal(alphas, np.arange(A))
+    if K <= A:
+        assert sizes.min() >= 1  # no idle cluster
+
+
+@pytest.mark.parametrize("parts", [1, 3, 8, 16])
+@pytest.mark.parametrize("name", ["odd_37", "small_14"])
+def test_batched_precon_on_ladder_layout(name, parts):
+    """The α-batched ladder's preconditioner solve, on the scratch as
+    `chain.LadderLayout` lays it out: A = 5 trial points at r = 3 over
+    K = 2 clusters (groups of 2 and 3: 6 and 9 columns, padded to 8 and
+    12). Each trial point's right-hand side sits in its own grad state;
+    each cluster's band holds its group's right-hand sides side by side
+    (trial point al in columns al·r .. al·r + r) and goes through ONE
+    partitioned solve (`emulate_precon_solve` on those columns); each
+    trial point's solution lands in its own QY state. Every region is
+    written once (the scratch starts as NaN and each write checks it was
+    untouched), and each trial point's solution equals `chain.precon_solve`
+    on its own right-hand side to 1e-14 (float64)."""
+    plan = _plan(name)
+    part = chain.cluster_partition(plan, parts)
+    r, A, K = 3, 5, 2
+    N, NR, nb, w = plan.N, plan.N * r, plan.nb, plan.w
+    grp = chain.ladder_groups(A, K)
+    lay = chain.ladder_layout(plan, r, grp)
+    assert lay.state_stride == 3 * NR
+    assert [lay.cols(k) for k in range(K)] == [8, 12]
+    off = lay.band_off
+    assert off.dtype == np.int64 and (off % 4 == 0).all()
+    assert off[0] >= A * lay.state_stride and lay.total == off[-1]
+    work = torch.full((lay.total,), float("nan"), dtype=torch.float64)
+
+    def region(at, count):
+        view = work[at:at + count]
+        assert view.numel() == count and torch.isnan(view).all()
+        return view
+
+    rng = np.random.default_rng(10 + parts)
+    Vs = [torch.as_tensor(rng.standard_normal((N, r))) for _ in range(A)]
+    for a in range(A):
+        region(lay.state(a) + 2 * NR, NR).copy_(Vs[a].reshape(-1))
+    for k in range(K):
+        a0, AB = int(grp[k]), int(grp[k + 1] - grp[k])
+        grads = [work[lay.state(a) + 2 * NR:lay.state(a) + 3 * NR].view(N, r)
+                 for a in range(a0, a0 + AB)]
+        x_band, x = emulate_precon_solve(plan, part, torch.cat(grads, dim=1))
+        assert 2 * lay.band_len(k) == off[k + 1] - off[k]
+        band0 = region(int(off[k]), lay.band_len(k)).view(nb, w, lay.cols(k))
+        band1 = region(int(off[k]) + lay.band_len(k), lay.band_len(k))
+        band0[:, :, :AB * r] = x_band
+        band1.zero_()
+        for al in range(AB):
+            out = region(lay.state(a0 + al) + NR, NR)
+            out.copy_(x[:, al * r:(al + 1) * r].reshape(-1))
+            # the band's columns al·r .. al·r + r are this trial point's
+            single, _ = emulate_precon_solve(plan, part, Vs[a0 + al])
+            col = band0[:, :, al * r:(al + 1) * r]
+            assert float((col - single).abs().max()
+                         / single.abs().max()) < 1e-14
+        # the padding columns are nobody's
+        assert torch.isnan(band0[:, :, AB * r:]).all()
+    for a in range(A):
+        x = work[lay.state(a) + NR:lay.state(a) + 2 * NR].view(N, r)
+        ref = chain.precon_solve(plan, Vs[a])
+        assert float((x - ref).abs().max() / ref.abs().max()) < 1e-14
+
+
+@pytest.mark.parametrize("entry", ["build_chain_plan", "get_chain_plan",
+                                   "polish_solution"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Called without a device, each entry point asks for the card and,
+    with none there, raises before any work; `device="cpu"` runs here."""
+    from cora_tpu_torch.solve.polish import polish_solution
+    from cora_tpu_torch.solve.tnt_kernel import get_chain_plan
+
+    fn = {"build_chain_plan": chain.build_chain_plan,
+          "get_chain_plan": get_chain_plan,
+          "polish_solution": polish_solution}[entry]
+    problem = synthetic_problem(**GRAPHS["small_14"])
+    args = (problem,) if entry != "polish_solution" else (
+        problem, np.zeros((problem.data_matrix_size, 3)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(*args)
+    if entry != "polish_solution":
+        assert fn(*args, device="cpu").device.type == "cpu"

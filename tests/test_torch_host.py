@@ -88,7 +88,7 @@ def test_banded_factor_equal(g):
     # the doubling propagators of the plan against the tile plan's
     plan_t = T.build_tile_plan(jp, jp.device_data(dtype=np.float64), 3,
                                dtype=np.float64)
-    plan = chain.build_chain_plan(tp, dtype=np.float64)
+    plan = chain.build_chain_plan(tp, dtype=np.float64, device="cpu")
     assert plan.lam == pytest.approx(plan_t.lam, rel=1e-12)
     nb, w = plan.nb, plan.w
     for k in range(plan.levels):

@@ -54,7 +54,7 @@ def _setup(dim, rank, seed=1):
     plan_t = T.build_tile_plan(jp, jpd, rank, dtype=np.float32)
     jk = PallasTNT(plan_t, JaxParams(JaxTNTParams()), interpret=True)
     tp = synthetic_problem(**g)
-    plan = chain.build_chain_plan(tp, dtype=np.float32)
+    plan = chain.build_chain_plan(tp, dtype=np.float32, device="cpu")
     pk = PlainTNT(plan, HashableParams(TNTParams()))
     rng = np.random.default_rng(seed)
     Y = np.array(project_to_manifold(
