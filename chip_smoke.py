@@ -50,10 +50,27 @@ raises and the script exits non-zero:
   5. general — the general-graph path: `parse_pyfg` → `solve_cora` from
      the odometry start on two multi-robot graphs with inter-robot ranges
      (`tiers_shaped`, `mrclam5a_shaped`, written by `multi_robot_pyfg` in
-     `scripts/torch_port_reference.py` to a temporary file), each solved
-     twice: gated as phase 3 against the JAX package's run (fixture
-     `general`), the two solves on the same bits, and no CUDA kernel
-     launched (the canonical path is plain PyTorch).
+     `scripts/torch_port_reference.py` to a temporary file): gated as
+     phase 3 against the JAX package's run (fixture `general`), with no
+     CUDA kernel launched (the canonical path is plain PyTorch);
+     `mrclam5a_shaped` is solved twice and the two solves must end on the
+     same bits, `tiers_shaped` (~1 min a solve) once;
+  6. implicit — the translation-implicit (marginalized) formulation and
+     the solve's host surroundings, in float64: the native PyFG tokenizer
+     against the Python parser on both multi-robot graphs (identical data
+     matrices, both parse times); the implicit operator on the
+     plaza2-shaped graph against the host sparse Schur complement (scipy
+     `splu` of L, 1e-10), the recovered translations zeroing Q·[Y; t]'s
+     translation rows, the pinned row exactly 0; the plaza2-shaped
+     implicit solve from the fixture's start (fixture `implicit`; gated as
+     phase 3, its first level to 1e-6 over 8 iterations) with its TUM
+     export read back; `mrclam5a_shaped` implicit from the odometry start,
+     twice: the first with `checkpoint_path` (its failed first level
+     writes the checkpoint, and nothing else is left in the directory),
+     the second with `log_iterates` (the same bits; the iterate log as
+     long as the iterations); then a third call resumes from the
+     checkpoint and certifies within 1 % of the uninterrupted f. No CUDA
+     kernel is launched in this phase.
 
 The kernels' launch counts are zeroed just before the timed kernel-path
 solves and read just after them; the main path must launch the cluster
@@ -97,6 +114,10 @@ REPS = 20
 LADDER_SWEEP = (1, 2, 3, 4, 6, 7, 8)
 # the kernels the main path launches (`tcg` is the body of `chunk`)
 PATH_KERNELS = ("chunk", "step", "ladder")
+# the multi-robot graphs phase 5 solves twice for the bit check
+# (`tiers_shaped`, ~1 min a solve, once: the script stays well inside its
+# time limit)
+GENERAL_TWICE = ("mrclam5a_shaped",)
 # the single-CTA comparators, which only phase 2 launches
 COMPARATORS = ("step_block", "ladder_block", "chunk_block", "tcg_block")
 KERNEL_CASES = [("plaza2_shaped", 4), ("plaza2_shaped", 6),
@@ -478,11 +499,11 @@ def phase_kernels(problems, hp, probe):
     return stats
 
 
-def solve_once(problem, cfg, x0, device="cuda"):
-    """`solve_cora` from x0: (result, wall s, ATE, every TNT level's result
-    in order). The staircase's `tnt_solve_tiles` (chain kernels) and
-    `tnt_solve` (canonical path) are wrapped for the call to keep the level
-    results."""
+def solve_once(problem, cfg, x0, device="cuda", **kw):
+    """`solve_cora` from x0 (`kw` passed on): (result, wall s, ATE, every
+    TNT level's result in order). The staircase's `tnt_solve_tiles` (chain
+    kernels) and `tnt_solve` (canonical path) are wrapped for the call to
+    keep the level results."""
     import torch
 
     from cora_tpu_torch.solve import staircase
@@ -503,7 +524,8 @@ def solve_once(problem, cfg, x0, device="cuda"):
     try:
         torch.cuda.synchronize()
         t0 = time.time()
-        res = staircase.solve_cora(problem, x0=x0, config=cfg, device=device)
+        res = staircase.solve_cora(problem, x0=x0, config=cfg, device=device,
+                                   **kw)
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
@@ -514,11 +536,12 @@ def solve_once(problem, cfg, x0, device="cuda"):
     return res, wall, ate, levels
 
 
-def check_first_level(name, level, ref):
+def check_first_level(name, level, ref, tol_f=TOL_LEVEL_F,
+                      tol_gn=TOL_LEVEL_GN):
     """The first TNT level against the JAX run's from the same projected
     start (fixture `level0`): f and ‖grad‖ per iteration over the first
-    chunk. Prints how long f stays within TOL_LEVEL_F of the reference
-    over the recorded iterations."""
+    chunk, within `tol_f` / `tol_gn` relative. Prints how long f stays
+    within `tol_f` of the reference over the recorded iterations."""
     import numpy as np
 
     f_ref = np.asarray(ref["level0"]["f"])
@@ -527,23 +550,24 @@ def check_first_level(name, level, ref):
     check(n >= FIRST_CHUNK, f"{name}: first level ran {n} iterations")
     ef = np.abs(level.objective_values[:n] - f_ref[:n]) / np.abs(f_ref[:n])
     eg = np.abs(level.gradient_norms[:n] - g_ref[:n]) / np.abs(g_ref[:n])
-    apart = np.flatnonzero(ef > TOL_LEVEL_F)
+    apart = np.flatnonzero(ef > tol_f)
     print(f"[slice] {name} first level vs JAX: iterations 1-{FIRST_CHUNK} f "
           f"rel err <= {ef[:FIRST_CHUNK].max():.3e}, |grad| rel err <= "
-          f"{eg[:FIRST_CHUNK].max():.3e}; f first parts by > {TOL_LEVEL_F} "
+          f"{eg[:FIRST_CHUNK].max():.3e}; f first parts by > {tol_f:g} "
           f"at iteration {int(apart[0]) + 1 if apart.size else 'none'} of "
           f"{n} recorded", flush=True)
-    check(ef[:FIRST_CHUNK].max() <= TOL_LEVEL_F
-          and eg[:FIRST_CHUNK].max() <= TOL_LEVEL_GN,
+    check(ef[:FIRST_CHUNK].max() <= tol_f
+          and eg[:FIRST_CHUNK].max() <= tol_gn,
           f"{name}: first level leaves the JAX trajectory: f rel "
           f"{ef[:FIRST_CHUNK]}, |grad| rel {eg[:FIRST_CHUNK]}")
 
 
-def gate(name, problem, res, ate, ref, max_levels=5):
+def gate(name, problem, res, ate, ref, max_levels=5, Y=None):
     """bench.py's gates (bench.py:311-317) against the JAX run on the same
     graph and start: `certified` equal, final cost within 1 %, ATE at most
     0.05 m above, at most `max_levels` levels. The final cost is recomputed here in
-    float64 from Q and the returned state, which must lie on the manifold.
+    float64 from Q and the returned state (`Y`, the translation-explicit
+    state, when given), which must lie on the manifold.
 
     Where the fixture holds a `spread` (the JAX package's run from five
     starts) and a quantity moves across it by more than its gate's width
@@ -556,7 +580,8 @@ def gate(name, problem, res, ate, ref, max_levels=5):
 
     from cora_tpu_torch.solve.rounding import check_variables_are_valid
 
-    Y = res.result.x.detach().cpu().double().numpy()
+    if Y is None:
+        Y = res.result.x.detach().cpu().double().numpy()
     f64 = 0.5 * float(np.sum(Y * (problem.data_matrix() @ Y)))
     check_variables_are_valid(problem.device_data(np.float64, "cpu"), Y,
                               atol=1e-4)
@@ -584,7 +609,7 @@ def gate(name, problem, res, ate, ref, max_levels=5):
 
 def bench_config(reference, init_rank_jump, use_kernels, **kw):
     """bench.py's main-path config (bench.py:43-62) with the wall-clock caps
-    of the reference runs."""
+    of the reference runs; `kw` sets or overrides fields."""
     import numpy as np
 
     from cora_tpu_torch.types import (
@@ -595,7 +620,7 @@ def bench_config(reference, init_rank_jump, use_kernels, **kw):
     )
 
     C = reference["config"]
-    return SolverConfig(
+    fields = dict(
         preconditioner=Preconditioner.REGULARIZED_CHOLESKY,
         formulation=Formulation.EXPLICIT,
         dtype=np.float32,
@@ -606,8 +631,9 @@ def bench_config(reference, init_rank_jump, use_kernels, **kw):
         polish_time_budget=C["polish_time_budget"],
         tnt=TNTParams(max_computation_time=C["max_computation_time"]),
         use_kernels=use_kernels,
-        **kw,
     )
+    fields.update(kw)  # e.g. the implicit runs' dtype and formulation
+    return SolverConfig(**fields)
 
 
 def numpy_start(reference, problem, rank):
@@ -790,9 +816,9 @@ def phase_level_f64(problems, reference, device="cuda"):
 
 
 def phase_general(reference, device="cuda"):
-    """`parse_pyfg` → `solve_cora` on the multi-robot graphs, twice each
-    from the odometry start, with the launch counts zeroed before the
-    first solve and read after the second."""
+    """`parse_pyfg` → `solve_cora` on the multi-robot graphs from the
+    odometry start (twice for those in `GENERAL_TWICE`), with the launch
+    counts zeroed before the first solve and read after the last."""
     import tempfile
 
     import numpy as np
@@ -813,19 +839,21 @@ def phase_general(reference, device="cuda"):
             problem = parse_pyfg(path)
         cfg = bench_config(reference, ref["init_rank_jump"], "auto",
                            initialization=Initialization.ODOMETRY)
+        twice = name in GENERAL_TWICE
         tnt_kernels.reset_launch_counts()
-        first = solve_once(problem, cfg, None, device)[0]
+        first = solve_once(problem, cfg, None, device)[0] if twice else None
         res, wall, ate, levels = solve_once(problem, cfg, None, device)
         launches = dict(tnt_kernels.LAUNCHES)
-        same = bool(torch.equal(first.result.x, res.result.x))
+        same = twice and bool(torch.equal(first.result.x, res.result.x))
         fac = problem.preconditioner_fn(cfg.preconditioner, cfg.dtype,
                                         cfg.reg_chol_max_cond, device).fac
         print(f"[general] {name}: N {problem.data_matrix_size}, permuted "
               f"bandwidth {fac['bandwidth']} (JAX package's RCM band "
-              f"{ref['bandwidth']}; exact up to 96); two solves end on the "
-              f"same state: {same}; CUDA kernel launches {json.dumps(launches)}",
-              flush=True)
-        check(same, f"{name}: two solves from one start differ")
+              f"{ref['bandwidth']}; exact up to 96); "
+              + (f"two solves end on the same state: {same}; " if twice
+                 else "solved once; ")
+              + f"CUDA kernel launches {json.dumps(launches)}", flush=True)
+        check(same or not twice, f"{name}: two solves from one start differ")
         check(not any(launches.values()),
               f"{name}: the canonical path launched kernels {launches}")
         check_first_level(name, levels[0], ref)
@@ -848,6 +876,224 @@ def phase_general(reference, device="cuda"):
             {k: ref[k] for k in ("certified", "sdp_cost", "f", "ate", "ranks",
                                  "cpu_wall_s", "spread") if k in ref}),
               flush=True)
+
+
+def read_tum(path):
+    """(n, 8) rows `ts x y z qx qy qz qw` of a TUM trajectory file."""
+    import numpy as np
+
+    with open(path) as fh:
+        return np.array([[float(v) for v in line.split()] for line in fh])
+
+
+def check_tum_export(name, problem, soln, tmp):
+    """`save_solution` in TUM format, read back: each pose's position and
+    rotation (from its quaternion) against `extract_solution`'s, to 1e-9."""
+    import numpy as np
+
+    from cora_tpu_torch.io.exporters import save_solution
+    from cora_tpu_torch.io.pyfg import rot_from_quat
+
+    d = problem.dim
+    path = os.path.join(tmp, name + ".tum")
+    save_solution(problem, soln, path, fmt="tum")
+    chars = problem.robot_chars()
+    worst = 0.0
+    for c in chars:
+        rows = read_tum(path if len(chars) == 1 else f"{path}.{c}")
+        syms = problem.pose_symbols(c)
+        check(len(rows) == len(syms), f"{name}: TUM file has {len(rows)} "
+              f"poses, expected {len(syms)}")
+        for row, sym in zip(rows, syms):
+            i = problem.rotation_idx(sym)
+            t = soln[problem.translation_idx(sym), :d]
+            R = soln[i * d:(i + 1) * d, :d].T
+            R3 = rot_from_quat(*row[4:8])
+            worst = max(worst, float(np.abs(row[1:1 + d] - t).max()),
+                        float(np.abs(R3[:d, :d] - R).max()))
+    print(f"[implicit] {name}: TUM export of {problem.num_poses} poses read "
+          f"back, max abs diff {worst:.3e} against extract_solution",
+          flush=True)
+    check(worst <= 1e-9, f"{name}: TUM export differs by {worst:.3e}")
+
+
+def phase_implicit(reference, device="cuda"):
+    """The implicit formulation in float64 and its host surroundings: the
+    native tokenizer, the operator against the host Schur complement, the
+    plaza2-shaped and `mrclam5a_shaped` implicit solves against the JAX
+    package's (fixture `implicit`), checkpoint and resume, the iterate
+    log. Launch counts are zeroed at the start and must stay 0."""
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from torch_port_reference import multi_robot_pyfg
+
+    from cora_tpu_torch.io.pyfg import parse_pyfg_python
+    from cora_tpu_torch.models.synthetic import synthetic_problem
+    from cora_tpu_torch.native import build_extension
+    from cora_tpu_torch.native.pyfg_fast import parse_pyfg_native
+    from cora_tpu_torch.ops import tnt_kernels
+    from cora_tpu_torch.solve.checkpoint import StaircaseCheckpoint
+    from cora_tpu_torch.solve.staircase import extract_solution
+    from cora_tpu_torch.types import Formulation, Initialization
+
+    tnt_kernels.reset_launch_counts()
+    refs = reference["implicit"]
+    with tempfile.TemporaryDirectory(prefix="cora_smoke_") as tmp:
+        # 1. the native tokenizer against the Python parser
+        t0 = time.time()
+        build_extension("_pyfg")
+        print(f"[implicit] native tokenizer built in {time.time() - t0:.2f} s",
+              flush=True)
+        files = {}
+        for name, ref in reference["general"].items():
+            files[name] = os.path.join(tmp, name + ".pyfg")
+            with open(files[name], "w") as fh:
+                fh.write(multi_robot_pyfg(**ref["pyfg"]))
+            t0 = time.time()
+            native = parse_pyfg_native(files[name])
+            t1 = time.time()
+            python = parse_pyfg_python(files[name])
+            t2 = time.time()
+            A, B = native.data_matrix(), python.data_matrix()
+            same = A.shape == B.shape and (A != B).nnz == 0
+            print(f"[implicit] {name}: parse native {t1 - t0:.3f} s, Python "
+                  f"{t2 - t1:.3f} s; data matrices identical: {same}",
+                  flush=True)
+            check(same, f"{name}: native and Python parses differ")
+
+        # 2. the operator against the host sparse Schur complement
+        name = "plaza2_shaped_implicit"
+        ref = refs[name]
+        problem = synthetic_problem(**ref["graph"])
+        h, n_tr = problem.rot_and_range_matrix_size, \
+            problem.num_translational_states
+        op = problem.operator(Formulation.IMPLICIT, np.float64, device)
+        ls = op.implicit.lred_solve
+        Y = np.random.default_rng(0).standard_normal((h, 4))
+        Yd = torch.as_tensor(Y).to(device)
+        got = op(Yd).cpu().numpy()
+        Q = problem.data_matrix().tocsc()
+        Qm, Bm = Q[:h, :h], Q[:h, h:h + n_tr - 1]
+        lu = spla.splu(Q[h:h + n_tr - 1, h:h + n_tr - 1].tocsc())
+        want = Qm @ Y - Bm @ lu.solve(np.asarray(Bm.T @ Y))
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        X = op.implicit.translation_explicit_solution(Yd).cpu().numpy()
+        QX = Q @ X
+        resid = float(np.abs(QX[h:]).max() / np.abs(QX).max())
+        op_ms = median_ms(lambda: op(Yd), torch)
+        print(f"[implicit] {name}: state height {h}; L band {ls.bandwidth}, "
+              f"q = {ls.q}, {ls.n_blocks} blocks, {ls.spikes} spikes, "
+              f"{ls.fac['levels']} scan levels, propagators "
+              f"{ls.propagator_bytes} B; op(Y) rel err {err:.3e} against "
+              f"splu; translation rows of Q·[Y; t] {resid:.3e} of its max; "
+              f"pinned row {np.abs(X[-1]).max()}; op(Y) {op_ms:.3f} ms "
+              f"(r = 4)", flush=True)
+        check(err <= 1e-10, f"{name}: implicit op rel err {err:.3e}")
+        check(resid <= 1e-9, f"{name}: recovered translations leave "
+              f"{resid:.3e}")
+        check(not X[-1].any(), f"{name}: pinned translation {X[-1]}")
+
+        # 3. the plaza2-shaped implicit solve from the fixture's start
+        jump = ref["init_rank_jump"]
+        cfg = bench_config(reference, jump, "auto", dtype=np.float64,
+                           formulation=Formulation.IMPLICIT)
+        x0 = numpy_start(reference, problem, problem.dim + jump)[:h]
+        res, wall, ate, levels = solve_once(problem, cfg, x0, device)
+        soln = extract_solution(problem, cfg, res)
+        check_first_level(name, levels[0], ref, 1e-6, 1e-6)
+        gate(name, problem, res, ate, ref, Y=soln)
+        report(name, res, wall, ate, ref, levels)
+        check_tum_export(name, problem, soln, tmp)
+
+        # 4. mrclam5a_shaped implicit from the odometry start, twice: the
+        # first writes a checkpoint (its first level fails its certificate),
+        # the second logs its iterates; then a third call resumes
+        name = "mrclam5a_shaped_implicit"
+        ref = refs[name]
+        problem = parse_pyfg_native(files["mrclam5a_shaped"])
+        cfg = bench_config(reference, ref["init_rank_jump"], "auto",
+                           dtype=np.float64, formulation=Formulation.IMPLICIT,
+                           initialization=Initialization.ODOMETRY)
+        path = os.path.join(tmp, "ckpt", name + ".npz")
+        os.makedirs(os.path.dirname(path))
+        first = solve_once(problem, cfg, None, device,
+                           checkpoint_path=path)[0]
+        left = os.listdir(os.path.dirname(path))
+        check(left == [os.path.basename(path)],
+              f"{name}: checkpoint directory holds {left}")
+        ckpt = StaircaseCheckpoint.load(path)
+        cfg.log_iterates = True
+        res, wall, ate, levels = solve_once(problem, cfg, None, device)
+        same = bool(torch.equal(first.result.x, res.result.x))
+        its = res.result.iterates
+        n_its = sum(lv.num_iterations for lv in levels)
+        print(f"[implicit] {name}: two solves end on the same state: {same}; "
+              f"iterate log {len(its)} states over {n_its} TNT iterations, "
+              f"the last {its[-1].shape}", flush=True)
+        check(same, f"{name}: two solves from one start differ")
+        check(len(its) >= res.result.num_iterations and len(its) == n_its
+              and its[-1].shape == tuple(res.result.x.shape),
+              f"{name}: iterate log {len(its)} against {n_its} iterations")
+        soln = extract_solution(problem, cfg, res)
+        check_first_level(name, levels[0], ref, 1e-6, 1e-6)
+        gate(name, problem, res, ate, ref, Y=soln)
+        report(name, res, wall, ate, ref, levels)
+
+        # 5. resume from the first solve's checkpoint
+        cfg.log_iterates = False
+        resumed, wall_r, _, _ = solve_once(problem, cfg, None, device,
+                                           checkpoint_path=path)
+        k = len(ckpt.ranks_visited)
+        print(f"[implicit] {name}: checkpoint at rank {ckpt.rank} after "
+              f"{ckpt.ranks_visited} (Y {ckpt.Y.shape}); resumed: ranks "
+              f"{resumed.ranks_visited} certified {resumed.certified} f "
+              f"{resumed.result.f:.6f} (uninterrupted {first.result.f:.6f}) "
+              f"wall {wall_r:.3f} s", flush=True)
+        check(ckpt.Y.shape[0] == problem.rot_and_range_matrix_size,
+              f"{name}: checkpoint state {ckpt.Y.shape}")
+        check(resumed.ranks_visited[:k + 1] == ckpt.ranks_visited
+              + [ckpt.rank], f"{name}: resumed ranks {resumed.ranks_visited}")
+        check(resumed.certified, f"{name}: the resumed solve did not certify")
+        check(abs(resumed.result.f - first.result.f)
+              <= 0.01 * abs(first.result.f),
+              f"{name}: resumed f {resumed.result.f} against "
+              f"{first.result.f}")
+    launches = dict(tnt_kernels.LAUNCHES)
+    print(f"[implicit] CUDA kernel launches in this phase: "
+          f"{json.dumps(launches)}", flush=True)
+    check(not any(launches.values()),
+          f"the implicit phase launched kernels {launches}")
+
+
+def report(name, res, wall, ate, ref, levels):
+    """One solve's lines: ranks, certificate, f against the fixture, ATE,
+    t_cert, wall, phases; tCG iterations and the TNT phases' wall per tCG
+    iteration."""
+    import numpy as np
+
+    t_cert = (res.elapsed_to_certificate
+              if np.isfinite(res.elapsed_to_certificate) else wall)
+    print(f"[implicit] {name}: ranks {res.ranks_visited} certified "
+          f"{res.certified} sdp_cost {res.sdp_cost:.6f} f "
+          f"{res.result.f:.6f} (reference {ref['f']:.6f}, rel "
+          f"{(res.result.f - ref['f']) / ref['f']:+.2e}) grad_norm_f64 "
+          f"{res.grad_norm_f64:.3e} ATE {ate:.4f} m (reference "
+          f"{ref['ate']:.4f}) t_cert {t_cert:.3f} s wall {wall:.3f} s "
+          f"(JAX CPU {ref['cpu_wall_s']} s) phases "
+          + json.dumps({k: round(v, 4) for k, v in res.phases.items()}),
+          flush=True)
+    tcg_iters = int(sum(lv.inner_iterations.sum() for lv in levels))
+    tnt_s = res.phases.get("tnt_level", 0.0) + res.phases.get("tnt_refine",
+                                                              0.0)
+    print(f"[implicit] {name}: {tcg_iters} tCG iterations over "
+          f"{len(levels)} TNT levels; tnt_level + tnt_refine {tnt_s:.3f} s, "
+          f"{1e6 * tnt_s / max(tcg_iters, 1):.2f} us per tCG iteration",
+          flush=True)
 
 
 def main():
@@ -881,6 +1127,7 @@ def main():
           f"the main path launched a single-CTA comparator: {launches}")
     timed("level_f64", phase_level_f64, problems, reference)
     timed("general", phase_general, reference)
+    timed("implicit", phase_implicit, reference)
     print("[smoke] seconds per phase: " + json.dumps(
         {k: round(v, 1) for k, v in took.items()}), flush=True)
 

@@ -5,18 +5,26 @@ the reference. The staircase's main path (explicit formulation,
 RegularizedCholesky preconditioner, chain graphs, float32 state with a
 float64 polish and certificate) runs on an NVIDIA Hopper card through four
 hand-written CUDA kernels (`ops/tnt_kernels.py`, `ops/csrc/`); every kernel
-has a plain PyTorch version that the CPU runs.
+has a plain PyTorch version that the CPU runs. Every other solve (general
+graphs, other preconditioners, float64, the implicit formulation, iterate
+logs) runs the canonical plain-PyTorch path on the same card.
 
 Layout (the same module names as `cora_tpu` where the role is the same):
   symbol / measurements / types   — symbols, measurement structs, configs
   graph/                          — factor-graph container, Q assembly,
                                     edge-list tensors
-  models/                         — synthetic problems
-  precond/                        — host banded factor of Q + λI
-  ops/                            — chain plan, plain chain ops, kernels
-  solve/                          — TNT driver, certification, polish,
-                                    rounding, staircase
-  utils/                          — evaluation, timing
+  io/                             — PyFG parser, TUM/g2o export,
+                                    MatrixMarket, visualization
+  native/                         — the C++ PyFG tokenizer (ctypes)
+  models/                         — synthetic problems, odometry start,
+                                    formulations (explicit, implicit)
+  precond/                        — preconditioners, host banded factor
+  ops/                            — canonical ops, chain plan, kernels
+  solve/                          — TNT solvers, certification, polish,
+                                    rounding, checkpoint, staircase
+  utils/                          — evaluation, timing, device check
+  experiments                     — command-line entry point
+                                    (`python -m cora_tpu_torch.experiments`)
 
 Depends on torch, numpy and scipy only; the JAX package is not a dependency.
 """

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from cora_tpu_torch.graph.problem import ORIGIN_SYMBOL, Problem
+from cora_tpu_torch.utils.device import check_device
 
 META_FIELDS = ("d", "n", "l", "m", "num_pose_meas", "num_rot_edges",
                "chain_rot", "chain_pm")
@@ -196,8 +197,10 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def build_problem_data(problem: Problem, dtype=np.float64,
-                       device="cpu") -> ProblemData:
-    """Flatten a `Problem` into edge-list tensors (host → device, once)."""
+                       device="cuda") -> ProblemData:
+    """Flatten a `Problem` into edge-list tensors (host → device, once; the
+    card unless the caller asks for another device, raises without one)."""
+    device = check_device(device)
     d = problem.dim
     n = problem.num_poses
     trans_offset = problem.rot_and_range_matrix_size

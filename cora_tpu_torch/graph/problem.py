@@ -22,7 +22,6 @@ This class is pure host-side bookkeeping. Heavy math lives in:
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import numpy as np
@@ -246,14 +245,15 @@ class Problem:
             self._data_matrix = assembly.build_data_matrix(self.submatrices())
         return self._data_matrix
 
-    def device_data(self, dtype=np.float64, device="cpu"):
-        """Factored problem data as torch tensors of `dtype` on `device`,
+    def device_data(self, dtype=np.float64, device="cuda"):
+        """Factored problem data as torch tensors of `dtype` on `device` (the
+        card unless the caller asks for another; raises without one),
         cached per (dtype, device)."""
-        import torch
-
         from cora_tpu_torch.graph import data
+        from cora_tpu_torch.utils.device import check_device
 
-        key = (np.dtype(dtype).name, str(torch.device(device)))
+        device = check_device(device)
+        key = (np.dtype(dtype).name, str(device))
         cache = getattr(self, "_device_data", None)
         if cache is None:
             cache = self._device_data = {}
@@ -263,26 +263,34 @@ class Problem:
         return cache[key]
 
     def operator(self, formulation=Formulation.EXPLICIT, dtype=np.float64,
-                 device="cpu"):
-        """Y ↦ QY on `device` in `dtype` (the explicit formulation; the
-        implicit one is not ported)."""
-        from cora_tpu_torch.ops.quadratic import data_matrix_product
+                 device="cuda"):
+        """The quadratic-form operator of `formulation` on `device` in
+        `dtype`, cached per key: Y ↦ QY (explicit) or the marginalized
+        Y ↦ Q̃Y (implicit), with `.implicit` its `ImplicitOperators` (None
+        for the explicit one)."""
+        from cora_tpu_torch.models import formulations
+        from cora_tpu_torch.utils.device import check_device
 
-        if formulation != Formulation.EXPLICIT:
-            raise NotImplementedError("the implicit formulation is not ported")
-        return functools.partial(data_matrix_product,
-                                 self.device_data(dtype, device))
+        device = check_device(device)
+        key = (formulation, np.dtype(dtype).name, str(device))
+        cache = getattr(self, "_op_cache", None)
+        if cache is None:
+            cache = self._op_cache = {}
+        if key not in cache:
+            cache[key] = formulations.make_operator(
+                self, self.device_data(dtype, device), formulation,
+                dtype=dtype)
+        return cache[key]
 
     def preconditioner_fn(self, kind, dtype=np.float64, max_cond: float = 1e6,
-                          device="cpu"):
+                          device="cuda"):
         """The `PrecondOp` of `kind` on `device` in `dtype`, cached: the
         banded kinds factor on the host once per key."""
-        import torch
-
         from cora_tpu_torch import precond
+        from cora_tpu_torch.utils.device import check_device
 
-        key = (kind, np.dtype(dtype).name, float(max_cond),
-               str(torch.device(device)))
+        device = check_device(device)
+        key = (kind, np.dtype(dtype).name, float(max_cond), str(device))
         cache = getattr(self, "_precon_cache", None)
         if cache is None:
             cache = self._precon_cache = {}
@@ -297,6 +305,7 @@ class Problem:
         self._submatrices = None
         self._data_matrix = None
         self._device_data = None
+        self._op_cache = None
         self._precon_cache = None
         self._polish_cache = None
         self._band_perm_cache = None

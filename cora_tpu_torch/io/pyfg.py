@@ -23,9 +23,9 @@ and landmark positions embedded in vertex records are retained (unlike
 the reference, which drops them) because the odometry initializer and ATE
 evaluation need them — but they do not enter the estimation problem.
 
-This is the pure-Python parser of the JAX package
-(`cora_tpu/io/pyfg.py:105-206`); the JAX package's native tokenizer
-(`cora_tpu/native`) is not ported.
+`parse_pyfg` uses the native C++ tokenizer (`cora_tpu_torch.native`) and
+the pure-Python parser when no compiler builds it, as the JAX package's
+`cora_tpu/io/pyfg.py:88-206` does.
 """
 
 from __future__ import annotations
@@ -91,7 +91,22 @@ def parse_pyfg(
     preconditioner: Preconditioner = Preconditioner.REGULARIZED_CHOLESKY,
 ) -> Problem:
     """Parse a PyFG file into a `Problem` (reference
-    `parsePyfgTextToProblem`; the JAX package's `parse_pyfg_python`)."""
+    `parsePyfgTextToProblem`): natively when the tokenizer builds, else in
+    Python (`parse_pyfg_python`)."""
+    from cora_tpu_torch.native import NativeBuildError, pyfg_fast
+
+    try:
+        return pyfg_fast.parse_pyfg_native(path, formulation, preconditioner)
+    except NativeBuildError:
+        return parse_pyfg_python(path, formulation, preconditioner)
+
+
+def parse_pyfg_python(
+    path: str,
+    formulation: Formulation = Formulation.EXPLICIT,
+    preconditioner: Preconditioner = Preconditioner.REGULARIZED_CHOLESKY,
+) -> Problem:
+    """The pure-Python parser (the JAX package's `parse_pyfg_python`)."""
     dim = sniff_dim(path)
     problem = Problem(
         dim=dim,

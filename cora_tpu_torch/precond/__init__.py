@@ -14,6 +14,7 @@ block-Jacobi (`cora_tpu/precond/__init__.py`). The port has all five:
 Each is a `PrecondOp`: an apply function ``fn(pd, fac, V)`` and its factor
 tensors, callable as ``P(V)`` on the ambient space; the solver composes it
 with the tangent projection (reference `src/CORA.cpp:87-92`).
+`implicit_precond` wraps one for the implicit formulation's reduced state.
 """
 
 from __future__ import annotations
@@ -52,6 +53,24 @@ def _block_jacobi_fn(pd, fac, V):
     Vrot = V[:pd.rot_size].reshape(pd.n, pd.d, r)
     return torch.cat([(fac["inv_blocks"] @ Vrot).reshape(pd.rot_size, r),
                       fac["inv_scalar"] * V[pd.rot_size:]])
+
+
+def _implicit_fn(inner):
+    """`inner` on the reduced [rot | sphere] state: lift with zero
+    translations, apply, truncate."""
+    def fn(pd, fac, V):
+        lifted = torch.cat(
+            [V, V.new_zeros((pd.num_translations, V.shape[1]))])
+        return inner(pd, fac, lifted)[: pd.rot_range_size]
+
+    return fn
+
+
+def implicit_precond(full: PrecondOp) -> PrecondOp:
+    """The implicit formulation's preconditioner: the full `PrecondOp` on
+    the reduced state lifted with zero translations, truncated back
+    (reference `CORA_problem.cpp:869-903`)."""
+    return PrecondOp(_implicit_fn(full.fn), full.fac, full.pd)
 
 
 def make_preconditioner(problem, pd: ProblemData, kind: Preconditioner,

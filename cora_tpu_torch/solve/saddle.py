@@ -17,6 +17,8 @@ its own twin's measure.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,10 +28,10 @@ from cora_tpu_torch.ops.riemannian import retract, tangent_space_projection
 N_ALPHAS = 24  # α ladder: alpha0 / 2^k, k = 0..N_ALPHAS-1
 
 
-def _trial(pd, Y_aug, Ydot, alpha: float, precon):
+def _trial(pd, Y_aug, Ydot, alpha: float, precon, op):
     """(f, ‖grad‖, ‖Proj(P grad)‖) at retract(Y_aug, α·Ẏ), on the device."""
     Y = retract(pd, Y_aug, alpha * Ydot)
-    QY = data_matrix_product(pd, Y)
+    QY = op(Y)
     grad = tangent_space_projection(pd, Y, QY)
     pgrad = tangent_space_projection(pd, Y, precon(grad))
     return torch.stack([0.5 * (Y * QY).sum(), torch.linalg.vector_norm(grad),
@@ -39,12 +41,14 @@ def _trial(pd, Y_aug, Ydot, alpha: float, precon):
 def saddle_escape(pd, Y: torch.Tensor, theta: float, v, precon,
                   gradient_tolerance: float = 1e-4,
                   preconditioned_gradient_tolerance: float = 1e-4,
-                  verbose: bool = False) -> torch.Tensor:
+                  verbose: bool = False, op=None) -> torch.Tensor:
     """Escape the rank-r saddle Y into rank r+1; returns the (N, r+1)
-    state."""
+    state. `op` is the quadratic-form operator (explicit Q when None)."""
+    if op is None:
+        op = functools.partial(data_matrix_product, pd)
     N, _ = Y.shape
     Y_aug = torch.cat([Y, Y.new_zeros((N, 1))], dim=1)
-    QY = data_matrix_product(pd, Y_aug)
+    QY = op(Y_aug)
     f_saddle = float(0.5 * (Y_aug * QY).sum())
     Ydot = torch.zeros_like(Y_aug)
     Ydot[:, -1] = torch.as_tensor(np.asarray(v).reshape(N)).to(Ydot)
@@ -55,7 +59,7 @@ def saddle_escape(pd, Y: torch.Tensor, theta: float, v, precon,
                           dtype=Y.dtype).tolist()
     signed = np.stack([alphas, [-a for a in alphas]], axis=1).reshape(-1)
     f, gn, pgn = torch.stack([
-        _trial(pd, Y_aug, Ydot, float(a), precon) for a in signed
+        _trial(pd, Y_aug, Ydot, float(a), precon, op) for a in signed
     ], dim=1).cpu().numpy()
 
     ok = ((f < f_saddle) & (gn > gradient_tolerance)

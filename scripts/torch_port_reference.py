@@ -16,17 +16,25 @@ float64 with the canonical `tnt_solve`, and from four starts one ulp away
 multi-robot graphs written as PyFG text by `multi_robot_pyfg` (`general`:
 `tiers_shaped` and `mrclam5a_shaped`) from the odometry start, the first
 also from four more seeds (`spread`).
+Last, the translation-implicit runs (`implicit`, float64): the
+plaza2-shaped chain from the numpy start truncated to its rotation and
+bearing rows (seeds 4, 5, 6: `spread`) and `mrclam5a_shaped` from the
+odometry start.
 `chip_smoke.py` reads that file: it rebuilds the same graphs and start with
 `cora_tpu_torch`, solves them on the card and gates the result against it.
 
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --implicit-only
 
-Takes about 30 minutes on an 8-core CPU; the run that wrote the committed
+Takes about 40 minutes on an 8-core CPU; the run that wrote the committed
 file took (`cpu_wall_s` in it) 111 s, 84.5 s and 187 s for the three chain
 runs, 3.5 min for the single_drone-shaped spread, 44.2 s for `level0_f64`
 (its four one-ulp runs are not timed apart), 100.5 s for `tiers_shaped`
 and 12.5 min for its spread, and 44.6 s for `mrclam5a_shaped`. Times move
-by up to 20 % between runs.
+by up to 20 % between runs. `--implicit-only` recomputes the `implicit`
+section alone and writes every other key back unchanged: 9.2 min, of which
+238.3 s, 125.3 s and 131.8 s for the three plaza2-shaped runs (the first
+compiles) and 46.9 s for `mrclam5a_shaped`.
 """
 
 from __future__ import annotations
@@ -87,6 +95,12 @@ GENERAL = {
 GENERAL_JUMP = 2
 # the general runs whose JAX result moves by more than 1 % with the seed
 GENERAL_SPREAD = ("tiers_shaped",)
+# the translation-implicit (marginalized) runs, in float64 as
+# `examples/config.json` and `SolverConfig` default to: the plaza2-shaped
+# chain from the numpy start truncated to its rotation and bearing rows
+# (from X0_SEED, then two more starts for `spread`), and `mrclam5a_shaped`
+# from the odometry start
+IMPLICIT_SPREAD_SEEDS = (4, 5, 6)
 
 
 def numpy_start(n_rows: int, rank: int, seed: int):
@@ -274,7 +288,9 @@ def permuted_bandwidth(problem, pd) -> int:
 
 
 def bench_config(**kw):
-    """bench.py's main-path config (bench.py:43-62) with the raised caps."""
+    """bench.py's main-path config (bench.py:43-62) with the raised caps;
+    `kw` sets or overrides fields (the implicit runs' dtype and
+    formulation)."""
     import numpy as np
 
     from cora_tpu.types import (
@@ -284,7 +300,7 @@ def bench_config(**kw):
         TNTParams,
     )
 
-    return SolverConfig(
+    fields = dict(
         preconditioner=Preconditioner.REGULARIZED_CHOLESKY,
         formulation=Formulation.EXPLICIT,
         dtype=np.float32,
@@ -293,8 +309,9 @@ def bench_config(**kw):
         polish_time_budget=CONFIG["polish_time_budget"],
         tnt=TNTParams(max_computation_time=CONFIG["max_computation_time"]),
         use_pallas="never",
-        **kw,
     )
+    fields.update(kw)
+    return SolverConfig(**fields)
 
 
 class LevelRecorder:
@@ -379,9 +396,9 @@ def level0_f64():
     return rec
 
 
-def solve_general(name, seed, rec_levels):
+def solve_general(name, seed, rec_levels, **kw):
     """`solve_cora` on a multi-robot PyFG graph from the odometry start:
-    (problem, result, ATE, CPU wall s)."""
+    (problem, result, ATE, CPU wall s); `kw` overrides config fields."""
     import tempfile
 
     from cora_tpu.io.pyfg import parse_pyfg_python
@@ -395,7 +412,7 @@ def solve_general(name, seed, rec_levels):
             fh.write(multi_robot_pyfg(**GENERAL[name]))
         problem = parse_pyfg_python(path)
     cfg = bench_config(seed=seed, init_rank_jump=GENERAL_JUMP,
-                       initialization=Initialization.ODOMETRY)
+                       initialization=Initialization.ODOMETRY, **kw)
     rec_levels.levels.clear()
     t0 = time.time()
     res = solve_cora(problem, config=cfg)
@@ -404,8 +421,77 @@ def solve_general(name, seed, rec_levels):
     return problem, res, ate, wall
 
 
+def implicit_runs(recorder):
+    """The translation-implicit runs (`implicit`): float64, RegularizedCholesky,
+    the bench caps, `formulation=IMPLICIT`, on the XLA path."""
+    import numpy as np
+
+    from cora_tpu.models.synthetic import synthetic_problem
+    from cora_tpu.solve.staircase import extract_solution, solve_cora
+    from cora_tpu.types import Formulation
+    from cora_tpu.utils.evaluation import evaluate_ate
+
+    kw = dict(dtype=np.float64, formulation=Formulation.IMPLICIT)
+
+    def record(res, ate, wall):
+        return dict(certified=bool(res.certified),
+                    sdp_cost=float(res.sdp_cost), f=float(res.result.f),
+                    ate=ate, ranks=list(res.ranks_visited),
+                    grad_norm_f64=float(res.grad_norm_f64),
+                    final_certified=bool(res.final_certified),
+                    level0=recorder.first(), cpu_wall_s=round(wall, 1))
+
+    out = {}
+    g, jump = PLAZA2, 2
+    problem = synthetic_problem(**g)
+    height = problem.rot_and_range_matrix_size
+    cfg = bench_config(seed=CONFIG["seed"], init_rank_jump=jump, **kw)
+    runs = []
+    for seed in IMPLICIT_SPREAD_SEEDS:
+        x0 = numpy_start(problem.data_matrix_size, g["dim"] + jump,
+                         seed)[:height]
+        recorder.levels.clear()
+        t0 = time.time()
+        res = solve_cora(problem, x0=x0, config=cfg)
+        wall = time.time() - t0
+        ate = float(evaluate_ate(problem,
+                                 extract_solution(problem, cfg, res)))
+        runs.append(record(res, ate, wall))
+        print(f"plaza2_shaped_implicit x0 seed {seed}: " + json.dumps(
+            {k: v for k, v in runs[-1].items() if k != "level0"}), flush=True)
+    rec = dict(graph=g, init_rank_jump=jump, x0_seed=X0_SEED,
+               state_height=height, **runs[0])
+    rec["spread"] = dict(x0_seeds=list(IMPLICIT_SPREAD_SEEDS),
+                         **{k: [r[k] for r in runs]
+                            for k in ("certified", "f", "ate", "ranks")})
+    out["plaza2_shaped_implicit"] = rec
+
+    name = "mrclam5a_shaped"
+    problem, res, ate, wall = solve_general(name, CONFIG["seed"], recorder,
+                                            **kw)
+    rec = dict(pyfg=GENERAL[name], init_rank_jump=GENERAL_JUMP,
+               initialization="odometry",
+               state_height=problem.rot_and_range_matrix_size,
+               **record(res, ate, wall))
+    print(name + "_implicit", json.dumps(
+        {k: v for k, v in rec.items() if k != "level0"}), flush=True)
+    out[name + "_implicit"] = rec
+    return out
+
+
 def main():
     sys.path.insert(0, REPO)
+    if "--implicit-only" in sys.argv[1:]:
+        # add (or redo) the `implicit` section alone; every other key of the
+        # committed file is read and written back unchanged
+        with open(OUT) as fh:
+            out = json.load(fh)
+        out["implicit"] = implicit_runs(LevelRecorder())
+        with open(OUT, "w") as fh:
+            json.dump(out, fh, indent=1)
+            fh.write("\n")
+        return
+
     import numpy as np
 
     from cora_tpu.models.synthetic import synthetic_problem
@@ -495,6 +581,8 @@ def main():
                       f"{ate:.4f} (CPU wall {wall:.1f} s)", flush=True)
             rec["spread"] = spread
         out["general"][name] = rec
+
+    out["implicit"] = implicit_runs(recorder)
 
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as fh:

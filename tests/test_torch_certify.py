@@ -95,7 +95,7 @@ def test_certify_device_stage_matches_jax(graphs, name, method):
     kw = dict(eta=1e-3, nx=10, max_lobpcg_iters=500, method=method,
               escape_eig_iters=160, seed=0)
     ref = jax_certify_module.certify_solution(jp, jpd, Y, **kw)
-    got = certify.certify_solution(tp, tp.device_data(np.float64), Y, **kw)
+    got = certify.certify_solution(tp, tp.device_data(np.float64, "cpu"), Y, **kw)
     assert not ref.is_certified
     assert got.is_certified == ref.is_certified
     np.testing.assert_allclose(got.theta, ref.theta, rtol=1e-6)

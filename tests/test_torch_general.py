@@ -157,13 +157,14 @@ def test_odometry_initialization_matches_jax(problems, name):
 @pytest.mark.parametrize("name", IDS)
 def test_general_op_f64(problems, name, op):
     jp, tp = problems[name]
-    jpd, tpd = jp.device_data(dtype=np.float64), tp.device_data(np.float64)
+    jpd, tpd = (jp.device_data(dtype=np.float64),
+                tp.device_data(np.float64, "cpu"))
     rank = GRAPHS[name]["dim"] + 2
     A, Y, V = _point(jpd, rank, near_singular=op == "project_to_manifold")
     jY, jV = jnp.asarray(Y), jnp.asarray(V)
     tY, tV = torch.as_tensor(Y), torch.as_tensor(V)
     if op == "data_matrix_product":  # through `Problem.operator`
-        ref, out = jq.data_matrix_product(jpd, jV), tp.operator()(tV)
+        ref, out = jq.data_matrix_product(jpd, jV), tp.operator(device="cpu")(tV)
     elif op == "jacobi_diagonal":
         ref, out = jq.jacobi_diagonal(jpd), tq.jacobi_diagonal(tpd)
     elif op == "tangent_space_projection":
@@ -194,7 +195,8 @@ def test_preconditioner_apply_f64(problems, name, kind):
     ref = jax_precond.make_preconditioner(
         jp, jpd, getattr(JaxPrecond, kind))(jnp.asarray(V))
     out = precond.make_preconditioner(
-        tp, tp.device_data(np.float64), getattr(Preconditioner, kind))(
+        tp, tp.device_data(np.float64, "cpu"),
+        getattr(Preconditioner, kind))(
             torch.as_tensor(V))
     assert _rel(out, ref) < 1e-10
 
@@ -204,7 +206,7 @@ def test_block_cholesky_matches_dense(problems, name):
     """BlockCholesky = blockdiag(Q + 1e-3·I per variable type)⁻¹, as in
     tests/test_solve.py, and not the RegularizedCholesky apply."""
     _, tp = problems[name]
-    pd = tp.device_data(np.float64)
+    pd = tp.device_data(np.float64, "cpu")
     Q = tp.data_matrix().toarray()
     N, nd, ndm = pd.size, pd.rot_size, pd.rot_size + pd.m
     M = np.zeros_like(Q)
@@ -235,9 +237,9 @@ def test_tnt_solve_first_iterations(problems, name, dtype, tol_f, tol_g):
     ref = jax_tnt(jpd, jnp.asarray(X), jp.preconditioner_fn(
         JaxPrecond.REGULARIZED_CHOLESKY, dtype=dtype),
         JaxTNTParams(max_iterations=FIRST_CHUNK))
-    out = tnt_solve(tp.device_data(dtype), torch.as_tensor(X),
+    out = tnt_solve(tp.device_data(dtype, "cpu"), torch.as_tensor(X),
                     tp.preconditioner_fn(Preconditioner.REGULARIZED_CHOLESKY,
-                                         dtype=dtype),
+                                         dtype=dtype, device="cpu"),
                     TNTParams(max_iterations=FIRST_CHUNK))
     assert out.num_iterations == ref.num_iterations == FIRST_CHUNK
     np.testing.assert_allclose(out.objective_values, ref.objective_values,
@@ -265,9 +267,9 @@ def test_saddle_escape_matches_jax(problems, name):
     v = cert.x / np.linalg.norm(cert.x)
     ref = np.asarray(jax_escape(jpd, jnp.asarray(Y), cert.theta, v, jpre))
     out = saddle_escape(
-        tp.device_data(np.float64), torch.as_tensor(Y), cert.theta, v,
-        tp.preconditioner_fn(Preconditioner.REGULARIZED_CHOLESKY,
-                             dtype=np.float64))
+        tp.device_data(np.float64, "cpu"), torch.as_tensor(Y), cert.theta,
+        v, tp.preconditioner_fn(Preconditioner.REGULARIZED_CHOLESKY,
+                                dtype=np.float64, device="cpu"))
     assert out.shape == (Y.shape[0], d + 1)
     assert np.abs(ref[:, -1]).max() > 0  # the escape left the saddle
     assert _rel(out, ref) < 1e-10

@@ -33,7 +33,12 @@ IDS = ["2d", "3d", "2d-n14"]
 def test_port_imports_without_jax():
     code = ("import sys, cora_tpu_torch, cora_tpu_torch.solve.staircase, "
             "cora_tpu_torch.ops.tnt_kernels, cora_tpu_torch.io.pyfg, "
-            "cora_tpu_torch.models.init, cora_tpu_torch.precond.banded; "
+            "cora_tpu_torch.models.init, cora_tpu_torch.precond.banded, "
+            "cora_tpu_torch.models.formulations, "
+            "cora_tpu_torch.solve.checkpoint, cora_tpu_torch.io.exporters, "
+            "cora_tpu_torch.io.matrix_market, cora_tpu_torch.io.viz, "
+            "cora_tpu_torch.native.pyfg_fast, cora_tpu_torch.experiments; "
+            "assert 'matplotlib' not in sys.modules; "
             "assert 'jax' not in sys.modules; "
             "assert 'cora_tpu' not in sys.modules")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -73,7 +78,7 @@ def test_problem_data_equals_from_numpy(g, dtype):
 def test_banded_factor_equal(g):
     jp, tp = jax_problem(**g), synthetic_problem(**g)
     jpd = jp.device_data(dtype=np.float64)
-    tpd = tp.device_data(dtype=np.float64)
+    tpd = tp.device_data(dtype=np.float64, device="cpu")
     lam = 0.37
     order = np.arange(jpd.n, dtype=np.int64)
     Fj = jax_factor_banded(None, jpd, jp.data_matrix(), lam, order=order)
@@ -109,7 +114,7 @@ def test_plan_supported_matches():
 
     g = dict(n_poses=10, n_landmarks=1, n_ranges=5, seed=0)
     jp, tp = jax_problem(**g), synthetic_problem(**g)
-    assert chain.plan_supported(tp.device_data()) is None
+    assert chain.plan_supported(tp.device_data(device="cpu")) is None
     assert T.plan_supported(jp.device_data()) is None
     # a loop-closure edge 0 -> 5 leaves the chain family in both packages
     jp.add_relative_pose_measurement(JaxRPM(
@@ -117,6 +122,6 @@ def test_plan_supported_matches():
         np.eye(3)))
     tp.add_relative_pose_measurement(RelativePoseMeasurement(
         Symbol("a", 0), Symbol("a", 5), np.eye(2), np.zeros(2), np.eye(3)))
-    reason = chain.plan_supported(tp.device_data())
+    reason = chain.plan_supported(tp.device_data(device="cpu"))
     assert reason is not None
     assert reason == T.plan_supported(jp.device_data())

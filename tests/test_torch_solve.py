@@ -136,7 +136,7 @@ def test_polish_ladder_matches_jax(g):
     against the JAX package's `probe_ladder`, to 1e-12 in float64."""
     jp = jax_problem(**g)
     jax_ladder = _jax_polish_kernels(jp, 1e6)[3]
-    pd = synthetic_problem(**g).device_data(np.float64)
+    pd = synthetic_problem(**g).device_data(np.float64, "cpu")
     Y = project_to_manifold(pd, torch.as_tensor(
         _x0(jp.data_matrix_size, g["dim"] + 1)))
     s = torch.as_tensor(np.random.default_rng(5).standard_normal(Y.shape))
@@ -159,7 +159,8 @@ def test_certify_host_matches_jax():
     assert np.isfinite(Yp).all()
     for eta in (1e-4, 1e3):
         ref = jax_certify(jp, jpd, Yp, eta, method="host")
-        got = certify_solution(tp, tp.device_data(dtype=np.float64), Yp, eta)
+        got = certify_solution(
+            tp, tp.device_data(dtype=np.float64, device="cpu"), Yp, eta)
         assert got.is_certified == ref.is_certified
         if not ref.is_certified:
             np.testing.assert_allclose(got.theta, ref.theta, rtol=1e-6)
