@@ -52,9 +52,9 @@ raises and the script exits non-zero:
      (`tiers_shaped`, `mrclam5a_shaped`, written by `multi_robot_pyfg` in
      `scripts/torch_port_reference.py` to a temporary file): gated as
      phase 3 against the JAX package's run (fixture `general`), with no
-     CUDA kernel launched (the canonical path is plain PyTorch);
-     `mrclam5a_shaped` is solved twice and the two solves must end on the
-     same bits, `tiers_shaped` (~1 min a solve) once;
+     CUDA kernel launched (the canonical path is plain PyTorch); each graph
+     is solved once (phase 7 solves `mrclam5a_shaped` again, on a mesh, and
+     must end on this solve's bits);
   6. implicit — the translation-implicit (marginalized) formulation and
      the solve's host surroundings, in float64: the native PyFG tokenizer
      against the Python parser on both multi-robot graphs (identical data
@@ -70,7 +70,25 @@ raises and the script exits non-zero:
      the second with `log_iterates` (the same bits; the iterate log as
      long as the iterations); then a third call resumes from the
      checkpoint and certifies within 1 % of the uninterrupted f. No CUDA
-     kernel is launched in this phase.
+     kernel is launched in this phase;
+  7. parallel — `cora_tpu_torch.parallel` on the card: `init_distributed`
+     starts nothing (one process), `make_global_mesh` makes a one-process
+     NCCL group on the card. On the plaza2-shaped graph and `tiers_shaped`
+     in float32 and float64, and on the 100 000-pose graph of
+     bench.py:180-186 in its float32, at r = 4: the block-row and
+     edge-sharded products through that group, and the block-row product
+     with K = 2, 4, 8 shards emulated in this process, each held to the
+     unsharded product (1e-5 / 1e-12 relative to its largest entry). On
+     the 100 000-pose graph also their times (median of 20, CUDA events):
+     the unsharded product, each sharded one, each shard's local product
+     and the assemble step at each K. Then `mrclam5a_shaped`
+     through `solve_cora(..., mesh=)`: explicit float32 from the odometry
+     start, gated as phase 5 and on phase 5's bits (on one process the
+     block-row product's sums are the unsharded product's, copied), and
+     implicit float64, gated as phase 6 and within 1e-6 relative in f of
+     phase 6's unsharded solve. No CUDA kernel
+     is launched in this phase (the sharded path runs the canonical ops).
+     The group is destroyed at the end.
 
 The kernels' launch counts are zeroed just before the timed kernel-path
 solves and read just after them; the main path must launch the cluster
@@ -114,10 +132,6 @@ REPS = 20
 LADDER_SWEEP = (1, 2, 3, 4, 6, 7, 8)
 # the kernels the main path launches (`tcg` is the body of `chunk`)
 PATH_KERNELS = ("chunk", "step", "ladder")
-# the multi-robot graphs phase 5 solves twice for the bit check
-# (`tiers_shaped`, ~1 min a solve, once: the script stays well inside its
-# time limit)
-GENERAL_TWICE = ("mrclam5a_shaped",)
 # the single-CTA comparators, which only phase 2 launches
 COMPARATORS = ("step_block", "ladder_block", "chunk_block", "tcg_block")
 KERNEL_CASES = [("plaza2_shaped", 4), ("plaza2_shaped", 6),
@@ -127,6 +141,18 @@ KERNEL_CASES = [("plaza2_shaped", 4), ("plaza2_shaped", 6),
 # start one ulp away parts from it by as much; and its end f against the
 # range of the JAX runs' ends, widened by the 1 % of the cost gate
 TOL_F64, TOL_END_F = 1e-12, 0.01
+# phase 7: the sharded products at rank r on three graphs (plaza2-shaped,
+# tiers_shaped and the 100 000-pose graph of bench.py:180-186), block-row
+# with K shards emulated, held to the unsharded product as the CPU tests
+# hold them (tests/test_torch_parallel.py); the 100 000-pose graph in
+# bench.py's float32 only, and only there timed (the times are recorded,
+# not claimed: one graph keeps the phase short)
+PAR_RANK, PAR_KS = 4, (2, 4, 8)
+PAR_TOL = {"float32": 1e-5, "float64": 1e-12}
+HV100K = dict(n_poses=100000, n_landmarks=10, n_ranges=50000, seed=0)
+PAR_DTYPES = {"hv100k": ("float32",)}
+PAR_TIMED = ("hv100k", "float32")
+LIMIT_S = 1200  # the time limit the whole script must finish within
 
 
 def check(cond, msg):
@@ -817,12 +843,11 @@ def phase_level_f64(problems, reference, device="cuda"):
 
 def phase_general(reference, device="cuda"):
     """`parse_pyfg` → `solve_cora` on the multi-robot graphs from the
-    odometry start (twice for those in `GENERAL_TWICE`), with the launch
-    counts zeroed before the first solve and read after the last."""
+    odometry start, with the launch counts zeroed before the first solve
+    and read after the last. Returns {name: (problem, result)}."""
     import tempfile
 
     import numpy as np
-    import torch
 
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     from torch_port_reference import multi_robot_pyfg
@@ -831,6 +856,7 @@ def phase_general(reference, device="cuda"):
     from cora_tpu_torch.ops import tnt_kernels
     from cora_tpu_torch.types import Initialization
 
+    solved = {}
     for name, ref in reference["general"].items():
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, name + ".pyfg")
@@ -839,28 +865,20 @@ def phase_general(reference, device="cuda"):
             problem = parse_pyfg(path)
         cfg = bench_config(reference, ref["init_rank_jump"], "auto",
                            initialization=Initialization.ODOMETRY)
-        twice = name in GENERAL_TWICE
         tnt_kernels.reset_launch_counts()
-        first = solve_once(problem, cfg, None, device)[0] if twice else None
         res, wall, ate, levels = solve_once(problem, cfg, None, device)
         launches = dict(tnt_kernels.LAUNCHES)
-        same = twice and bool(torch.equal(first.result.x, res.result.x))
         fac = problem.preconditioner_fn(cfg.preconditioner, cfg.dtype,
                                         cfg.reg_chol_max_cond, device).fac
         print(f"[general] {name}: N {problem.data_matrix_size}, permuted "
               f"bandwidth {fac['bandwidth']} (JAX package's RCM band "
-              f"{ref['bandwidth']}; exact up to 96); "
-              + (f"two solves end on the same state: {same}; " if twice
-                 else "solved once; ")
-              + f"CUDA kernel launches {json.dumps(launches)}", flush=True)
-        check(same or not twice, f"{name}: two solves from one start differ")
+              f"{ref['bandwidth']}; exact up to 96); CUDA kernel launches "
+              f"{json.dumps(launches)}", flush=True)
         check(not any(launches.values()),
               f"{name}: the canonical path launched kernels {launches}")
         check_first_level(name, levels[0], ref)
-        spread = ref.get("spread")
-        levels = max(len(r) for r in spread["ranks"]) if spread else \
-            len(ref["ranks"])
-        gate(name, problem, res, ate, ref, max_levels=levels + 2)
+        gate(name, problem, res, ate, ref, max_levels=general_levels(ref))
+        solved[name] = (problem, res)
         t_cert = (res.elapsed_to_certificate
                   if np.isfinite(res.elapsed_to_certificate) else wall)
         print(f"[general] {name}: ranks {res.ranks_visited} certified "
@@ -876,6 +894,15 @@ def phase_general(reference, device="cuda"):
             {k: ref[k] for k in ("certified", "sdp_cost", "f", "ate", "ranks",
                                  "cpu_wall_s", "spread") if k in ref}),
               flush=True)
+    return solved
+
+
+def general_levels(ref):
+    """The level gate of a general run: the most levels the JAX package
+    visits over its `spread` (or its one run), plus 2."""
+    spread = ref.get("spread")
+    return 2 + (max(len(r) for r in spread["ranks"]) if spread
+                else len(ref["ranks"]))
 
 
 def read_tum(path):
@@ -1068,6 +1095,7 @@ def phase_implicit(reference, device="cuda"):
           f"{json.dumps(launches)}", flush=True)
     check(not any(launches.values()),
           f"the implicit phase launched kernels {launches}")
+    return first.result.f
 
 
 def report(name, res, wall, ate, ref, levels):
@@ -1094,6 +1122,133 @@ def report(name, res, wall, ate, ref, levels):
           f"{len(levels)} TNT levels; tnt_level + tnt_refine {tnt_s:.3f} s, "
           f"{1e6 * tnt_s / max(tcg_iters, 1):.2f} us per tCG iteration",
           flush=True)
+
+
+def phase_parallel(problems, solved, implicit_f, reference, device="cuda"):
+    """`cora_tpu_torch.parallel` on one card: a one-process NCCL group
+    (`init_distributed` starts nothing, `make_global_mesh` makes the group
+    of this process) and the block-row plan with K shards emulated in this
+    process. The sharded products against the unsharded one; then
+    `mrclam5a_shaped` through `solve_cora(..., mesh=)`, explicit float32 and
+    implicit float64. Launch counts are zeroed at the start and must stay
+    0: the sharded path runs the canonical ops."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cora_tpu_torch.models.synthetic import synthetic_problem
+    from cora_tpu_torch.ops import tnt_kernels
+    from cora_tpu_torch.ops.quadratic import data_matrix_product
+    from cora_tpu_torch.parallel import sharding as shd
+    from cora_tpu_torch.parallel.distributed import (
+        init_distributed,
+        make_global_mesh,
+        process_info,
+    )
+    from cora_tpu_torch.solve.staircase import extract_solution
+    from cora_tpu_torch.types import Formulation, Initialization
+
+    tnt_kernels.reset_launch_counts()
+    check(init_distributed() is False, "one process: init_distributed "
+          "started a group")
+    mesh = make_global_mesh(device)
+    check(mesh.size() == 1 and process_info() == (0, 1),
+          f"mesh {mesh}, process_info {process_info()}")
+    print(f"[parallel] {mesh}, backend {dist.get_backend()}, sharded "
+          f"products at r = {PAR_RANK}; times on {' '.join(PAR_TIMED)}, "
+          f"median of {REPS} (CUDA events)",
+          flush=True)
+    graphs = {"plaza2_shaped": problems["plaza2_shaped"],
+              "tiers_shaped": solved["tiers_shaped"][0],
+              "hv100k": synthetic_problem(**HV100K)}
+    for name, problem in graphs.items():
+        pd64 = problem.device_data(np.float64, device)
+        plans = {K: shd.build_rowblock_plan(pd64, K) for K in PAR_KS}
+        for dtype_name in PAR_DTYPES.get(name, ("float32", "float64")):
+            dtype, tol = np.dtype(dtype_name).type, PAR_TOL[dtype_name]
+            timed_case = (name, dtype_name) == PAR_TIMED
+            pd = problem.device_data(dtype, device)
+            Y = torch.as_tensor(np.random.default_rng(0).standard_normal(
+                (pd.size, PAR_RANK))).to(device, pd.dtype())
+            want = data_matrix_product(pd, Y)
+            times = {"unsharded": median_ms(
+                lambda: data_matrix_product(pd, Y), torch)} \
+                if timed_case else {}
+            errs, local = {}, {}
+            for blockrow, kind in ((True, "block-row"), (False, "edge")):
+                op = problem.sharded_operator(mesh, dtype, blockrow=blockrow,
+                                              device=device)
+                errs[f"{kind} world 1"] = rel(op(Y), want)
+                if timed_case:
+                    times[f"{kind} world 1"] = median_ms(lambda: op(Y), torch)
+            for K, plan in plans.items():
+                br = shd.BlockRowOperator(pd, plan)
+                errs[f"K={K}"] = rel(br.emulated(Y), want)
+                if timed_case:
+                    G = torch.stack([br.local(k, Y) for k in range(K)])
+                    local[K] = [median_ms(lambda: br.local(k, Y), torch)
+                                for k in range(K)]
+                    times[f"assemble K={K}"] = median_ms(
+                        lambda: br.assemble(G), torch)
+            seps = {K: (p.n_sep_rot, p.n_sep_tr) for K, p in plans.items()}
+            print(f"[parallel] {name} {np.dtype(dtype).name}: N {pd.size}; "
+                  "max rel err against the unsharded product: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + (" | ms: " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in times.items())
+                     + " | local ms per shard (max, min): " + ", ".join(
+                         f"K={K} {max(v):.3f}, {min(v):.3f}"
+                         for K, v in local.items()) if timed_case else "")
+                  + " | separators (rotation, translation): "
+                  + json.dumps(seps), flush=True)
+            for k, e in errs.items():
+                check(e <= tol, f"{name} {np.dtype(dtype).name} {k}: rel "
+                      f"err {e:.3e} > {tol}")
+
+    name = "mrclam5a_shaped"
+    problem, unsharded = solved[name]
+    ref = reference["general"][name]
+    cfg = bench_config(reference, ref["init_rank_jump"], "auto",
+                       initialization=Initialization.ODOMETRY)
+    res, wall, ate, levels = solve_once(problem, cfg, None, device,
+                                        mesh=mesh)
+    same = bool(torch.equal(res.result.x, unsharded.result.x))
+    check_first_level(name + " (mesh)", levels[0], ref)
+    gate(name + " (mesh)", problem, res, ate, ref,
+         max_levels=general_levels(ref))
+    print(f"[parallel] {name} explicit float32 on the mesh: ranks "
+          f"{res.ranks_visited} certified {res.certified} f "
+          f"{res.result.f:.6f} (unsharded, phase 5: "
+          f"{unsharded.result.f:.6f}; reference {ref['f']:.6f}) ATE "
+          f"{ate:.4f} m wall {wall:.3f} s; on phase 5's bits: {same}",
+          flush=True)
+    # one process: the sharded solve is the unsharded arithmetic, and this
+    # is the check that two solves from one start end on the same bits
+    check(same, f"{name}: the mesh solve left phase 5's bits")
+
+    ref = reference["implicit"][name + "_implicit"]
+    cfg = bench_config(reference, ref["init_rank_jump"], "auto",
+                       dtype=np.float64, formulation=Formulation.IMPLICIT,
+                       initialization=Initialization.ODOMETRY)
+    res, wall, ate, levels = solve_once(problem, cfg, None, device,
+                                        mesh=mesh)
+    soln = extract_solution(problem, cfg, res)
+    check_first_level(name + " implicit (mesh)", levels[0], ref, 1e-6, 1e-6)
+    gate(name + " implicit (mesh)", problem, res, ate, ref, Y=soln)
+    gap = abs(res.result.f - implicit_f) / abs(implicit_f)
+    print(f"[parallel] {name} implicit float64 on the mesh: ranks "
+          f"{res.ranks_visited} certified {res.certified} f "
+          f"{res.result.f:.9f} (unsharded, phase 6: {implicit_f:.9f}, rel "
+          f"{gap:.3e}; reference {ref['f']:.6f}) ATE {ate:.4f} m wall "
+          f"{wall:.3f} s", flush=True)
+    check(gap <= 1e-6, f"{name} implicit on the mesh: f {res.result.f} "
+          f"against the unsharded {implicit_f}")
+    dist.destroy_process_group()
+    launches = dict(tnt_kernels.LAUNCHES)
+    print(f"[parallel] CUDA kernel launches in this phase: "
+          f"{json.dumps(launches)}", flush=True)
+    check(not any(launches.values()),
+          f"the parallel phase launched kernels {launches}")
 
 
 def main():
@@ -1126,10 +1281,14 @@ def main():
     check(not any(launches[k] for k in COMPARATORS),
           f"the main path launched a single-CTA comparator: {launches}")
     timed("level_f64", phase_level_f64, problems, reference)
-    timed("general", phase_general, reference)
-    timed("implicit", phase_implicit, reference)
+    solved = timed("general", phase_general, reference)
+    implicit_f = timed("implicit", phase_implicit, reference)
+    timed("parallel", phase_parallel, problems, solved, implicit_f, reference)
+    total = time.time() - t_start
     print("[smoke] seconds per phase: " + json.dumps(
-        {k: round(v, 1) for k, v in took.items()}), flush=True)
+        {k: round(v, 1) for k, v in took.items()})
+        + f"; {total:.1f} s in all, {LIMIT_S - total:.1f} s inside the "
+        f"{LIMIT_S} s limit", flush=True)
 
     kernels = []
     for k, v in stats.items():

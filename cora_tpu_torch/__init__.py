@@ -22,6 +22,9 @@ Layout (the same module names as `cora_tpu` where the role is the same):
   ops/                            — canonical ops, chain plan, kernels
   solve/                          — TNT solvers, certification, polish,
                                     rounding, checkpoint, staircase
+  parallel/                       — sharded Q·Y over torch.distributed
+                                    (edge-sharded, block-row), process
+                                    bootstrap, global mesh
   utils/                          — evaluation, timing, device check
   experiments                     — command-line entry point
                                     (`python -m cora_tpu_torch.experiments`)
@@ -46,6 +49,7 @@ from cora_tpu_torch.types import (  # noqa: F401
     TNTParams,
 )
 from cora_tpu_torch.graph.problem import Problem  # noqa: F401
+from cora_tpu_torch.io.pyfg import parse_pyfg  # noqa: F401
 from cora_tpu_torch.solve.staircase import solve_cora  # noqa: F401
 
 __version__ = "0.1.0"

@@ -282,6 +282,44 @@ class Problem:
                 dtype=dtype)
         return cache[key]
 
+    def sharded_operator(self, mesh, dtype=np.float64, blockrow=True,
+                         device=None):
+        """The sharded explicit Q·Y over the ranks of `mesh` (a 1-D
+        `DeviceMesh`, `cora_tpu_torch.parallel`), cached per key; `device`
+        defaults to this rank's device on the mesh.
+
+        State stays replicated. The default is the block-row operator
+        (`make_blockrow_operator`: each rank forms its block's rows, one
+        all_gather per application); `blockrow=False` selects the
+        edge-sharded one (a full-height partial product, one all_reduce).
+        `.implicit` is None: the implicit formulation passes this operator
+        to `make_operator(..., full_product=)`.
+
+        The key holds the mesh's process group by identity: a mesh made
+        after the group was destroyed may compare equal to the old one, but
+        its group is a new object. The cached operator keeps its group
+        alive, so that identity is not reused while the entry exists."""
+        from cora_tpu_torch.parallel import sharding as shd
+        from cora_tpu_torch.utils.device import check_device
+
+        device = check_device(shd.mesh_device(mesh) if device is None
+                              else device)
+        key = (id(mesh.get_group()), mesh.size(), np.dtype(dtype).name,
+               bool(blockrow), str(device))
+        cache = getattr(self, "_sharded_op_cache", None)
+        if cache is None:
+            cache = self._sharded_op_cache = {}
+        if key not in cache:
+            pd = self.device_data(dtype, device)
+            if blockrow:
+                op = shd.make_blockrow_operator(pd, mesh)
+            else:
+                op = shd.make_sharded_operator(
+                    shd.shard_problem_data(pd, mesh), mesh)
+            op.implicit = None
+            cache[key] = op
+        return cache[key]
+
     def preconditioner_fn(self, kind, dtype=np.float64, max_cond: float = 1e6,
                           device="cuda"):
         """The `PrecondOp` of `kind` on `device` in `dtype`, cached: the
@@ -306,6 +344,7 @@ class Problem:
         self._data_matrix = None
         self._device_data = None
         self._op_cache = None
+        self._sharded_op_cache = None
         self._precon_cache = None
         self._polish_cache = None
         self._band_perm_cache = None

@@ -143,17 +143,28 @@ class LredSolve:
 
 
 class ImplicitOperators:
-    """Marginalized quadratic-form operator and translation recovery."""
+    """Marginalized quadratic-form operator and translation recovery.
 
-    def __init__(self, problem, pd: ProblemData, dtype=None):
+    `full_product` overrides the full-height explicit product Q·Z: a
+    sharded solve passes its sharded operator
+    (`cora_tpu_torch.parallel.sharding`), so the marginalized products take
+    one collective each, while the banded L⁻¹ apply stays replicated (a
+    host-factored direct solve)."""
+
+    def __init__(self, problem, pd: ProblemData, dtype=None,
+                 full_product=None):
         self.pd = pd
         dt = pd.dtype() if dtype is None else torch_dtype(dtype)
         self.lred_solve = LredSolve(_lred_factor(problem, pd), dt, pd.device)
+        if full_product is None:
+            def full_product(Z):
+                return data_matrix_product(pd, Z)
+        self._full = full_product
 
     def _bt_y(self, Y):
         """[Qmain·Y ; Bᵀ·Y] via the explicit factored operator on [Y; 0]."""
         pd = self.pd
-        full = data_matrix_product(pd, torch.cat(
+        full = self._full(torch.cat(
             [Y, Y.new_zeros((pd.num_translations, Y.shape[1]))]))
         return full[: pd.rot_range_size], full[pd.rot_range_size:]
 
@@ -161,7 +172,7 @@ class ImplicitOperators:
         """B·v via the explicit operator on [0; v] (v lifted, pinned row 0)."""
         pd = self.pd
         r = v_red.shape[1]
-        full = data_matrix_product(pd, torch.cat(
+        full = self._full(torch.cat(
             [v_red.new_zeros((pd.rot_range_size, r)), v_red,
              v_red.new_zeros((1, r))]))
         return full[: pd.rot_range_size]
@@ -179,10 +190,11 @@ class ImplicitOperators:
         return torch.cat([Y, t, Y.new_zeros((1, Y.shape[1]))])
 
 
-def make_operator(problem, pd: ProblemData, formulation,
-                  dtype=None) -> Callable:
+def make_operator(problem, pd: ProblemData, formulation, dtype=None,
+                  full_product=None) -> Callable:
     """The quadratic-form operator for the requested formulation, with
-    `.implicit` its `ImplicitOperators` (None when explicit)."""
+    `.implicit` its `ImplicitOperators` (None when explicit);
+    `full_product` as in `ImplicitOperators`."""
     if formulation == Formulation.EXPLICIT:
         def op(Y):
             return data_matrix_product(pd, Y)
@@ -190,7 +202,7 @@ def make_operator(problem, pd: ProblemData, formulation,
         op.implicit = None
         return op
 
-    impl = ImplicitOperators(problem, pd, dtype)
+    impl = ImplicitOperators(problem, pd, dtype, full_product=full_product)
 
     def op(Y):
         return impl.product(Y)

@@ -14,10 +14,12 @@ straight from the measurement model. With Y split into rotation rows Yrot
     (QY)_sph[e]  = ω_e r_e v_e
     (QY)_tr[j]  += ω_e v_e ;  (QY)_tr[i] −= ω_e v_e
 
-The per-edge terms are summed onto rows by the fixed-order segment sums of
-`ProblemData.incidence` (a gather and a `sum`), so the product is the same
-bits on every run, on the CPU and on the card alike. Edge lists may be in
-any order: loop closures, inter-robot ranges, several robots.
+The per-edge terms (`edge_terms`, which the sharded products of
+`cora_tpu_torch.parallel.sharding` share) are summed onto rows by the
+fixed-order segment sums of `ProblemData.incidence` (a gather and a `sum`),
+so the product is the same bits on every run, on the CPU and on the card
+alike. Edge lists may be in any order: loop closures, inter-robot ranges,
+several robots.
 """
 
 from __future__ import annotations
@@ -40,36 +42,44 @@ def join_state(pd: ProblemData, Yrot, Ysph, Ytr) -> torch.Tensor:
     return torch.cat([Yrot.flatten(-3, -2), Ysph, Ytr], dim=-2)
 
 
+def edge_terms(e, Yrot, Ytr, ys):
+    """The per-edge terms of QY over the edge lists of `e` (a
+    `ProblemData`, or one shard's edges with the same field names), with
+    `ys` the bearing rows of its range edges: (rot_terms, tr_terms, sph).
+    The rotation terms belong to the blocks at [rot_i | rot_j | pm_ti], the
+    translation terms to the translations at [pm_tj | pm_ti | rng_tj |
+    rng_ti], and `sph` (None without range edges) to the bearing rows."""
+    rot_terms, tr_terms, sph = [], [], None
+    if len(e.rot_i):
+        Yi, Yj = Yrot[e.rot_i], Yrot[e.rot_j]
+        k = e.rot_kappa[:, None, None]
+        rot_terms += [k * (Yi - bmm(e.rot_R, Yj)),
+                      k * (Yj - bmm_T(e.rot_R, Yi))]
+    if len(e.pm_ti):
+        u = (Ytr[e.pm_tj] - Ytr[e.pm_ti]
+             - (e.pm_t[:, :, None] * Yrot[e.pm_ti]).sum(1))
+        w = e.pm_tau[:, None] * u
+        rot_terms.append(-e.pm_t[:, :, None] * w[:, None, :])
+        tr_terms += [w, -w]
+    if len(e.rng_ti):
+        rr = e.rng_r[:, None]
+        wr = e.rng_omega[:, None] * (rr * ys + Ytr[e.rng_tj] - Ytr[e.rng_ti])
+        sph = rr * wr
+        tr_terms += [wr, -wr]
+    return rot_terms, tr_terms, sph
+
+
 def data_matrix_product(pd: ProblemData, Y: torch.Tensor) -> torch.Tensor:
     """Explicit-formulation product QY for Y of shape (N, r)."""
     inc = pd.incidence
     Yrot, Ysph, Ytr = split_state(pd, Y)
-    rot_terms = []
-    tr_terms = []
-    if pd.num_rot_edges:
-        Yi, Yj = Yrot[pd.rot_i], Yrot[pd.rot_j]
-        k = pd.rot_kappa[:, None, None]
-        rot_terms += [k * (Yi - bmm(pd.rot_R, Yj)),
-                      k * (Yj - bmm_T(pd.rot_R, Yi))]
-    if pd.num_pose_meas:
-        u = (Ytr[pd.pm_tj] - Ytr[pd.pm_ti]
-             - (pd.pm_t[:, :, None] * Yrot[pd.pm_ti]).sum(1))
-        w = pd.pm_tau[:, None] * u
-        rot_terms.append(-pd.pm_t[:, :, None] * w[:, None, :])
-        tr_terms += [w, -w]
-    if pd.m:
-        rr = pd.rng_r[:, None]
-        wr = pd.rng_omega[:, None] * (rr * Ysph + Ytr[pd.rng_tj]
-                                      - Ytr[pd.rng_ti])
-        out_sph = rr * wr
-        tr_terms += [wr, -wr]
-    else:
-        out_sph = Ysph
+    rot_terms, tr_terms, out_sph = edge_terms(pd, Yrot, Ytr, Ysph)
     out_rot = inc.rot(torch.cat(rot_terms)) if rot_terms else \
         torch.zeros_like(Yrot)
     out_tr = inc.tr(torch.cat(tr_terms)) if tr_terms else \
         torch.zeros_like(Ytr)
-    return join_state(pd, out_rot, out_sph, out_tr)
+    return join_state(pd, out_rot, Ysph if out_sph is None else out_sph,
+                      out_tr)
 
 
 def jacobi_diagonal(pd: ProblemData) -> torch.Tensor:

@@ -131,6 +131,7 @@ def polish_solution(
     max_cond: float = 1e6,
     time_budget: float | None = None,
     device="cuda",
+    clock=None,
 ) -> PolishResult:
     """Polish Y to a float64 (near-)critical point of f(Y) = ½tr(YᵀQY)
     on the product manifold (translation-explicit formulation).
@@ -140,6 +141,8 @@ def polish_solution(
     largest step of an Armijo ladder α = 2⁻ⁱ, i < 16, with τ = min(1,
     |grad|). `grad_tol` defaults to 1e-6·‖Q‖₂, the reference's 1e-6
     gradient tolerance (`src/CORA.cpp:100-101`) made scale-invariant.
+    `clock(t0)` reads the seconds since t0 for `time_budget` (a sharded
+    solve passes one that every rank reads alike).
     """
     from cora_tpu_torch.types import Preconditioner
 
@@ -163,8 +166,9 @@ def polish_solution(
     gn = float("inf")
     status = "max_iterations"
     k = 0
+    elapsed = clock or (lambda t: time.time() - t)
     for k in range(1, max_iterations + 1):
-        if time_budget is not None and time.time() - t0 > time_budget:
+        if time_budget is not None and elapsed(t0) > time_budget:
             status = "time_budget"
             break
         tau = min(1.0, gn if np.isfinite(gn) else 1.0)

@@ -34,7 +34,9 @@ plain versions on the CPU); any other solve — the implicit formulation,
 other preconditioners, float64 — runs the canonical path (`tnt_solve`,
 `saddle_escape`) on the canonical ops, announced under `verbose`. On a
 CUDA device a kernel that fails to build or launch raises: nothing falls
-back to the canonical path. Both paths certify with `method="auto"`.
+back to the canonical path. Both paths certify with `method="auto"`. A
+sharded solve (`mesh=`, `cora_tpu_torch.parallel`) runs the canonical path
+on the sharded Q·Y, as the JAX package's `mesh=` does.
 """
 
 from __future__ import annotations
@@ -114,10 +116,13 @@ def _lift_random(project, Y: torch.Tensor, generator: torch.Generator,
     return project(torch.cat([Y, scale * col], dim=1)).contiguous()
 
 
-def kernel_path_reason(config: SolverConfig, pd) -> str | None:
+def kernel_path_reason(config: SolverConfig, pd, mesh=None) -> str | None:
     """None if the chain kernels run this solve, else why the canonical
     path does (the JAX package's rule, `cora_tpu/solve/staircase.py:
-    239-246`, with its `plan_supported` check)."""
+    239-246`, with its `plan_supported` check): a sharded solve (`mesh`)
+    always runs the canonical path."""
+    if mesh is not None:
+        return "mesh"
     if config.formulation == Formulation.IMPLICIT:
         return "formulation implicit"
     if config.preconditioner != Preconditioner.REGULARIZED_CHOLESKY:
@@ -137,6 +142,7 @@ def solve_cora(
     verbose: bool | None = None,
     checkpoint_path: str | None = None,
     device="cuda",
+    mesh=None,
 ) -> CoraResult:
     """Full certifiable solve of a range-aided SLAM problem on `device`.
 
@@ -146,7 +152,17 @@ def solve_cora(
     odometry start (`Initialization.ODOMETRY`) or a random start, both from
     `config.seed`. `checkpoint_path`: resume from the checkpoint there if
     it exists, and write one at each ramp lift and after each failed
-    certificate."""
+    certificate.
+
+    `mesh`: a 1-D `DeviceMesh` (`cora_tpu_torch.parallel`) whose every
+    rank calls this with the same arguments: the staircase (TNT, saddle
+    escape, refinement) then runs on the sharded Q·Y
+    (`Problem.sharded_operator`, one collective per product; the implicit
+    formulation's marginalized products ride it too) with the state
+    replicated; the preconditioner, the certificate and the polish run on
+    every rank alike, and the wall-clock caps read a clock all ranks
+    share, so every rank ends on the same bits. `device` must be the
+    mesh's kind of device."""
     config = config or SolverConfig()
     device = check_device(device)
     implicit = config.formulation == Formulation.IMPLICIT
@@ -168,8 +184,9 @@ def solve_cora(
     cert_p = config.cert
     state_height = pd.rot_range_size if implicit else pd.size
     rank = problem.dim + config.init_rank_jump
-    reason = kernel_path_reason(config, pd)
+    reason = kernel_path_reason(config, pd, mesh)
     solver_op = None  # the explicit Q·Y of the canonical ops
+    clock = None  # the wall clock of the time caps (this process's)
     if reason is None:
         kern = get_kernel_backend(
             problem, config.tnt, max_cond=config.reg_chol_max_cond,
@@ -194,11 +211,27 @@ def solve_cora(
         precon = problem.preconditioner_fn(
             config.preconditioner, dtype=config.dtype,
             max_cond=config.reg_chol_max_cond, device=device)
+        if mesh is not None:
+            from cora_tpu_torch.models.formulations import make_operator
+            from cora_tpu_torch.parallel.distributed import mesh_clock
+
+            if device.type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"({mesh.device_type})")
+            shard_op = problem.sharded_operator(mesh, config.dtype,
+                                                device=device)
+            # implicit: the marginalized Q̃ over the sharded explicit
+            # product, the banded L⁻¹ apply replicated
+            solver_op = make_operator(
+                problem, pd, config.formulation, dtype=config.dtype,
+                full_product=shard_op) if implicit else shard_op
+            clock = mesh_clock(mesh)
+        elif implicit:
+            solver_op = problem.operator(config.formulation,
+                                         dtype=config.dtype, device=device)
         if implicit:
             # the marginalized Q̃; the preconditioner lifts → applies the
             # full one → truncates (reference `CORA_problem.cpp:869-903`)
-            solver_op = problem.operator(config.formulation,
-                                         dtype=config.dtype, device=device)
             precon = implicit_precond(precon)
 
         def project(X):
@@ -206,7 +239,8 @@ def solve_cora(
 
         def run_tnt(X, **kw):
             return tnt_solve(pd, X, precon, config.tnt, op=solver_op,
-                             log_iterates=config.log_iterates, **kw)
+                             log_iterates=config.log_iterates, clock=clock,
+                             **kw)
 
         def escape(Y, theta, v):
             return saddle_escape(
@@ -292,6 +326,7 @@ def solve_cora(
                 grad_tol=config.polish_grad_tol,
                 time_budget=config.polish_time_budget,
                 device=device,
+                clock=clock,
             )
         vprint(
             f"[t={time.time()-t_start:7.2f}s] f64 polish: f {pres.f:.6f}, "

@@ -287,6 +287,7 @@ def tnt_solve(
     stall_tol: float = 0.0,
     op: Callable | None = None,
     log_iterates: bool = False,
+    clock: Callable[[float], float] | None = None,
 ) -> TNTResult:
     """Run TNT to convergence from Y0 on Y0's device and dtype. `precon`
     maps ambient V → P·V (the tangent projection is applied here,
@@ -297,7 +298,8 @@ def tnt_solve(
     The loop runs in chunks of at most `CHUNK_ITERS` outer iterations,
     sized from the measured time per iteration; between chunks the host
     enforces `params.max_computation_time` (the reference's 20 s per-rank
-    cap). Ramp mode (`ramp_iterations > 0`):
+    cap), read from `clock(t0)` (seconds since t0; a sharded solve passes
+    one that every rank reads alike). Ramp mode (`ramp_iterations > 0`):
     see `_tnt_chunk`; the ramp budget rides on top of the finish budget.
     """
     params = params or TNTParams()
@@ -309,17 +311,19 @@ def tnt_solve(
     c = _tnt_init(pd, Y0, precon, params, iter_cap, op, log_iterates)
     timed_out = False
     chunk_iters = CHUNK_ITERS
+    elapsed = clock or (lambda t: time.time() - t)
     while c.status == RUNNING and c.k < iter_cap:
         if c.k > 0 and max_time is not None:
-            per_iter = max((time.time() - t0) / max(c.k, 1), 1e-6)
-            remaining = max(max_time - (time.time() - t0), 0.0)
+            spent = elapsed(t0)
+            per_iter = max(spent / max(c.k, 1), 1e-6)
+            remaining = max(max_time - spent, 0.0)
             chunk_iters = int(min(max(remaining * 0.5 / per_iter, 8),
                                   CHUNK_ITERS))
         c = _tnt_chunk(pd, c, precon, params, op, iter_cap, tcg_cap,
                        min(c.k + chunk_iters, iter_cap), ramp_iterations,
                        ramp_tcg, lift_grad_norm, stall_window, stall_tol)
         if (c.status == RUNNING and c.k < iter_cap and max_time is not None
-                and time.time() - t0 > max_time):
+                and elapsed(t0) > max_time):
             timed_out = True
             break
 

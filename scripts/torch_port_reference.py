@@ -14,8 +14,8 @@ It also records the single_drone-shaped run's first level once more in
 float64 with the canonical `tnt_solve`, and from four starts one ulp away
 (`level0_f64`), and solves two
 multi-robot graphs written as PyFG text by `multi_robot_pyfg` (`general`:
-`tiers_shaped` and `mrclam5a_shaped`) from the odometry start, the first
-also from four more seeds (`spread`).
+`tiers_shaped` and `mrclam5a_shaped`) from the odometry start, both also
+from four more seeds (`spread`).
 Last, the translation-implicit runs (`implicit`, float64): the
 plaza2-shaped chain from the numpy start truncated to its rotation and
 bearing rows (seeds 4, 5, 6: `spread`) and `mrclam5a_shaped` from the
@@ -25,6 +25,7 @@ odometry start.
 
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --implicit-only
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --general-spread mrclam5a_shaped
 
 Takes about 40 minutes on an 8-core CPU; the run that wrote the committed
 file took (`cpu_wall_s` in it) 111 s, 84.5 s and 187 s for the three chain
@@ -34,7 +35,10 @@ and 12.5 min for its spread, and 44.6 s for `mrclam5a_shaped`. Times move
 by up to 20 % between runs. `--implicit-only` recomputes the `implicit`
 section alone and writes every other key back unchanged: 9.2 min, of which
 238.3 s, 125.3 s and 131.8 s for the three plaza2-shaped runs (the first
-compiles) and 46.9 s for `mrclam5a_shaped`.
+compiles) and 46.9 s for `mrclam5a_shaped`. `--general-spread NAME`
+recomputes one general run's `spread` alone (its first seed's run is the
+record's own) and writes every other key back unchanged: 76.4 s of solves
+for `mrclam5a_shaped` (38.9, 7.4, 12.9 and 17.2 s for seeds 5-8).
 """
 
 from __future__ import annotations
@@ -93,8 +97,10 @@ GENERAL = {
 }
 # both start at bench.py's rank d + 2 from the odometry start
 GENERAL_JUMP = 2
-# the general runs whose JAX result moves by more than 1 % with the seed
-GENERAL_SPREAD = ("tiers_shaped",)
+# the general runs recorded from five seeds: `tiers_shaped`, whose JAX result
+# moves by more than 1 % with the seed, and `mrclam5a_shaped`, whose level
+# count the port's gate reads (levels + 2)
+GENERAL_SPREAD = ("tiers_shaped", "mrclam5a_shaped")
 # the translation-implicit (marginalized) runs, in float64 as
 # `examples/config.json` and `SolverConfig` default to: the plaza2-shaped
 # chain from the numpy start truncated to its rotation and bearing rows
@@ -479,14 +485,39 @@ def implicit_runs(recorder):
     return out
 
 
+def general_spread(name, recorder, first):
+    """The general run `name` from each of SPREAD_SEEDS (`spread`); `first`
+    is the run's record at CONFIG's seed, which is not solved again."""
+    spread = dict(seeds=list(SPREAD_SEEDS), certified=[], f=[], ate=[],
+                  ranks=[])
+    for seed in SPREAD_SEEDS:
+        rec = first
+        if seed != CONFIG["seed"]:
+            _, res, ate, wall = solve_general(name, seed, recorder)
+            rec = dict(certified=bool(res.certified), f=float(res.result.f),
+                       ate=ate, ranks=list(res.ranks_visited))
+            print(f"  spread seed {seed}: f {rec['f']:.6f} ATE {ate:.4f} "
+                  f"ranks {rec['ranks']} (CPU wall {wall:.1f} s)", flush=True)
+        for k in ("certified", "f", "ate", "ranks"):
+            spread[k].append(rec[k])
+    return spread
+
+
 def main():
     sys.path.insert(0, REPO)
-    if "--implicit-only" in sys.argv[1:]:
-        # add (or redo) the `implicit` section alone; every other key of the
-        # committed file is read and written back unchanged
+    args = sys.argv[1:]
+    if "--implicit-only" in args or "--general-spread" in args:
+        # add (or redo) the `implicit` section, or one general run's
+        # `spread`, alone; every other key of the committed file is read
+        # and written back unchanged
         with open(OUT) as fh:
             out = json.load(fh)
-        out["implicit"] = implicit_runs(LevelRecorder())
+        if "--implicit-only" in args:
+            out["implicit"] = implicit_runs(LevelRecorder())
+        else:
+            name = args[args.index("--general-spread") + 1]
+            rec = out["general"][name]
+            rec["spread"] = general_spread(name, LevelRecorder(), rec)
         with open(OUT, "w") as fh:
             json.dump(out, fh, indent=1)
             fh.write("\n")
@@ -568,18 +599,7 @@ def main():
         print(name, json.dumps({k: v for k, v in rec.items()
                                 if k != "level0"}), flush=True)
         if name in GENERAL_SPREAD:
-            spread = dict(seeds=list(SPREAD_SEEDS), certified=[], f=[],
-                          ate=[], ranks=[])
-            for seed in SPREAD_SEEDS:
-                if seed != CONFIG["seed"]:
-                    _, res, ate, wall = solve_general(name, seed, recorder)
-                spread["certified"].append(bool(res.certified))
-                spread["f"].append(float(res.result.f))
-                spread["ate"].append(ate)
-                spread["ranks"].append(list(res.ranks_visited))
-                print(f"  spread seed {seed}: f {res.result.f:.6f} ATE "
-                      f"{ate:.4f} (CPU wall {wall:.1f} s)", flush=True)
-            rec["spread"] = spread
+            rec["spread"] = general_spread(name, recorder, rec)
         out["general"][name] = rec
 
     out["implicit"] = implicit_runs(recorder)

@@ -37,7 +37,10 @@ def test_port_imports_without_jax():
             "cora_tpu_torch.models.formulations, "
             "cora_tpu_torch.solve.checkpoint, cora_tpu_torch.io.exporters, "
             "cora_tpu_torch.io.matrix_market, cora_tpu_torch.io.viz, "
-            "cora_tpu_torch.native.pyfg_fast, cora_tpu_torch.experiments; "
+            "cora_tpu_torch.native.pyfg_fast, cora_tpu_torch.experiments, "
+            "cora_tpu_torch.parallel.sharding, "
+            "cora_tpu_torch.parallel.distributed; "
+            "from cora_tpu_torch import parse_pyfg; "
             "assert 'matplotlib' not in sys.modules; "
             "assert 'jax' not in sys.modules; "
             "assert 'cora_tpu' not in sys.modules")
