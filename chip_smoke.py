@@ -54,7 +54,16 @@ raises and the script exits non-zero:
      phase 3 against the JAX package's run (fixture `general`), with no
      CUDA kernel launched (the canonical path is plain PyTorch); each graph
      is solved once (phase 7 solves `mrclam5a_shaped` again, on a mesh, and
-     must end on this solve's bits);
+     must end on this solve's bits). The canonical TNT levels run as the
+     device loop of `solve/tnt.py`, captured as CUDA graphs: each solve
+     prints the loop's captures and their seconds, replays, host reads per
+     tCG iteration and µs per tCG iteration; `tiers_shaped`'s first level
+     runs again, cut to its ramp, under `torch.profiler` for its
+     device-busy share;
+     `mrclam5a_shaped`'s first level is captured afresh with every warm-up,
+     capture and first replay under `set_sync_debug_mode("error")`, and
+     the whole solve is repeated with `use_kernels="never"` (every step
+     function eager) and must end on the captured solve's bits;
   6. implicit — the translation-implicit (marginalized) formulation and
      the solve's host surroundings, in float64: the native PyFG tokenizer
      against the Python parser on both multi-robot graphs (identical data
@@ -69,8 +78,10 @@ raises and the script exits non-zero:
      writes the checkpoint, and nothing else is left in the directory),
      the second with `log_iterates` (the same bits; the iterate log as
      long as the iterations); then a third call resumes from the
-     checkpoint and certifies within 1 % of the uninterrupted f. No CUDA
-     kernel is launched in this phase;
+     checkpoint and certifies within 1 % of the uninterrupted f. The first
+     solve's first level runs again eagerly and again captured under the
+     sync check, both on its bits; each solve prints its device-loop
+     counts as phase 5's do. No CUDA kernel is launched in this phase;
   7. parallel — `cora_tpu_torch.parallel` on the card: `init_distributed`
      starts nothing (one process), `make_global_mesh` makes a one-process
      NCCL group on the card. On the plaza2-shaped graph and `tiers_shaped`
@@ -86,8 +97,10 @@ raises and the script exits non-zero:
      start, gated as phase 5 and on phase 5's bits (on one process the
      block-row product's sums are the unsharded product's, copied), and
      implicit float64, gated as phase 6 and within 1e-6 relative in f of
-     phase 6's unsharded solve. No CUDA kernel
-     is launched in this phase (the sharded path runs the canonical ops).
+     phase 6's unsharded solve. The mesh solves run the device loop
+     eagerly (its collectives stay outside any graph: no capture). No CUDA
+     kernel is launched in this phase (the sharded path runs the canonical
+     ops).
      The group is destroyed at the end.
 
 The kernels' launch counts are zeroed just before the timed kernel-path
@@ -104,6 +117,7 @@ C-CTA cluster barrier the probe measured in this run; the last line is
 non-zero before printing any result.
 """
 
+import copy
 import json
 import os
 import statistics
@@ -153,6 +167,7 @@ HV100K = dict(n_poses=100000, n_landmarks=10, n_ranges=50000, seed=0)
 PAR_DTYPES = {"hv100k": ("float32",)}
 PAR_TIMED = ("hv100k", "float32")
 LIMIT_S = 1200  # the time limit the whole script must finish within
+LEVEL_CALLS = []  # (args, kwargs) of each TNT level of the last solve_once
 
 
 def check(cond, msg):
@@ -210,6 +225,24 @@ def ptxas_summary(log):
     return out
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def exact_matmuls():
+    """float32 matmuls in float32 (no TF32), as the JAX package's."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
 def phase_device():
     """The card, the build of the kernels and of the barrier probe (one
     nvcc each, started together), and the probe's numbers."""
@@ -221,14 +254,8 @@ def phase_device():
         raise SystemExit("chip_smoke: no CUDA device available")
     if not os.path.isdir(os.path.join(REPO, "cora_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    smi = card_line()
+    exact_matmuls()
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import probe_cluster_sync as probe
@@ -529,20 +556,29 @@ def solve_once(problem, cfg, x0, device="cuda", **kw):
     """`solve_cora` from x0 (`kw` passed on): (result, wall s, ATE, every
     TNT level's result in order). The staircase's `tnt_solve_tiles` (chain
     kernels) and `tnt_solve` (canonical path) are wrapped for the call to
-    keep the level results."""
+    keep each level's result as the level returned it, and its arguments in
+    `LEVEL_CALLS`;
+    the device loop's counts (`tnt.LOOP_STATS`) are zeroed first, so after
+    the call they are this solve's."""
     import torch
 
-    from cora_tpu_torch.solve import staircase
+    from cora_tpu_torch.solve import staircase, tnt
     from cora_tpu_torch.utils.evaluation import evaluate_ate
 
     levels = []
+    LEVEL_CALLS.clear()
+    tnt.reset_loop_stats()
     solvers = {name: getattr(staircase, name)
                for name in ("tnt_solve_tiles", "tnt_solve")}
 
     def recording(solve):
         def run(*args, **kwargs):
-            levels.append(solve(*args, **kwargs))
-            return levels[-1]
+            LEVEL_CALLS.append((args, kwargs))
+            res = solve(*args, **kwargs)
+            # a copy: the staircase rebinds the result's `x` and `f` to the
+            # trimmed and polished state
+            levels.append(copy.copy(res))
+            return res
         return run
 
     for name, solve in solvers.items():
@@ -560,6 +596,110 @@ def solve_once(problem, cfg, x0, device="cuda", **kw):
     ate = float(evaluate_ate(problem,
                              staircase.extract_solution(problem, cfg, res)))
     return res, wall, ate, levels
+
+
+def loop_line(tag, name, res, levels):
+    """The device loop's counts over the last `solve_once`: captures and
+    their seconds, replays, eager step calls, host reads per tCG iteration,
+    and the TNT phases' wall per tCG iteration. Returns the counts."""
+    from cora_tpu_torch.solve import tnt
+
+    st = dict(tnt.LOOP_STATS)
+    tcg = int(sum(lv.inner_iterations.sum() for lv in levels))
+    tnt_s = res.phases.get("tnt_level", 0.0) + res.phases.get("tnt_refine",
+                                                              0.0)
+    print(f"[{tag}] {name}: device loop {st['captures']} captures in "
+          f"{st['capture_s']:.3f} s, {st['replays']} replays, "
+          f"{st['eager_calls']} eager step calls, {st['host_reads']} host "
+          f"reads over {tcg} tCG iterations ({st['host_reads'] / max(tcg, 1):.4f}"
+          f" per tCG iteration, {st['blocks']} blocks, {st['outer_iters']} "
+          f"outer iterations); tnt_level + tnt_refine {tnt_s:.3f} s, "
+          f"{1e6 * tnt_s / max(tcg, 1):.2f} us per tCG iteration",
+          flush=True)
+    return st
+
+
+def same_level(a, b):
+    """Two TNT level results on the same bits: state, f, norms, status and
+    every history."""
+    import numpy as np
+    import torch
+
+    return bool(torch.equal(a.x, b.x) and a.f == b.f
+                and a.gradfx_norm == b.gradfx_norm
+                and a.status == b.status
+                and a.num_iterations == b.num_iterations
+                and all(np.array_equal(getattr(a, h), getattr(b, h))
+                        for h in ("objective_values", "gradient_norms",
+                                  "preconditioned_gradient_norms",
+                                  "update_step_norms", "inner_iterations")))
+
+
+def rerun_level(call, **opts):
+    """A recorded level call again under `tnt.device_loop(**opts)`:
+    (result, wall s, loop counts)."""
+    import torch
+
+    from cora_tpu_torch.solve import tnt
+
+    args, kwargs = call
+    tnt.reset_loop_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with tnt.device_loop(**opts):
+        res = tnt.tnt_solve(*args, **kwargs)
+    torch.cuda.synchronize()
+    return res, time.time() - t0, dict(tnt.LOOP_STATS)
+
+
+def sync_checked_level(tag, name, call):
+    """The recorded level captured afresh with every warm-up, capture and
+    first replay under `set_sync_debug_mode("error")`: a host
+    synchronisation in a step function raises."""
+    from cora_tpu_torch.solve import tnt
+
+    tnt.clear_graphs()
+    res, wall, st = rerun_level(call, sync_debug=True)
+    print(f"[{tag}] {name}: first level captured and replayed under "
+          f"set_sync_debug_mode('error'): {st['captures']} captures, "
+          f"{st['replays']} replays, {res.num_iterations} iterations, "
+          f"{wall:.3f} s, no host synchronisation", flush=True)
+    check(st["captures"] == 3 and st["replays"] >= 3,
+          f"{name}: sync-checked level made {st}")
+    tnt.clear_graphs()
+    return res
+
+
+def device_busy(tag, name, call):
+    """A level call's device-busy share under `torch.profiler` (CUDA
+    activity), as `scripts/profile_torch_general.py` measures it: its
+    graphs captured by a first run outside the window, the second run
+    profiled; device kernels, their summed device time over the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rerun_level(call)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res, wall, st = rerun_level(call)
+    avg = prof.key_averages()
+    dev = ([e for e in avg if e.device_type == DeviceType.CUDA]
+           or [e for e in avg if device_us(e) > 0
+               and not e.self_cpu_time_total])
+    device_s = sum(device_us(e) for e in dev) * 1e-6
+    n = sum(e.count for e in dev)
+    print(f"[{tag}] {name}: level under torch.profiler: {wall:.3f} s "
+          f"wall, {res.num_iterations} iterations, {st['captures']} captures,"
+          f" {n} device kernels, {device_s:.3f} s device time, busy share "
+          f"{device_s / wall:.4f}", flush=True)
+    check(n > 0, f"{name}: the profiler saw no device kernel")
+    return device_s / wall
+
+
+def device_us(e) -> float:
+    """An averaged event's own device time in µs (the attribute's name
+    changed across torch versions)."""
+    v = getattr(e, "self_device_time_total", None)
+    return float(v if v is not None else e.self_cuda_time_total)
 
 
 def check_first_level(name, level, ref, tol_f=TOL_LEVEL_F,
@@ -845,9 +985,11 @@ def phase_general(reference, device="cuda"):
     """`parse_pyfg` → `solve_cora` on the multi-robot graphs from the
     odometry start, with the launch counts zeroed before the first solve
     and read after the last. Returns {name: (problem, result)}."""
+    import dataclasses
     import tempfile
 
     import numpy as np
+    import torch
 
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     from torch_port_reference import multi_robot_pyfg
@@ -868,6 +1010,10 @@ def phase_general(reference, device="cuda"):
         tnt_kernels.reset_launch_counts()
         res, wall, ate, levels = solve_once(problem, cfg, None, device)
         launches = dict(tnt_kernels.LAUNCHES)
+        first_call = LEVEL_CALLS[0]
+        st = loop_line("general", name, res, levels)
+        check(st["captures"] >= 3 and not st["eager_calls"],
+              f"{name}: the device loop did not run captured: {st}")
         fac = problem.preconditioner_fn(cfg.preconditioner, cfg.dtype,
                                         cfg.reg_chol_max_cond, device).fac
         print(f"[general] {name}: N {problem.data_matrix_size}, permuted "
@@ -894,6 +1040,31 @@ def phase_general(reference, device="cuda"):
             {k: ref[k] for k in ("certified", "sdp_cost", "f", "ate", "ranks",
                                  "cpu_wall_s", "spread") if k in ref}),
               flush=True)
+        if name == "tiers_shaped":
+            # the first level cut to its ramp (iterations below
+            # `ramp_iterations`): the whole level's 3.4 million kernels
+            # took the profiler 275 s to parse on the H100 host
+            (pd, X, precon, params), kwargs = first_call
+            device_busy("general", name + " first level's ramp", (
+                (pd, X, precon, dataclasses.replace(params,
+                                                    max_iterations=0)),
+                kwargs))
+        if name == "mrclam5a_shaped":
+            sync_checked_level("general", name, first_call)
+            # the same solve with every step function run eagerly
+            cfg.use_kernels = "never"
+            eager, wall_e, _, levels_e = solve_once(problem, cfg, None,
+                                                    device)
+            st = loop_line("general", name + " eager", eager, levels_e)
+            same = bool(torch.equal(eager.result.x, res.result.x)
+                        and eager.result.f == res.result.f
+                        and eager.ranks_visited == res.ranks_visited)
+            print(f"[general] {name}: eager solve (use_kernels='never') "
+                  f"{wall_e:.3f} s wall against captured {wall:.3f} s; on "
+                  f"the captured solve's bits: {same}", flush=True)
+            check(not st["captures"] and st["eager_calls"],
+                  f"{name}: the eager solve captured: {st}")
+            check(same, f"{name}: the captured and eager solves differ")
     return solved
 
 
@@ -1031,6 +1202,7 @@ def phase_implicit(reference, device="cuda"):
                            formulation=Formulation.IMPLICIT)
         x0 = numpy_start(reference, problem, problem.dim + jump)[:h]
         res, wall, ate, levels = solve_once(problem, cfg, x0, device)
+        loop_line("implicit", name, res, levels)
         soln = extract_solution(problem, cfg, res)
         check_first_level(name, levels[0], ref, 1e-6, 1e-6)
         gate(name, problem, res, ate, ref, Y=soln)
@@ -1048,14 +1220,29 @@ def phase_implicit(reference, device="cuda"):
                            initialization=Initialization.ODOMETRY)
         path = os.path.join(tmp, "ckpt", name + ".npz")
         os.makedirs(os.path.dirname(path))
-        first = solve_once(problem, cfg, None, device,
-                           checkpoint_path=path)[0]
+        first, _, _, first_levels = solve_once(problem, cfg, None, device,
+                                               checkpoint_path=path)
+        loop_line("implicit", name + " (checkpointed)", first, first_levels)
+        first_call = LEVEL_CALLS[0]
+        # its first level again, eagerly, then captured afresh under the
+        # sync check: both on the captured level's bits
+        eager, wall_e, st = rerun_level(first_call, graphs=False)
+        same = same_level(eager, first_levels[0])
+        print(f"[implicit] {name}: first level eager {wall_e:.3f} s "
+              f"({st['eager_calls']} eager step calls); on the captured "
+              f"level's bits: {same}", flush=True)
+        check(not st["captures"] and same,
+              f"{name}: the eager first level differs from the captured one")
+        check(same_level(sync_checked_level("implicit", name, first_call),
+                         first_levels[0]),
+              f"{name}: the sync-checked first level differs")
         left = os.listdir(os.path.dirname(path))
         check(left == [os.path.basename(path)],
               f"{name}: checkpoint directory holds {left}")
         ckpt = StaircaseCheckpoint.load(path)
         cfg.log_iterates = True
         res, wall, ate, levels = solve_once(problem, cfg, None, device)
+        loop_line("implicit", name + " (log_iterates)", res, levels)
         same = bool(torch.equal(first.result.x, res.result.x))
         its = res.result.iterates
         n_its = sum(lv.num_iterations for lv in levels)
@@ -1073,8 +1260,9 @@ def phase_implicit(reference, device="cuda"):
 
         # 5. resume from the first solve's checkpoint
         cfg.log_iterates = False
-        resumed, wall_r, _, _ = solve_once(problem, cfg, None, device,
-                                           checkpoint_path=path)
+        resumed, wall_r, _, resumed_levels = solve_once(
+            problem, cfg, None, device, checkpoint_path=path)
+        loop_line("implicit", name + " (resumed)", resumed, resumed_levels)
         k = len(ckpt.ranks_visited)
         print(f"[implicit] {name}: checkpoint at rank {ckpt.rank} after "
               f"{ckpt.ranks_visited} (Y {ckpt.Y.shape}); resumed: ranks "
@@ -1122,6 +1310,14 @@ def report(name, res, wall, ate, ref, levels):
           f"{len(levels)} TNT levels; tnt_level + tnt_refine {tnt_s:.3f} s, "
           f"{1e6 * tnt_s / max(tcg_iters, 1):.2f} us per tCG iteration",
           flush=True)
+
+
+def mesh_loop(name, res, levels):
+    """A sharded solve runs the device loop eagerly (its collectives stay
+    outside any graph): no capture."""
+    st = loop_line("parallel", name + " (mesh)", res, levels)
+    check(not st["captures"] and st["eager_calls"],
+          f"{name}: the mesh solve's device loop captured: {st}")
 
 
 def phase_parallel(problems, solved, implicit_f, reference, device="cuda"):
@@ -1212,6 +1408,7 @@ def phase_parallel(problems, solved, implicit_f, reference, device="cuda"):
                        initialization=Initialization.ODOMETRY)
     res, wall, ate, levels = solve_once(problem, cfg, None, device,
                                         mesh=mesh)
+    mesh_loop(name + " explicit", res, levels)
     same = bool(torch.equal(res.result.x, unsharded.result.x))
     check_first_level(name + " (mesh)", levels[0], ref)
     gate(name + " (mesh)", problem, res, ate, ref,
@@ -1232,6 +1429,7 @@ def phase_parallel(problems, solved, implicit_f, reference, device="cuda"):
                        initialization=Initialization.ODOMETRY)
     res, wall, ate, levels = solve_once(problem, cfg, None, device,
                                         mesh=mesh)
+    mesh_loop(name + " implicit", res, levels)
     soln = extract_solution(problem, cfg, res)
     check_first_level(name + " implicit (mesh)", levels[0], ref, 1e-6, 1e-6)
     gate(name + " implicit (mesh)", problem, res, ate, ref, Y=soln)

@@ -24,6 +24,13 @@ import numpy as np
 
 from cora_tpu_torch.graph.problem import Problem
 from cora_tpu_torch.measurements import RelativePoseMeasurement
+from cora_tpu_torch.symbol import Symbol
+
+
+def get_robot_pose_chains(problem: Problem) -> list[list[Symbol]]:
+    """Per-robot pose chains, sorted by index
+    (reference `getRobotPoseChains`, `paper_experiments.cpp:89-112`)."""
+    return [problem.pose_symbols(c) for c in problem.robot_chars()]
 
 
 def get_odom_chains(problem: Problem) -> list[list[RelativePoseMeasurement]]:

@@ -22,3 +22,13 @@ def bmm_T(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Batched (..., k, a)ᵀ @ (..., k, c) = Aᵀ B."""
     return A.transpose(-1, -2) @ B
 
+
+
+def contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full inner product ⟨a, b⟩ as an elementwise multiply and a sum."""
+    return (a * b).sum()
+
+
+def rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise inner products over the last axis."""
+    return (a * b).sum(-1)

@@ -144,6 +144,16 @@ def stiefel_hess_correction(Y: torch.Tensor, nablaF: torch.Tensor,
     return _sym(Y @ nablaF.transpose(-1, -2)) @ dotY
 
 
+def stiefel_random(generator: torch.Generator, n: int, d: int, r: int,
+                   dtype=torch.float64, device=None) -> torch.Tensor:
+    """n Gaussian (d, r) blocks projected onto St(d, r)
+    (`StiefelProduct.cpp:57-69`), drawn from `generator` on its device
+    (the JAX package draws from a jax.random key)."""
+    A = torch.randn((n, d, r), generator=generator, dtype=dtype,
+                    device=generator.device)
+    return stiefel_project(A).to(device or generator.device)
+
+
 # ---------------------------------------------------------------------------
 # Oblique manifold: rows (m, r), each unit-norm
 # ---------------------------------------------------------------------------
@@ -157,6 +167,15 @@ def oblique_project(A: torch.Tensor) -> torch.Tensor:
 def oblique_tangent_project(Y: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """V ↦ V − ⟨y_i, v_i⟩ y_i per row (reference `ObliqueManifold.cpp:16-27`)."""
     return V - (Y * V).sum(-1, keepdim=True) * Y
+
+
+def oblique_random(generator: torch.Generator, m: int, r: int,
+                   dtype=torch.float64, device=None) -> torch.Tensor:
+    """m Gaussian rows normalised onto the unit sphere, drawn from
+    `generator` on its device."""
+    A = torch.randn((m, r), generator=generator, dtype=dtype,
+                    device=generator.device)
+    return oblique_project(A).to(device or generator.device)
 
 
 # ---------------------------------------------------------------------------

@@ -82,6 +82,16 @@ def data_matrix_product(pd: ProblemData, Y: torch.Tensor) -> torch.Tensor:
                       out_tr)
 
 
+def evaluate_objective(pd: ProblemData, Y: torch.Tensor) -> torch.Tensor:
+    """f(Y) = ½ tr(Yᵀ Q Y) (reference `CORA_problem.cpp:759-762`)."""
+    return 0.5 * (Y * data_matrix_product(pd, Y)).sum()
+
+
+def euclidean_gradient(pd: ProblemData, Y: torch.Tensor) -> torch.Tensor:
+    """∇F(Y) = QY (reference `CORA_problem.cpp:764-770`)."""
+    return data_matrix_product(pd, Y)
+
+
 def jacobi_diagonal(pd: ProblemData) -> torch.Tensor:
     """diag(Q) as an (N,) vector from the factored form (reference
     `CORA_problem.cpp:616-618`): κ per incident rotation edge and τ t_e²

@@ -69,6 +69,17 @@ def apply_lambda(pd, Lam_rot, lam_sph, V: torch.Tensor) -> torch.Tensor:
                       torch.zeros_like(Vtr))
 
 
+def make_certificate_operator(pd, Y: torch.Tensor):
+    """(S, (Λ_rot, λ_sph)) with S(V) = QV − ΛV, Λ at Y."""
+    Lam_rot, lam_sph = compute_lambda_blocks(pd, Y)
+
+    def S(V):
+        return data_matrix_product(pd, V) - apply_lambda(pd, Lam_rot,
+                                                         lam_sph, V)
+
+    return S, (Lam_rot, lam_sph)
+
+
 def materialize_certificate(problem, pd, Y) -> np.ndarray:
     """Dense S = Q − Λ on the host (small problems). Λ is formed in the
     dtype that the state and the problem data promote to, as the JAX

@@ -60,6 +60,23 @@ def _dot(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return (A * B).sum()
 
 
+def hessian_vector_product(pd, Q, Y, nablaF, dotY) -> np.ndarray:
+    """Riemannian Hv (reference `CORA_problem.cpp:822-867`) in float64 on
+    the host, with Q the host sparse data matrix: the JAX package's host
+    form (`cora_tpu/solve/polish.py:87-106`) on the canonical blockwise
+    ops. Arrays or tensors in, a float64 array out."""
+    def host(x):
+        return torch.as_tensor(np.asarray(
+            x.detach().cpu() if isinstance(x, torch.Tensor) else x,
+            np.float64))
+
+    def q_op(V):
+        return torch.as_tensor(Q @ V.numpy())
+
+    return rm.riemannian_hvp(pd, host(Y), host(nablaF), host(dotY),
+                             op=q_op).numpy()
+
+
 def newton_step(pd, precon, Y, tau: float, max_cg: int):
     """f and grad at Y, plus the damped-Newton direction s from a
     preconditioned CG solve of (Hess + τI)s = −grad (negative-curvature

@@ -32,10 +32,12 @@ chain plan covers, runs on the chain kernels (`CudaTNT` on the card, their
 plain versions on the CPU); any other solve — the implicit formulation,
 `log_iterates`, multi-robot graphs with inter-robot ranges, loop closures,
 other preconditioners, float64 — runs the canonical path (`tnt_solve`,
-`saddle_escape`) on the canonical ops, announced under `verbose`. On a
-CUDA device a kernel that fails to build or launch raises: nothing falls
-back to the canonical path. Both paths certify with `method="auto"`. A
-sharded solve (`mesh=`, `cora_tpu_torch.parallel`) runs the canonical path
+`saddle_escape`) on the canonical ops, announced under `verbose`; its TNT
+levels run as the device loop of `solve/tnt.py`, captured as CUDA graphs
+on the card (eager with `use_kernels="never"` and on a mesh). On a CUDA
+device a kernel that fails to build or launch, or a loop that fails to
+capture, raises: nothing falls back to another path. Both paths certify
+with `method="auto"`. A sharded solve (`mesh=`, `cora_tpu_torch.parallel`) runs the canonical path
 on the sharded Q·Y, as the JAX package's `mesh=` does.
 """
 
@@ -65,7 +67,7 @@ from cora_tpu_torch.solve.rounding import (
     project_solution,
 )
 from cora_tpu_torch.solve.saddle import saddle_escape
-from cora_tpu_torch.solve.tnt import tnt_solve
+from cora_tpu_torch.solve.tnt import device_loop, tnt_solve
 from cora_tpu_torch.solve.tnt_kernel import (
     get_kernel_backend,
     saddle_escape_tiles,
@@ -237,10 +239,16 @@ def solve_cora(
         def project(X):
             return project_to_manifold(pd, X)
 
+        # the device loop runs captured on the card, eagerly for
+        # `use_kernels="never"` (the plain versions) and on a mesh, whose
+        # collectives stay outside the graphs
+        graphs = mesh is None and config.use_kernels != "never"
+
         def run_tnt(X, **kw):
-            return tnt_solve(pd, X, precon, config.tnt, op=solver_op,
-                             log_iterates=config.log_iterates, clock=clock,
-                             **kw)
+            with device_loop(graphs=graphs):
+                return tnt_solve(pd, X, precon, config.tnt, op=solver_op,
+                                 log_iterates=config.log_iterates,
+                                 clock=clock, **kw)
 
         def escape(Y, theta, v):
             return saddle_escape(

@@ -1,4 +1,5 @@
-"""Truncated-Newton trust-region (TNT) solver on the canonical ops.
+"""Truncated-Newton trust-region (TNT) solver on the canonical ops, as a
+device-resident loop.
 
 The general-graph counterpart of the chain kernels: the JAX package's
 `cora_tpu/solve/tnt.py` (which re-implements the vendored
@@ -6,11 +7,31 @@ The general-graph counterpart of the chain kernels: the JAX package's
 `src/CORA.cpp:52-141`) with the same semantics — Steihaug–Toint
 preconditioned tCG in the M-norm (M = P⁻¹), trust-region update, streak
 stopping tests, the staircase's ramp budget, ramp exit and stall window,
-a chunked wall-clock cap and per-iteration histories — as a Python loop
-over tensor ops on the state's device. Each tCG iteration reads two flags
-back to the host; each outer iteration reads two small groups of flags.
-Every comparison runs on the device in the state's dtype, so the float32
-path decides as the JAX package's float32 program does.
+a chunked wall-clock cap and per-iteration histories.
+
+As in the JAX package, the whole loop state lives on the device: the
+iterate, the trust radius, the streaks, the status, the ramp flag, the
+histories, the iterate log and the tCG state are tensors in buffers
+allocated once per level (`_Level`), and three step functions advance
+them without reading anything back:
+
+  * `setup`  — the tCG start at s = 0 (z = P r, ⟨r, z⟩, the stopping
+    threshold) and this iteration's tCG cap (ramp or full budget);
+  * `block`  — `block` masked tCG iterations: once the tCG is done (or at
+    its cap) every update keeps the old value, so extra iterations change
+    nothing, as the JAX body's `lax.while_loop` never runs them;
+  * `step`   — retract, f and gradient, ρ, accept, Δ, streaks, status, the
+    ramp boundary (promote or ramp exit) and the history row at the
+    device's k.
+
+The host reads one flag per block (`done`) and (k, status) once per outer
+iteration. On a CUDA device each step function is captured once as a CUDA
+graph (`torch.cuda.CUDAGraph`, after a warm-up on a side stream) and
+replayed; on the CPU, and on the card inside `device_loop(graphs=False)`,
+the same functions run eagerly. Every comparison runs on the device in
+the state's dtype, so the float32 path decides as the JAX package's
+float32 program does, and the selected values are the same floats whether
+the loop runs eagerly, captured, or at any block size.
 
 Parameter semantics follow the reference's hardcoded CORA settings
 (`src/CORA.cpp:95-109`). The chain graphs' solves run on the kernels
@@ -20,6 +41,8 @@ below.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import time
 from typing import Callable
@@ -34,6 +57,7 @@ from cora_tpu_torch.ops.riemannian import (
     tangent_space_projection,
 )
 from cora_tpu_torch.types import TNTParams, TNTResult
+from cora_tpu_torch.utils.timing import named_scope
 
 # termination reason codes
 RUNNING = 0
@@ -62,6 +86,53 @@ STATUS_NAMES = {
 # `max_computation_time`, `src/CORA.cpp:106`)
 CHUNK_ITERS = 128
 STREAK = 3  # consecutive accepted steps for the decrease / step tests
+# tCG iterations per captured block on the card, from the measured tCG
+# lengths and costs (PERF.md §6); an eager loop reads `done` after every
+# iteration, since a masked iteration costs it a full dispatch
+TCG_BLOCK = 4
+
+# what the loop did, summed over levels until `reset_loop_stats()`:
+# captures and their seconds, graph replays, eager step calls, host reads
+# inside the loop (one per block, one per outer iteration), blocks, outer
+# and tCG iterations
+LOOP_STATS = dict(captures=0, capture_s=0.0, replays=0, eager_calls=0,
+                  host_reads=0, blocks=0, outer_iters=0, tcg_iters=0)
+
+
+def reset_loop_stats():
+    for k in LOOP_STATS:
+        LOOP_STATS[k] = 0.0 if k == "capture_s" else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _LoopOptions:
+    graphs: bool = True  # capture on a CUDA device
+    block: int | None = None  # tCG iterations per block (None: default)
+    sync_debug: bool = False  # captures under set_sync_debug_mode("error")
+
+
+_OPTIONS = contextvars.ContextVar("cora_tnt_loop", default=_LoopOptions())
+
+
+@contextlib.contextmanager
+def device_loop(graphs: bool | None = None, block: int | None = None,
+                sync_debug: bool | None = None):
+    """Options of the device loop for the `tnt_solve` calls inside:
+    `graphs=False` runs the step functions eagerly on the card too (the
+    staircase's `use_kernels="never"` and sharded solves); `block` sets the
+    tCG iterations per block; `sync_debug=True` runs each warm-up, capture
+    and first replay under `torch.cuda.set_sync_debug_mode("error")`, so
+    any host synchronisation in a step function raises."""
+    cur = _OPTIONS.get()
+    token = _OPTIONS.set(dataclasses.replace(
+        cur,
+        graphs=cur.graphs if graphs is None else bool(graphs),
+        block=cur.block if block is None else int(block),
+        sync_debug=cur.sync_debug if sync_debug is None else bool(sync_debug)))
+    try:
+        yield
+    finally:
+        _OPTIONS.reset(token)
 
 
 def _inner(a, b):
@@ -77,79 +148,81 @@ def _pgrad_norm(grad, pgrad, gradnorm):
                        gradnorm)
 
 
-def _flags(*conds) -> list:
-    """Device booleans → host bools, in one read."""
-    return [bool(x) for x in torch.stack(conds).tolist()]
+def tcg_start(grad, z, cap, kappa: float, theta: float) -> dict:
+    """The tCG state at s = 0 from r = grad and z = P·grad: s, r, d, ⟨r, z⟩,
+    the M-norm bookkeeping (φ = ⟨s,Ms⟩, σ = ⟨s,Md⟩, ⟨d,Md⟩), the model
+    decrease, the iteration count, `done`, `hit`, the stopping threshold
+    on ⟨r, z⟩ (the superlinear rule) and the iteration `cap` (an int64
+    scalar). A non-positive ⟨r, z⟩ (zero preconditioned gradient) or cap
+    starts done."""
+    tiny = torch.finfo(grad.dtype).tiny
+    rz = _inner(grad, z)
+    zero = torch.zeros_like(rz)
+    return dict(
+        s=torch.zeros_like(grad), r=grad, d=-z, rz=rz,
+        phi=zero, sigma=zero, dmd=rz, mdec=zero,
+        k=torch.zeros_like(cap), done=(rz <= 0) | (cap <= 0),
+        hit=torch.zeros_like(rz, dtype=torch.bool),
+        rz_stop=rz * torch.clamp(torch.pow(torch.sqrt(rz) + tiny, theta),
+                                 max=kappa) ** 2,
+        cap=cap)
+
+
+def tcg_iteration(t: dict, hess: Callable, precon: Callable, delta) -> dict:
+    """One masked Steihaug–Toint iteration (the JAX `body`,
+    `cora_tpu/solve/tnt.py:131-185`): both the boundary and the interior
+    step are computed and one is selected, and once `t["done"]` every
+    value keeps its old one."""
+    tiny = torch.finfo(t["s"].dtype).tiny
+    s, r, d, rz = t["s"], t["r"], t["d"], t["rz"]
+    phi, sigma, dmd, mdec = t["phi"], t["sigma"], t["dmd"], t["mdec"]
+    Hd = hess(d)
+    dHd = _inner(d, Hd)
+    alpha = rz / torch.where(dHd == 0, tiny, dHd)
+    phi_next = phi + 2.0 * alpha * sigma + alpha * alpha * dmd
+    stop_here = (phi_next >= delta * delta) | (dHd <= 0)
+    # the boundary step: ‖s + τ d‖_M = Δ, τ ≥ 0
+    disc = torch.clamp(sigma * sigma + dmd * (delta * delta - phi), min=0.0)
+    tau = (-sigma + torch.sqrt(disc)) / torch.where(dmd == 0, tiny, dmd)
+    r_new = r + alpha * Hd
+    z = precon(r_new)
+    rz_new = _inner(r_new, z)
+    beta = rz_new / torch.where(rz == 0, tiny, rz)
+    k = t["k"] + 1
+    new = dict(
+        s=torch.where(stop_here, s + tau * d, s + alpha * d),
+        r=r_new, d=-z + beta * d, rz=rz_new,
+        phi=torch.where(stop_here, phi, phi_next),
+        sigma=beta * (sigma + alpha * dmd),
+        dmd=rz_new + beta * beta * dmd,
+        mdec=torch.where(stop_here, mdec + tau * rz - 0.5 * tau * tau * dHd,
+                         mdec + 0.5 * alpha * rz),
+        k=k,
+        done=stop_here | (rz_new <= t["rz_stop"]) | (k >= t["cap"]),
+        hit=t["hit"] | stop_here)
+    keep = t["done"]
+    out = {key: torch.where(keep, t[key], v) for key, v in new.items()}
+    out["rz_stop"], out["cap"] = t["rz_stop"], t["cap"]
+    return out
 
 
 def steihaug_toint_tcg(grad, hess: Callable, precon: Callable, delta,
-                       max_iters: int, kappa: float, theta: float):
+                       max_iters: int, kappa: float, theta: float,
+                       block: int = 1):
     """Preconditioned truncated CG for the trust-region subproblem
 
-        min_s ⟨grad, s⟩ + ½⟨s, H s⟩   s.t.  ‖s‖_M ≤ Δ,   M = P⁻¹.
+        min_s ⟨grad, s⟩ + ½⟨s, H s⟩   s.t.  ‖s‖_M ≤ Δ,   M = P⁻¹,
 
+    in masked blocks of `block` iterations, reading `done` after each.
     Returns (s, model decrease, boundary hit, iterations)."""
-    tiny = torch.finfo(grad.dtype).tiny
-    s = torch.zeros_like(grad)
-    r = grad
-    z = precon(r)
-    d = -z
-    rz = _inner(r, z)
-    # stop on the preconditioned residual with the superlinear rule
-    rz_stop = rz * torch.clamp(torch.pow(torch.sqrt(rz) + tiny, theta),
-                               max=kappa) ** 2
-    zero = torch.zeros((), dtype=grad.dtype, device=grad.device)
-    phi = sigma = mdec = zero  # ⟨s,Ms⟩, ⟨s,Md⟩, model decrease
-    dmd = rz  # ⟨d,Md⟩
-    k, hit = 0, False
-    done = bool(rz <= 0)  # degenerate: zero (preconditioned) gradient
-    while k < max_iters and not done:
-        Hd = hess(d)
-        dHd = _inner(d, Hd)
-        alpha = rz / torch.where(dHd == 0, tiny, dHd)
-        phi_next = phi + 2.0 * alpha * sigma + alpha * alpha * dmd
-        stop_here = (phi_next >= delta * delta) | (dHd <= 0)
-        # the boundary step: ‖s + τ d‖_M = Δ, τ ≥ 0
-        disc = torch.clamp(sigma * sigma + dmd * (delta * delta - phi),
-                           min=0.0)
-        tau = (-sigma + torch.sqrt(disc)) / torch.where(dmd == 0, tiny, dmd)
-        s = torch.where(stop_here, s + tau * d, s + alpha * d)
-        mdec = torch.where(stop_here, mdec + tau * rz - 0.5 * tau * tau * dHd,
-                           mdec + 0.5 * alpha * rz)
-        r = r + alpha * Hd
-        z = precon(r)
-        rz_new = _inner(r, z)
-        beta = rz_new / torch.where(rz == 0, tiny, rz)
-        d = -z + beta * d
-        sigma = beta * (sigma + alpha * dmd)
-        dmd = rz_new + beta * beta * dmd
-        phi = torch.where(stop_here, phi, phi_next)
-        stop, converged = _flags(stop_here, rz_new <= rz_stop)
-        rz = rz_new
-        k += 1
-        done = stop or converged
-        hit = hit or stop
-    return s, mdec, hit, k
-
-
-@dataclasses.dataclass
-class _Carry:
-    """The TNT loop state between chunks."""
-
-    Y: torch.Tensor
-    f: torch.Tensor
-    grad: torch.Tensor
-    nablaF: torch.Tensor
-    gradnorm: torch.Tensor
-    pgradnorm: torch.Tensor
-    Delta: torch.Tensor
-    hist: torch.Tensor  # (5, H): f, ‖grad‖, √⟨g,Pg⟩, ‖s‖, tCG iterations
-    iterates: list | None = None  # Y after each iteration (`log_iterates`)
-    k: int = 0
-    status: int = RUNNING
-    finish: bool = False
-    dec_streak: int = 0
-    step_streak: int = 0
+    cap = torch.full((), int(max_iters), dtype=torch.int64,
+                     device=grad.device)
+    t = tcg_start(grad, precon(grad), cap, kappa, theta)
+    while True:
+        for _ in range(block):
+            t = tcg_iteration(t, hess, precon, delta)
+        if bool(t["done"]):
+            return t["s"], t["mdec"], bool(t["hit"]), int(t["k"])
 
 
 def _f_and_grad(pd, Y, op=None):
@@ -158,121 +231,308 @@ def _f_and_grad(pd, Y, op=None):
         tangent_space_projection(pd, Y, nablaF), nablaF
 
 
-def _tnt_init(pd, Y0, precon, params: TNTParams, history_len: int,
-              op=None, log_iterates: bool = False) -> _Carry:
-    """The TNT carry at Y0: objective, gradient, norms, empty histories."""
-    f0, grad0, nablaF0 = _f_and_grad(pd, Y0, op)
-    gn0 = torch.sqrt(_inner(grad0, grad0))
-    pgn0 = _pgrad_norm(grad0, tangent_space_projection(pd, Y0, precon(grad0)),
-                       gn0)
-    c = _Carry(Y=Y0, f=f0, grad=grad0, nablaF=nablaF0, gradnorm=gn0,
-               pgradnorm=pgn0,
-               Delta=torch.tensor(params.delta0, dtype=Y0.dtype,
-                                  device=Y0.device),
-               hist=Y0.new_zeros((5, history_len)),
-               iterates=[] if log_iterates else None)
-    g_ok, pg_ok = _flags(gn0 <= params.gradient_tolerance,
-                         pgn0 <= params.preconditioned_gradient_tolerance)
-    c.status = GRAD_TOL if g_ok else PRECON_GRAD_TOL if pg_ok else RUNNING
-    return c
+@contextlib.contextmanager
+def _sync_errors(on: bool):
+    """Every host synchronisation raises inside, when `on`."""
+    if not on:
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
-def _tnt_chunk(pd, c: _Carry, precon, params: TNTParams, op=None,
-               iter_cap: int = 0, tcg_cap: int = 0, chunk_end: int = 0,
-               ramp_until: int = 0, ramp_tcg: int = 0,
-               lift_grad_norm: float = float("inf"), stall_window: int = 0,
-               stall_tol: float = 0.0) -> _Carry:
-    """Advance the TNT loop to `chunk_end` outer iterations (or a stop).
+class _Level:
+    """The device loop of one TNT level: the carry in fixed-address
+    buffers and the three step functions over them, eager or captured.
 
-    The staircase's ramp→finish transition runs inside the loop:
-    iterations below `ramp_until` get the cheap `ramp_tcg` inner budget;
-    at the ramp's end (its budget, or an objective plateau over
-    `stall_window` iterations) a level with |grad| > `lift_grad_norm`
-    exits with status `ramp_exit`, any other continues at the full tCG
-    budget with the trust region restarted at Δ₀. A stall status during
-    the ramp also promotes to the finish. `op` is the quadratic-form
-    operator (explicit Q when None); with `c.iterates` a list, each
-    iteration appends its (accepted or kept) Y."""
-    Y = c.Y
-    dt, dev = Y.dtype, Y.device
-    tiny = torch.finfo(dt).tiny
+    Buffers: the iterate state (`Y`, `f`, `grad`, `nablaF`, norms, `Delta`,
+    streaks, `finish`), `ks` = [k, status] (read together), the (5, H)
+    histories (f, ‖grad‖, √⟨g,Pg⟩, ‖s‖, tCG iterations), the (H, N, r)
+    iterate log when asked for, the level's scalars (Δ₀, the lift
+    threshold, the stall threshold and window, the ramp length and the
+    tCG caps), and the tCG state. Each step function ends by copying its
+    results into the buffers, so a captured graph reads and writes only
+    them, and nothing outside a graph holds one of its pool's tensors."""
 
-    def T(x):
-        return torch.tensor(x, dtype=dt, device=dev)
+    def __init__(self, pd, Y0, precon, params: TNTParams, op, history_len,
+                 log_iterates, block, graphs, sync_debug=False):
+        self.pd, self.precon, self.op, self.params = pd, precon, op, params
+        self.block, self.graphs, self.sync_debug = block, graphs, sync_debug
+        N, r = Y0.shape
+        dt, dev = Y0.dtype, Y0.device
 
-    ramp_until = max(int(ramp_until), 0)
-    iter_cap = min(int(iter_cap), params.max_iterations + ramp_until)
-    tcg_cap = min(int(tcg_cap), params.max_tcg_iterations)
-    stop_at = min(int(chunk_end), iter_cap)
-    ramp_tcg = min(int(ramp_tcg) if ramp_tcg > 0 else tcg_cap, tcg_cap)
-    lift = T(lift_grad_norm)
-    sw = int(stall_window)
-    stall_rel = T(float(sw)) * T(stall_tol)
+        def scalar(dtype=dt):
+            return torch.zeros((), dtype=dtype, device=dev)
 
-    def prec(Yb, v):
-        return tangent_space_projection(pd, Yb, precon(v))
+        def state():
+            return torch.zeros((N, r), dtype=dt, device=dev)
 
-    while c.k < stop_at and c.status == RUNNING:
-        k, Y = c.k, c.Y
-        in_ramp = (not c.finish) and k < ramp_until
-        s, mdec, hit, inner_k = steihaug_toint_tcg(
-            c.grad, lambda v: riemannian_hvp(pd, Y, c.nablaF, v, op=op),
-            lambda v: prec(Y, v), c.Delta, ramp_tcg if in_ramp else tcg_cap,
-            params.kappa_fgr, params.theta)
+        i64 = torch.int64
+        self.c = dict(Y=state(), f=scalar(), grad=state(), nablaF=state(),
+                      gradnorm=scalar(), pgradnorm=scalar(), Delta=scalar(),
+                      dec_streak=scalar(i64), step_streak=scalar(i64),
+                      finish=scalar(torch.bool))
+        self.ks = torch.zeros(2, dtype=i64, device=dev)
+        self.hist = torch.zeros((5, history_len), dtype=dt, device=dev)
+        self.iterates = (torch.zeros((history_len, N, r), dtype=dt,
+                                     device=dev) if log_iterates else None)
+        self.lv = dict(delta0=scalar(), lift=scalar(), stall_rel=scalar(),
+                       sw=scalar(i64), ramp_until=scalar(i64),
+                       tcg_cap=scalar(i64), ramp_tcg=scalar(i64))
+        self.t = dict(s=state(), r=state(), d=state(), rz=scalar(),
+                      phi=scalar(), sigma=scalar(), dmd=scalar(),
+                      mdec=scalar(), k=scalar(i64), done=scalar(torch.bool),
+                      hit=scalar(torch.bool), rz_stop=scalar(),
+                      cap=scalar(i64))
+        self.fns = dict(setup=self._setup, block=self._block,
+                        step=self._step)
+        self.cuda_graphs = {}
+        if graphs:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device=dev)
+
+    # --- the operators at the carry's point --------------------------------
+
+    def _prec(self, Y, v):
+        return tangent_space_projection(self.pd, Y, self.precon(v))
+
+    def _prec_at_Y(self, v):
+        return self._prec(self.c["Y"], v)
+
+    def _hess(self, v):
+        c = self.c
+        return riemannian_hvp(self.pd, c["Y"], c["nablaF"], v, op=self.op)
+
+    # --- level start (eager, once per call) ---------------------------------
+
+    def start(self, Y0, ramp_until, tcg_cap, ramp_tcg, lift_grad_norm,
+              stall_window, stall_tol):
+        """Load Y0 and the level's scalars; f, gradient, norms and the
+        starting status at Y0, empty histories."""
+        p, c, lv = self.params, self.c, self.lv
+        dt = Y0.dtype
+        c["Y"].copy_(Y0)
+        f0, grad0, nablaF0 = _f_and_grad(self.pd, c["Y"], self.op)
+        gn0 = torch.sqrt(_inner(grad0, grad0))
+        pgn0 = _pgrad_norm(grad0, self._prec(c["Y"], grad0), gn0)
+        for key, v in (("f", f0), ("grad", grad0), ("nablaF", nablaF0),
+                       ("gradnorm", gn0), ("pgradnorm", pgn0)):
+            c[key].copy_(v)
+        c["Delta"].fill_(p.delta0)
+        c["dec_streak"].zero_()
+        c["step_streak"].zero_()
+        c["finish"].zero_()
+        self.hist.zero_()
+        if self.iterates is not None:
+            self.iterates.zero_()
+        lv["delta0"].fill_(p.delta0)
+        lv["lift"].fill_(lift_grad_norm)
+        sw = int(stall_window)
+        lv["stall_rel"].copy_(torch.tensor(float(sw), dtype=dt)
+                              * torch.tensor(stall_tol, dtype=dt))
+        lv["sw"].fill_(sw)
+        lv["ramp_until"].fill_(ramp_until)
+        lv["tcg_cap"].fill_(tcg_cap)
+        lv["ramp_tcg"].fill_(ramp_tcg)
+        self.ks[0] = 0
+        self.ks[1:].copy_(torch.where(
+            gn0 <= p.gradient_tolerance, GRAD_TOL,
+            torch.where(pgn0 <= p.preconditioned_gradient_tolerance,
+                        PRECON_GRAD_TOL, RUNNING)).view(1).to(self.ks))
+
+    # --- the step functions -------------------------------------------------
+
+    def _in_ramp(self):
+        return ~self.c["finish"] & (self.ks[0] < self.lv["ramp_until"])
+
+    def _setup(self, commit=True):
+        c, lv = self.c, self.lv
+        cap = torch.where(self._in_ramp(), lv["ramp_tcg"], lv["tcg_cap"])
+        t = tcg_start(c["grad"], self._prec_at_Y(c["grad"]), cap,
+                      self.params.kappa_fgr, self.params.theta)
+        if commit:
+            _copy_into(self.t, t)
+
+    def _block(self, commit=True):
+        t = self.t
+        delta = self.c["Delta"]
+        for _ in range(self.block):
+            t = tcg_iteration(t, self._hess, self._prec_at_Y, delta)
+        if commit:
+            _copy_into(self.t, t)
+
+    def _step(self, commit=True):
+        """The outer iteration after its tCG (the JAX body,
+        `cora_tpu/solve/tnt.py:331-452`)."""
+        p, c, lv, t, pd = self.params, self.c, self.lv, self.t, self.pd
+        tiny = torch.finfo(c["f"].dtype).tiny
+        k = self.ks[0]
+        Y, f, Delta = c["Y"], c["f"], c["Delta"]
+        s, mdec, hit = t["s"], t["mdec"], t["hit"]
         Y_prop = retract(pd, Y, s)
-        f_prop, grad_prop, nablaF_prop = _f_and_grad(pd, Y_prop, op)
+        f_prop, grad_prop, nablaF_prop = _f_and_grad(pd, Y_prop, self.op)
         step_norm = torch.sqrt(_inner(s, s))
-        rho = (c.f - f_prop) / torch.where(mdec == 0, tiny, mdec)
-        rel_decrease = (c.f - f_prop) / (c.f.abs() + tiny)
-        accept, very_successful, small_dec, small_step = _flags(
-            (rho >= params.eta1) & (mdec > 0), rho >= params.eta2,
-            rel_decrease < params.relative_decrease_tolerance,
-            step_norm < params.stepsize_tolerance)
-        if accept:
-            c.Y, c.f, c.grad, c.nablaF = Y_prop, f_prop, grad_prop, nablaF_prop
-            c.gradnorm = torch.sqrt(_inner(grad_prop, grad_prop))
-            c.pgradnorm = _pgrad_norm(grad_prop, prec(Y_prop, grad_prop),
-                                      c.gradnorm)
-            Delta = params.alpha2 * c.Delta if very_successful and hit \
-                else c.Delta
-        else:
-            Delta = params.alpha1 * c.Delta
-        c.dec_streak = c.dec_streak + 1 if accept and small_dec else \
-            0 if accept else c.dec_streak
-        c.step_streak = c.step_streak + 1 if accept and small_step else \
-            0 if accept else c.step_streak
-        c.hist[0, k] = c.f
-        f_lag = c.hist[0, max(k - sw, 0)]
-        g_ok, pg_ok, delta_small, plateau, far, near = _flags(
-            c.gradnorm <= params.gradient_tolerance,
-            c.pgradnorm <= params.preconditioned_gradient_tolerance,
-            Delta < params.delta_tolerance,
-            (f_lag - c.f) < stall_rel * c.f.abs(),
-            c.gradnorm > lift, c.gradnorm <= lift)
-        status = (GRAD_TOL if g_ok else PRECON_GRAD_TOL if pg_ok
-                  else REL_DECREASE if c.dec_streak >= STREAK
-                  else STEPSIZE if c.step_streak >= STREAK
-                  else DELTA_TOL if delta_small else RUNNING)
-        plateaued = sw > 0 and k >= sw and plateau
-        boundary = (in_ramp and (k + 1 == ramp_until or plateaued)
-                    and status == RUNNING)
-        stall_now = status in (REL_DECREASE, STEPSIZE, DELTA_TOL)
-        promote = (in_ramp and stall_now) or (boundary and near)
-        c.status = RAMP_EXIT if boundary and far else \
-            RUNNING if promote else status
-        c.finish = c.finish or promote
-        if promote:
-            Delta = T(params.delta0)
-            c.dec_streak = c.step_streak = 0
-        c.Delta = Delta
-        c.hist[1, k] = c.gradnorm
-        c.hist[2, k] = c.pgradnorm
-        c.hist[3, k] = step_norm if accept else 0.0
-        c.hist[4, k] = inner_k
-        if c.iterates is not None:
-            c.iterates.append(c.Y)
-        c.k = k + 1
-    return c
+        rho = (f - f_prop) / torch.where(mdec == 0, tiny, mdec)
+        rel_decrease = (f - f_prop) / (f.abs() + tiny)
+        accept = (rho >= p.eta1) & (mdec > 0)
+        very_successful = rho >= p.eta2
+        small_dec = rel_decrease < p.relative_decrease_tolerance
+        small_step = step_norm < p.stepsize_tolerance
+        gn_prop = torch.sqrt(_inner(grad_prop, grad_prop))
+        pgn_prop = _pgrad_norm(grad_prop, self._prec(Y_prop, grad_prop),
+                               gn_prop)
+        f_new = torch.where(accept, f_prop, f)
+        gradnorm = torch.where(accept, gn_prop, c["gradnorm"])
+        pgradnorm = torch.where(accept, pgn_prop, c["pgradnorm"])
+        Delta_new = torch.where(
+            accept, torch.where(very_successful & hit, p.alpha2 * Delta,
+                                Delta), p.alpha1 * Delta)
+        zero = torch.zeros_like(k)
+        dec_streak = torch.where(accept, torch.where(
+            small_dec, c["dec_streak"] + 1, zero), c["dec_streak"])
+        step_streak = torch.where(accept, torch.where(
+            small_step, c["step_streak"] + 1, zero), c["step_streak"])
+        # f over the stall window, with this iteration's row written first
+        lag = torch.clamp(k - lv["sw"], min=0)
+        f_lag = torch.where(lag == k, f_new,
+                            self.hist[0].index_select(0, lag.view(1))[0])
+        status = torch.where(
+            gradnorm <= p.gradient_tolerance, GRAD_TOL, torch.where(
+                pgradnorm <= p.preconditioned_gradient_tolerance,
+                PRECON_GRAD_TOL, torch.where(
+                    dec_streak >= STREAK, REL_DECREASE, torch.where(
+                        step_streak >= STREAK, STEPSIZE, torch.where(
+                            Delta_new < p.delta_tolerance, DELTA_TOL,
+                            RUNNING)))))
+        plateaued = (lv["sw"] > 0) & (k >= lv["sw"]) & (
+            (f_lag - f_new) < lv["stall_rel"] * f_new.abs())
+        in_ramp = self._in_ramp()
+        boundary = in_ramp & ((k + 1 == lv["ramp_until"]) | plateaued) & (
+            status == RUNNING)
+        stall_now = (status == REL_DECREASE) | (status == STEPSIZE) | (
+            status == DELTA_TOL)
+        far, near = gradnorm > lv["lift"], gradnorm <= lv["lift"]
+        promote = (in_ramp & stall_now) | (boundary & near)
+        status = torch.where(boundary & far, RAMP_EXIT,
+                             torch.where(promote, RUNNING, status))
+        new = dict(
+            Y=torch.where(accept, Y_prop, Y), f=f_new,
+            grad=torch.where(accept, grad_prop, c["grad"]),
+            nablaF=torch.where(accept, nablaF_prop, c["nablaF"]),
+            gradnorm=gradnorm, pgradnorm=pgradnorm,
+            Delta=torch.where(promote, lv["delta0"], Delta_new),
+            dec_streak=torch.where(promote, zero, dec_streak),
+            step_streak=torch.where(promote, zero, step_streak),
+            finish=c["finish"] | promote)
+        row = torch.stack([f_new, gradnorm, pgradnorm,
+                           torch.where(accept, step_norm,
+                                       torch.zeros_like(step_norm)),
+                           t["k"].to(f_new.dtype)])
+        ks = torch.stack([k + 1, status])
+        if commit:
+            at = k.view(1)
+            self.hist.index_copy_(1, at, row[:, None])
+            if self.iterates is not None:
+                self.iterates.index_copy_(0, at, new["Y"][None])
+            _copy_into(c, new)
+            self.ks.copy_(ks)
+
+    # --- driving ------------------------------------------------------------
+
+    def _run(self, name):
+        with named_scope(f"tnt/{name}"):
+            if not self.graphs:
+                LOOP_STATS["eager_calls"] += 1
+                self.fns[name]()
+                return
+            g = self.cuda_graphs.get(name)
+            if g is None:
+                with _sync_errors(self.sync_debug):
+                    g = self._capture(name)
+                    g.replay()
+            else:
+                g.replay()
+            LOOP_STATS["replays"] += 1
+
+    def _capture(self, name):
+        """Warm the step function up on the side stream (its results
+        dropped, the buffers untouched), then capture it there into the
+        level's graph pool. A failure raises."""
+        t0 = time.time()
+        fn = self.fns[name]
+        cur = torch.cuda.current_stream()
+        self.stream.wait_stream(cur)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            fn(commit=False)
+            g.capture_begin(pool=self.pool)
+            try:
+                fn()
+            finally:
+                g.capture_end()
+        cur.wait_stream(self.stream)
+        self.cuda_graphs[name] = g
+        LOOP_STATS["captures"] += 1
+        LOOP_STATS["capture_s"] += time.time() - t0
+        return g
+
+    def _read(self, x):
+        LOOP_STATS["host_reads"] += 1
+        return x.tolist()
+
+    def outer_iteration(self):
+        """One TNT iteration: tCG set-up, blocks until `done`, the step.
+        Returns (k, status) after it."""
+        self._run("setup")
+        while True:
+            self._run("block")
+            LOOP_STATS["blocks"] += 1
+            if self._read(self.t["done"]):
+                break
+        self._run("step")
+        LOOP_STATS["outer_iters"] += 1
+        return self._read(self.ks)
+
+
+def _copy_into(dst: dict, src: dict):
+    for key, v in src.items():
+        dst[key].copy_(v)
+
+
+# one captured level kept between calls: (key, _Level)
+_CAPTURED: list = [None, None]
+
+
+def clear_graphs():
+    """Free the kept captured level (its graphs, pool and buffers)."""
+    _CAPTURED[0] = _CAPTURED[1] = None
+
+
+def _level_for(pd, Y0, precon, params, op, history_len, log_iterates,
+               block, graphs, sync_debug) -> _Level:
+    """The level's loop: eager levels are built per call; a captured level
+    is kept and reused while (problem data, operator, preconditioner,
+    shape, dtype, parameters, history length, log, block) stay the same,
+    and freed when any of them changes."""
+    if not graphs:
+        return _Level(pd, Y0, precon, params, op, history_len, log_iterates,
+                      block, False)
+    key = (id(pd), id(op), id(precon), tuple(Y0.shape), Y0.dtype,
+           Y0.device, tuple(dataclasses.asdict(params).items()), history_len,
+           log_iterates, block)
+    held = _CAPTURED[1]
+    if _CAPTURED[0] == key and held.pd is pd and held.op is op \
+            and held.precon is precon and not sync_debug:
+        return held
+    clear_graphs()
+    lvl = _Level(pd, Y0, precon, params, op, history_len, log_iterates,
+                 block, True, sync_debug)
+    _CAPTURED[0], _CAPTURED[1] = key, lvl
+    return lvl
 
 
 def tnt_solve(
@@ -300,43 +560,61 @@ def tnt_solve(
     enforces `params.max_computation_time` (the reference's 20 s per-rank
     cap), read from `clock(t0)` (seconds since t0; a sharded solve passes
     one that every rank reads alike). Ramp mode (`ramp_iterations > 0`):
-    see `_tnt_chunk`; the ramp budget rides on top of the finish budget.
+    iterations below `ramp_iterations` get the cheap `ramp_tcg` inner
+    budget; at the ramp's end (its budget, or an objective plateau over
+    `stall_window` iterations) a level with |grad| > `lift_grad_norm`
+    exits with status `ramp_exit`, any other continues at the full tCG
+    budget with the trust region restarted at Δ₀; a stall status during
+    the ramp also promotes to the finish. The ramp budget rides on top of
+    the finish budget. On a CUDA device the loop's step functions run as
+    captured CUDA graphs unless `device_loop(graphs=False)` is in force.
     """
     params = params or TNTParams()
     t0 = time.time()
-    iter_cap = params.max_iterations + max(int(ramp_iterations), 0)
+    opts = _OPTIONS.get()
+    ramp_until = max(int(ramp_iterations), 0)
+    iter_cap = params.max_iterations + ramp_until
     tcg_cap = params.max_tcg_iterations
+    ramp_tcg = min(int(ramp_tcg) if ramp_tcg > 0 else tcg_cap, tcg_cap)
     max_time = params.max_computation_time
+    graphs = Y0.device.type == "cuda" and opts.graphs
+    block = opts.block or (TCG_BLOCK if graphs else 1)
 
-    c = _tnt_init(pd, Y0, precon, params, iter_cap, op, log_iterates)
+    lvl = _level_for(pd, Y0, precon, params, op, iter_cap, log_iterates,
+                     block, graphs, opts.sync_debug)
+    lvl.start(Y0, ramp_until, tcg_cap, ramp_tcg, lift_grad_norm,
+              stall_window, stall_tol)
+    k, status = lvl.ks.tolist()
     timed_out = False
     chunk_iters = CHUNK_ITERS
     elapsed = clock or (lambda t: time.time() - t)
-    while c.status == RUNNING and c.k < iter_cap:
-        if c.k > 0 and max_time is not None:
+    while status == RUNNING and k < iter_cap:
+        if k > 0 and max_time is not None:
             spent = elapsed(t0)
-            per_iter = max(spent / max(c.k, 1), 1e-6)
+            per_iter = max(spent / max(k, 1), 1e-6)
             remaining = max(max_time - spent, 0.0)
             chunk_iters = int(min(max(remaining * 0.5 / per_iter, 8),
                                   CHUNK_ITERS))
-        c = _tnt_chunk(pd, c, precon, params, op, iter_cap, tcg_cap,
-                       min(c.k + chunk_iters, iter_cap), ramp_iterations,
-                       ramp_tcg, lift_grad_norm, stall_window, stall_tol)
-        if (c.status == RUNNING and c.k < iter_cap and max_time is not None
+        stop_at = min(k + chunk_iters, iter_cap)
+        while k < stop_at and status == RUNNING:
+            k, status = lvl.outer_iteration()
+        if (status == RUNNING and k < iter_cap and max_time is not None
                 and elapsed(t0) > max_time):
             timed_out = True
             break
 
-    k = c.k
-    h = c.hist[:, :k].cpu().numpy()
-    status = c.status
+    h = lvl.hist[:, :k].cpu().numpy()
+    LOOP_STATS["tcg_iters"] += int(h[4].sum())
     if status == RUNNING:
         status = TIME_CAP if timed_out else MAX_ITERS
+    c = lvl.c
+    f, gn, pgn = (float(v) for v in torch.stack(
+        [c["f"], c["gradnorm"], c["pgradnorm"]]).tolist())
     return TNTResult(
-        f=float(c.f),
-        x=c.Y,
-        gradfx_norm=float(c.gradnorm),
-        preconditioned_gradfx_norm=float(c.pgradnorm),
+        f=f,
+        x=c["Y"].clone(),
+        gradfx_norm=gn,
+        preconditioned_gradfx_norm=pgn,
         num_iterations=k,
         inner_iterations=h[4].astype(np.int32),
         objective_values=h[0],
@@ -345,9 +623,8 @@ def tnt_solve(
         update_step_norms=h[3],
         elapsed_time=time.time() - t0,
         status=STATUS_NAMES.get(status, str(status)),
-        iterates=(None if c.iterates is None else
-                  [np.array(Y.detach().cpu(), np.float64)
-                   for Y in c.iterates]),
+        iterates=(None if lvl.iterates is None else
+                  list(lvl.iterates[:k].detach().cpu().double().numpy())),
     )
 
 

@@ -16,7 +16,14 @@ default of the `Problem` entry points.
   * `experiments.run_one`: the result line with `marginalized: 1` and the
     TUM files; `main` exits non-zero after a failed run;
   * viz: every plot writes its file; implicit iterates are lifted and
-    aligned as the JAX package does (1e-8).
+    aligned as the JAX package does (1e-8);
+  * the JAX package's remaining public names: `profiler_trace` and
+    `named_scope` (a trace written, the scope in it), `evaluate_objective`,
+    `euclidean_gradient`, `make_certificate_operator` and the polish's
+    host `hessian_vector_product` (1e-12), `stiefel_random` and
+    `oblique_random` (shape and manifold membership, not the jax.random
+    stream), `get_robot_pose_chains` (equal), `contract` and `rowdot`
+    (1e-14).
 """
 
 import os
@@ -434,3 +441,143 @@ def test_problem_entry_points_default_to_the_card(entry, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     assert call(device="cpu") is not None
+
+
+# ------------------------------------------------- public names of the JAX
+
+
+def _multi_point(pyfg_files, rank=4):
+    """(JAX problem, port problem, JAX float64 data, port float64 data,
+    a projected point Y, a direction V) on the 2D multi-robot graph."""
+    from cora_tpu.ops import riemannian as jr
+
+    jp, tp = jax_parse(pyfg_files["multi2d"]), parse_pyfg(pyfg_files["multi2d"])
+    jpd = jp.device_data(dtype=np.float64)
+    rng = np.random.default_rng(11)
+    Y = np.asarray(jr.project_to_manifold(jpd, jax.numpy.asarray(
+        rng.uniform(-1.0, 1.0, (jp.data_matrix_size, rank)))))
+    V = rng.standard_normal(Y.shape)
+    return jp, tp, jpd, tp.device_data(np.float64, "cpu"), Y, V
+
+
+def test_profiler_trace_and_named_scope_match_jax(tmp_path):
+    """Both packages write a trace under `logdir`; the port's Chrome trace
+    holds the named scope."""
+    from cora_tpu.utils.timing import named_scope as jax_scope
+    from cora_tpu.utils.timing import profiler_trace as jax_trace
+
+    from cora_tpu_torch.utils.timing import named_scope, profiler_trace
+
+    with jax_trace(str(tmp_path / "jax")):
+        with jax_scope("cora/probe"):
+            jax.numpy.ones(8).sum().block_until_ready()
+    assert any(files for _, _, files in os.walk(tmp_path / "jax"))
+    with profiler_trace(str(tmp_path / "port")) as prof:
+        with named_scope("cora/probe"):
+            torch.ones(8).sum()
+    with open(tmp_path / "port" / "trace.json") as fh:
+        assert "cora/probe" in fh.read()
+    assert any(e.key == "cora/probe" for e in prof.key_averages())
+
+
+def test_objective_and_euclidean_gradient_match_jax(pyfg_files):
+    from cora_tpu.ops import quadratic as jq
+
+    from cora_tpu_torch.ops import quadratic as tq
+
+    _, _, jpd, pd, Y, _ = _multi_point(pyfg_files)
+    f = tq.evaluate_objective(pd, torch.as_tensor(Y))
+    assert f.shape == () and _rel(f, jq.evaluate_objective(jpd, Y)) < 1e-12
+    g = tq.euclidean_gradient(pd, torch.as_tensor(Y))
+    assert _rel(g, jq.euclidean_gradient(jpd, Y)) < 1e-12
+
+
+def test_certificate_operator_matches_jax(pyfg_files):
+    from cora_tpu.solve.certify import make_certificate_operator as jax_make
+
+    from cora_tpu_torch.solve.certify import make_certificate_operator
+
+    _, _, jpd, pd, Y, V = _multi_point(pyfg_files)
+    jS, (jL, jl) = jax_make(jpd, jax.numpy.asarray(Y))
+    S, (L, lam) = make_certificate_operator(pd, torch.as_tensor(Y))
+    assert _rel(L, jL) < 1e-12 and _rel(lam, jl) < 1e-12
+    assert _rel(S(torch.as_tensor(V)), jS(jax.numpy.asarray(V))) < 1e-12
+
+
+def test_polish_hessian_vector_product_matches_jax(pyfg_files):
+    from cora_tpu.solve.polish import hessian_vector_product as jax_hvp
+
+    from cora_tpu_torch.solve.polish import hessian_vector_product
+
+    jp, tp, jpd, pd, Y, V = _multi_point(pyfg_files)
+    Q = tp.data_matrix()
+    nablaF = Q @ Y
+    ref = jax_hvp(jpd, jp.data_matrix(), Y, nablaF, V)
+    out = hessian_vector_product(pd, Q, Y, nablaF, V)
+    assert out.dtype == np.float64 and out.shape == Y.shape
+    assert _rel(out, ref) < 1e-12
+    # tensors in, the same array out
+    same = hessian_vector_product(pd, Q, torch.as_tensor(Y),
+                                  torch.as_tensor(nablaF),
+                                  torch.as_tensor(V))
+    np.testing.assert_array_equal(same, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_random_manifold_points(d, dtype):
+    """Shapes and membership, as the JAX package's samples have them; one
+    seed gives the same points (the streams differ from jax.random)."""
+    from cora_tpu.ops import manifolds as jm
+
+    from cora_tpu_torch.ops import manifolds as tm
+
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    n, m, r = 7, 5, d + 2
+    key = jax.random.PRNGKey(0)
+    A = tm.stiefel_random(torch.Generator().manual_seed(3), n, d, r, dtype)
+    B = np.asarray(jm.stiefel_random(key, n, d, r))
+    assert A.shape == B.shape == (n, d, r) and A.dtype == dtype
+    A = A.double()
+    assert (A @ A.transpose(-1, -2) - torch.eye(d, dtype=A.dtype)).abs() \
+        .max() < tol
+    assert np.abs(B @ np.swapaxes(B, -1, -2) - np.eye(d)).max() < 1e-12
+    S = tm.oblique_random(torch.Generator().manual_seed(3), m, r, dtype)
+    J = np.asarray(jm.oblique_random(key, m, r))
+    assert S.shape == J.shape == (m, r) and S.dtype == dtype
+    assert (S.double().norm(dim=1) - 1).abs().max() < tol
+    assert np.abs(np.linalg.norm(J, axis=1) - 1).max() < 1e-12
+    again = tm.stiefel_random(torch.Generator().manual_seed(3), n, d, r,
+                              dtype)
+    assert torch.equal(again, tm.stiefel_random(
+        torch.Generator().manual_seed(3), n, d, r, dtype))
+
+
+@pytest.mark.parametrize("name", ["chain", "multi2d", "multi3d"])
+def test_robot_pose_chains_match_jax(pyfg_files, name):
+    from cora_tpu.models.init import get_robot_pose_chains as jax_chains
+
+    from cora_tpu_torch.models.init import get_robot_pose_chains
+
+    if name == "chain":
+        jp, tp = jax_synthetic(**CHAIN), synthetic_problem(**CHAIN)
+    else:
+        jp, tp = jax_parse(pyfg_files[name]), parse_pyfg(pyfg_files[name])
+    got = [[(s.chr, s.index) for s in c] for c in get_robot_pose_chains(tp)]
+    want = [[(s.chr, s.index) for s in c] for c in jax_chains(jp)]
+    assert got == want and len(got) >= 1
+    assert all(c == sorted(c) for c in got)
+
+
+def test_contract_and_rowdot_match_jax():
+    from cora_tpu.ops import linalg as jl
+
+    from cora_tpu_torch.ops import linalg as tl
+
+    rng = np.random.default_rng(2)
+    a, b = rng.standard_normal((2, 6, 5))
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    assert _rel(tl.contract(ta, tb), jl.contract(a, b)) < 1e-14
+    assert tl.rowdot(ta, tb).shape == (6,)
+    assert _rel(tl.rowdot(ta, tb), jl.rowdot(a, b)) < 1e-14
