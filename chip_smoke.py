@@ -7,8 +7,9 @@ Phases, each printing its results before the next starts; any failure
 raises and the script exits non-zero:
 
   1. device — the card's name and power limit (nvidia-smi), the torch and
-     CUDA versions, the build of the CUDA kernels from `ops/csrc/` and, in
-     parallel, of `scripts/probe_cluster_sync.cu`; the probe's barrier
+     CUDA versions, the build of the CUDA kernels from `ops/csrc/`
+     (`tnt_kernels.cu` and `small_eigh.cu`) and, in parallel, of
+     `scripts/probe_cluster_sync.cu`; the probe's barrier
      costs (`__syncthreads`, `cluster.sync()` at 2-16 CTAs, `grid.sync()`)
      and L2 read rates, and the cluster size C of the kernels;
   2. kernels — each of `step`, `tcg`, `chunk` and `ladder` against its
@@ -25,7 +26,12 @@ raises and the script exits non-zero:
      (∇F = 0, Δ = 1e8); the second is timed and bounded. `ladder` gives
      the same bits at K = 1 and at the chosen K, agrees at each α with the
      cluster `step` at s = α·Ẏ within 1e-6 (and says at how many α it is
-     bit-equal), and is timed at K = 1, 2, 3, 4, 6, 8 where they fit;
+     bit-equal), and is timed at K = 1, 2, 3, 4, 6, 8 where they fit.
+     `small_eigh` (LOBPCG's Rayleigh–Ritz eigensolver) against its plain
+     twin on random symmetric 30 × 30 and 36 × 36 matrices in float32 and
+     float64 (eigenvalues to 1e-5 / 1e-12 relative, ‖VᵀV − I‖ and
+     ‖AV − VΛ‖), timed at n = 30 float32 against the twin and
+     `torch.linalg.eigh`;
   3. slice — `solve_cora` on both graphs with bench.py's configuration and
      the kernels, from the numpy-seeded start, and on the plaza2-shaped
      graph from rank d (the run that takes a saddle escape), each gated
@@ -38,7 +44,13 @@ raises and the script exits non-zero:
      by iteration over its first chunk, to the JAX run's first level from
      the same projected start: a check that does not depend on where the
      rest of the staircase lands. Each solve prints its total tCG
-     iterations and the TNT phases' wall per tCG iteration;
+     iterations and the TNT phases' wall per tCG iteration, and (as in
+     phases 5-7) its certificate and polish loops: LOBPCG iterations,
+     captures, replays, host reads per LOBPCG iteration, Newton-CG
+     iterations and host reads per CG iteration, small_eigh launches, and
+     the `certify` / `polish_f64` split (`scripts/probe_cert_loop.py`);
+     in the kernel-path solves every failed certificate's LOBPCG and every
+     polish's CG must run as replayed graphs;
   4. level f64 — the single_drone-shaped graph's first level (rank 5) in
      float64 on the card, with the canonical `tnt_solve` and with the chain
      plain path on a float64 plan, from the fixture's start, against the
@@ -63,7 +75,13 @@ raises and the script exits non-zero:
      `mrclam5a_shaped`'s first level is captured afresh with every warm-up,
      capture and first replay under `set_sync_debug_mode("error")`, and
      the whole solve is repeated with `use_kernels="never"` (every step
-     function eager) and must end on the captured solve's bits;
+     function eager) and must end on the captured solve's bits. Each
+     solve's failed certificates' LOBPCG and its polish CG must run as
+     replayed graphs; on `tiers_shaped` at most 0.5 host reads per LOBPCG
+     and per CG iteration, and its first failed certificate and first
+     polish run again, captured afresh under the sync check and eagerly,
+     both on the solve's bits, the eager certificate's Rayleigh–Ritz
+     matrices held to small_eigh's plain twin;
   6. implicit — the translation-implicit (marginalized) formulation and
      the solve's host surroundings, in float64: the native PyFG tokenizer
      against the Python parser on both multi-robot graphs (identical data
@@ -105,14 +123,17 @@ raises and the script exits non-zero:
 
 The kernels' launch counts are zeroed just before the timed kernel-path
 solves and read just after them; the main path must launch the cluster
-`chunk`, `step` and `ladder`, and never a single-CTA comparator. The line
-before the last is one JSON object with the route, source, launches,
-error, times and bound of each kernel the main path launches (`chunk`,
-`step`, `ladder`; `tcg`, whose loop runs inside `chunk`, gets a line of its
-own). A kernel's bound is the larger of its bytes (inputs read once,
-outputs written once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s, and its
+`chunk`, `step` and `ladder` and `small_eigh` (its failed certificates),
+and never a single-CTA comparator. The line before the last is one JSON
+object with the route, source, launches, error, times and bound of each
+kernel the main path launches (`chunk`, `step`, `ladder`, `small_eigh`;
+`tcg`, whose loop runs inside `chunk`, gets a line of its own). A
+kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s, and its
 dependent group-barrier phases (`tnt_kernels.work_counts`) times the
-C-CTA cluster barrier the probe measured in this run; the last line is
+C-CTA cluster barrier the probe measured in this run (`small_eigh`: its
+sweeps × (n − 1) rounds times the probe's `__syncthreads`, its FLOPs at
+the float64 peak, 34 TFLOP/s); the last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -128,11 +149,14 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(REPO, "tests", "data", "torch_port_reference.json")
 SOURCE = "cora_tpu_torch/ops/csrc/tnt_kernels.cu"
+EIGH_SOURCE = "cora_tpu_torch/ops/csrc/small_eigh.cu"
 REPLACES = {
     "step": "cora_tpu/ops/pallas_tcg.py:363",
     "tcg": "cora_tpu/ops/pallas_tcg.py:401",
     "chunk": "cora_tpu/ops/pallas_tcg.py:733",
     "ladder": "cora_tpu/ops/pallas_tcg.py:792",
+    # not a pallas_call: the jnp.linalg.eigh in LOBPCG's lax.while_loop
+    "small_eigh": "cora_tpu/ops/lobpcg.py:61",
 }
 # the CPU tests' tolerances (tests/test_torch_kernels_plain.py)
 TOL_STATE, TOL_F, TOL_GN, TOL_PGN = 2e-5, 1e-4, 1e-4, 1e-3
@@ -144,8 +168,20 @@ FIRST_CHUNK, TOL_LEVEL_F, TOL_LEVEL_GN = 8, 1e-3, 1e-2
 REPS = 20
 # ladder cluster counts timed in phase 2 (those the card holds)
 LADDER_SWEEP = (1, 2, 3, 4, 6, 7, 8)
-# the kernels the main path launches (`tcg` is the body of `chunk`)
-PATH_KERNELS = ("chunk", "step", "ladder")
+# the kernels the main path launches (`tcg` is the body of `chunk`;
+# `small_eigh` is the Rayleigh–Ritz step of every failed certificate's
+# LOBPCG)
+PATH_KERNELS = ("chunk", "step", "ladder", "small_eigh")
+# small_eigh against its plain twin: eigenvalues relative to the largest
+# (the float32 / float64 eigh's accuracy), ‖VᵀV − I‖ and ‖AV − VΛ‖ / ‖Λ‖
+# (n·ε with room for the Jacobi rotations' rounding)
+EIGH_TOL = {"float32": 1e-5, "float64": 1e-12}
+EIGH_ORTH = {"float32": 1e-4, "float64": 1e-12}
+EIGH_CASES = ((30, "float32"), (36, "float32"), (30, "float64"),
+              (36, "float64"))
+# the card's float64 peak outside the tensor cores (NVIDIA's H100 SXM
+# data sheet): small_eigh computes in float64 for either input type
+PEAK_F64 = 34e12
 # the single-CTA comparators, which only phase 2 launches
 COMPARATORS = ("step_block", "ladder_block", "chunk_block", "tcg_block")
 KERNEL_CASES = [("plaza2_shaped", 4), ("plaza2_shaped", 6),
@@ -168,6 +204,10 @@ PAR_DTYPES = {"hv100k": ("float32",)}
 PAR_TIMED = ("hv100k", "float32")
 LIMIT_S = 1200  # the time limit the whole script must finish within
 LEVEL_CALLS = []  # (args, kwargs) of each TNT level of the last solve_once
+# the last solve_once's certificate and polish loops: LOBPCG and Newton-CG
+# counts, small_eigh launches, the certify / polish split, and its
+# certificate and polish calls (scripts/probe_cert_loop.py)
+LAST = {}
 
 
 def check(cond, msg):
@@ -260,24 +300,30 @@ def phase_device():
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import probe_cluster_sync as probe
 
-    from cora_tpu_torch.ops import tnt_kernels
+    from cora_tpu_torch.ops import small_eigh, tnt_kernels
 
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         kernels = pool.submit(tnt_kernels.load_library)
+        eigh = pool.submit(small_eigh.load_library)
         probe_lib = pool.submit(probe.build)
         kernels.result()
+        eigh.result()
         probe_lib = probe_lib.result()
     build_s = time.time() - t0
     C, info = tnt_kernels.CLUSTER, tnt_kernels.BUILD_INFO
     print(smi, flush=True)
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | python "
-          f"{sys.version.split()[0]} | kernels and probe built in "
-          f"{build_s:.1f} s ({info['path']})", flush=True)
+          f"{sys.version.split()[0]} | kernels, small_eigh and probe built "
+          f"in {build_s:.1f} s ({info['path']}, "
+          f"{small_eigh.BUILD_INFO['path']})", flush=True)
     for name, regs, st, ld in ptxas_summary(info["log"]):
         print(f"[device] ptxas {name}: {regs} registers, spills {st} B stored"
               f" / {ld} B loaded", flush=True)
+    for line in small_eigh.BUILD_INFO["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[device] ptxas small_eigh: {line.strip()}", flush=True)
     res = probe.measure(probe_lib, quick=True)
     print("[device] probe: __syncthreads (1024 threads) "
           f"{res['syncthreads_us']:.4f} us; cluster.sync " + ", ".join(
@@ -543,6 +589,7 @@ def phase_kernels(problems, hp, probe):
                 if k == "ladder":
                     stats[k]["group"] = (f"{extra[k]['clusters']} clusters of "
                                          f"{C} CTAs")
+    phase_small_eigh(stats, probe)
     print("[kernels] max errors vs plain: " + " | ".join(
         f"{k} abs {v['max_abs_err']:.3e} rel {v['max_rel_err']:.3e}"
         for k, v in stats.items()), flush=True)
@@ -552,6 +599,103 @@ def phase_kernels(problems, hp, probe):
     return stats
 
 
+def check_small_eigh(A, stats, what):
+    """`small_eigh` (the kernel) against its plain twin on the card for the
+    symmetric matrices A (B, n, n): eigenvalues relative to the largest,
+    ‖VᵀV − I‖ and ‖AV − VΛ‖ relative to the largest eigenvalue, within
+    EIGH_TOL / EIGH_ORTH; the errors go to `stats["small_eigh"]` (the
+    eigenvalues' largest absolute and relative error). Returns the sweeps
+    per matrix."""
+    import torch
+
+    from cora_tpu_torch.ops.small_eigh import small_eigh, small_eigh_plain
+
+    dt = "float32" if A.dtype == torch.float32 else "float64"
+    w, V, info = small_eigh(A)
+    wp, Vp, _ = small_eigh_plain(A)
+    scale = wp.abs().amax(-1).clamp_min(1e-30)
+    ev = float(((w - wp).abs().amax(-1) / scale).max())
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    orth = float((V.transpose(-1, -2) @ V - eye).abs().max())
+    res = float(((A @ V - V * w[..., None, :]).abs().amax((-2, -1))
+                 / scale).max())
+    sweeps = info.tolist()
+    print(f"[kernels] small_eigh {what}: {A.shape[0]} matrices of n = "
+          f"{A.shape[-1]} {dt}: sweeps {min(sweeps)}-{max(sweeps)}, "
+          f"eigenvalues rel err {ev:.3e}, |VtV - I| {orth:.3e}, "
+          f"|AV - VL| / |L| {res:.3e}", flush=True)
+    check(min(sweeps) >= 0, f"small_eigh {what}: not converged {sweeps}")
+    check(ev <= EIGH_TOL[dt] and orth <= EIGH_ORTH[dt]
+          and res <= EIGH_ORTH[dt], f"small_eigh {what}: eigenvalues "
+          f"{ev:.3e}, orthonormality {orth:.3e}, residual {res:.3e}")
+    st = stats["small_eigh"]
+    st["max_abs_err"] = max(st["max_abs_err"], absdiff(w, wp))
+    st["max_rel_err"] = max(st["max_rel_err"], ev)
+    if dt == "float32":
+        # the three smallest pairs, the ones LOBPCG keeps, against float64
+        # eigh of the same matrices: the kernel (float64 arithmetic) and
+        # the twin (float32 eigh)
+        wr, Vr = torch.linalg.eigh(A.double())
+        errs = {}
+        for label, (ww, VV) in (("kernel", (w, V)), ("twin", (wp, Vp))):
+            dw = float(((ww[..., :3].double() - wr[..., :3]).abs()
+                        .amax(-1) / scale).max())
+            dv = float((1 - (VV[..., :3].double() * Vr[..., :3]).sum(-2)
+                        .abs()).max())
+            errs[label] = f"eigenvalues {dw:.3e}, 1 - |<v, v64>| {dv:.3e}"
+        print(f"[kernels] small_eigh {what}: the three smallest pairs "
+              "against float64 eigh: " + "; ".join(
+                  f"{k} {v}" for k, v in errs.items()), flush=True)
+    return sweeps
+
+
+def phase_small_eigh(stats, probe):
+    """`small_eigh` on random symmetric matrices of the Rayleigh–Ritz
+    sizes (n = 3k = 30, 36) in float32 and float64, held to its plain twin;
+    timed (median of 20, CUDA events) at the main path's n = 30 in float32
+    against the twin and `torch.linalg.eigh`, with its bound: the larger of
+    its bytes at 3.35 TB/s, its FLOPs at the float64 peak and its dependent
+    rounds (sweeps × (n − 1)) times the `__syncthreads` the probe measured
+    in this run."""
+    import numpy as np
+    import torch
+
+    from cora_tpu_torch.ops.small_eigh import small_eigh, small_eigh_plain
+
+    rng = np.random.default_rng(11)
+    for n, dt in EIGH_CASES:
+        M = rng.standard_normal((4, n, n))
+        A = torch.as_tensor(M + M.transpose(0, 2, 1)).to(
+            "cuda", getattr(torch, dt))
+        sweeps = check_small_eigh(A, stats, "random")
+        if (n, dt) == (30, "float32"):  # the main path's matrices
+            A1 = A[0].contiguous()
+            ms = median_ms(lambda: small_eigh(A1), torch)
+            plain_ms = median_ms(lambda: small_eigh_plain(A1), torch)
+            lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch)
+            npad, h = n + n % 2, (n + n % 2) // 2
+            rounds = sweeps[0] * (npad - 1)
+            work = dict(bytes=4 * (2 * n * n + n),
+                        flops=rounds * (12 * h * (h + 1) + 6 * n * h + 15 * h)
+                        + (sweeps[0] + 1) * 2 * npad * npad,
+                        phases=rounds)
+            terms = {"bytes": work["bytes"] / 3.35e12 * 1e3,
+                     "flops": work["flops"] / PEAK_F64 * 1e3,
+                     "barriers": rounds * probe["syncthreads_us"] * 1e-3}
+            term = max(terms, key=terms.get)
+            stats["small_eigh"].update(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=terms[term],
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, work=work, group="one CTA per matrix",
+                block_ms=None)
+            print(f"[kernels] small_eigh n = {n} {dt}: {ms:.4f} ms (plain "
+                  f"twin {plain_ms:.4f} ms, torch.linalg.eigh {lib_ms:.4f} "
+                  f"ms); bound {terms[term]:.4f} ms by {term} "
+                  f"({sweeps[0]} sweeps × {npad - 1} rounds × "
+                  f"{probe['syncthreads_us']:.4f} us)", flush=True)
+
+
 def solve_once(problem, cfg, x0, device="cuda", **kw):
     """`solve_cora` from x0 (`kw` passed on): (result, wall s, ATE, every
     TNT level's result in order). The staircase's `tnt_solve_tiles` (chain
@@ -559,15 +703,22 @@ def solve_once(problem, cfg, x0, device="cuda", **kw):
     keep each level's result as the level returned it, and its arguments in
     `LEVEL_CALLS`;
     the device loop's counts (`tnt.LOOP_STATS`) are zeroed first, so after
-    the call they are this solve's."""
+    the call they are this solve's. The certificate's and the polish's
+    loop counts, small_eigh's launches, the certify / polish split and the
+    certificate and polish calls go to `LAST`."""
+    import probe_cert_loop as cert_probe
     import torch
 
-    from cora_tpu_torch.solve import staircase, tnt
+    from cora_tpu_torch.ops import lobpcg, small_eigh
+    from cora_tpu_torch.solve import polish, staircase, tnt
     from cora_tpu_torch.utils.evaluation import evaluate_ate
 
     levels = []
     LEVEL_CALLS.clear()
     tnt.reset_loop_stats()
+    lobpcg.reset_loop_stats()
+    polish.reset_loop_stats()
+    eigh0 = small_eigh.LAUNCHES["small_eigh"]
     solvers = {name: getattr(staircase, name)
                for name in ("tnt_solve_tiles", "tnt_solve")}
 
@@ -584,18 +735,65 @@ def solve_once(problem, cfg, x0, device="cuda", **kw):
     for name, solve in solvers.items():
         setattr(staircase, name, recording(solve))
     try:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = staircase.solve_cora(problem, x0=x0, config=cfg, device=device,
-                                   **kw)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        with cert_probe.split_timers() as parts, \
+                cert_probe.recording() as calls:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = staircase.solve_cora(problem, x0=x0, config=cfg,
+                                       device=device, **kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
     finally:
         for name, solve in solvers.items():
             setattr(staircase, name, solve)
+    LAST.update(lobpcg=dict(lobpcg.LOOP_STATS), cg=dict(polish.LOOP_STATS),
+                parts=dict(parts), calls=calls,
+                small_eigh=small_eigh.LAUNCHES["small_eigh"] - eigh0)
     ate = float(evaluate_ate(problem,
                              staircase.extract_solution(problem, cfg, res)))
     return res, wall, ate, levels
+
+
+def cert_line(tag, name):
+    """The last `solve_once`'s certificate and polish loops: LOBPCG
+    iterations, captures, replays, host reads per LOBPCG iteration;
+    Newton-CG iterations and host reads per CG iteration; small_eigh
+    launches; the certify and polish phases split into their parts
+    (`probe_cert_loop.split_timers`)."""
+    lp, cg = LAST["lobpcg"], LAST["cg"]
+    certs = [c[4] for c in LAST["calls"] if c[0] == "certify"]
+    failed = sum(not c.is_certified and c.num_iters > 0 for c in certs)
+    print(f"[{tag}] {name}: certificates {len(certs)} ({failed} failed "
+          f"with LOBPCG); LOBPCG {lp['iterations']} "
+          f"iterations in {lp['solves']} stage runs, {lp['captures']} "
+          f"captures in {lp['capture_s']:.3f} s, {lp['replays']} replays, "
+          f"{lp['eager_calls']} eager calls, {lp['host_reads']} host reads "
+          f"({lp['host_reads'] / max(lp['iterations'], 1):.4f} per LOBPCG "
+          f"iteration), small_eigh launches {LAST['small_eigh']}; polish "
+          f"Newton-CG {cg['cg_iters']} CG iterations in "
+          f"{cg['newton_steps']} Newton steps, {cg['captures']} captures in "
+          f"{cg['capture_s']:.3f} s, {cg['replays']} replays, "
+          f"{cg['eager_calls']} eager calls, {cg['host_reads']} host reads "
+          f"({cg['host_reads'] / max(cg['cg_iters'], 1):.4f} per CG "
+          "iteration)", flush=True)
+    print(f"[{tag}] {name}: split " + json.dumps(
+        {k: round(v, 4) for k, v in LAST["parts"].items()}), flush=True)
+
+
+def captured_loops(name):
+    """In the last `solve_once`, every failed certificate's LOBPCG and
+    every polish's CG ran as replayed graphs (no eager step call), the
+    LOBPCG through small_eigh."""
+    lp, cg = LAST["lobpcg"], LAST["cg"]
+    failed = any(c[0] == "certify" and not c[4].is_certified
+                 and c[4].num_iters > 0 for c in LAST["calls"])
+    check(not failed or (lp["replays"] > 0 and not lp["eager_calls"]
+                         and LAST["small_eigh"] > 0),
+          f"{name}: failed certificates' LOBPCG not captured: {lp}, "
+          f"small_eigh launches {LAST['small_eigh']}")
+    check(not cg["newton_steps"] or (cg["replays"] > 0
+                                     and not cg["eager_calls"]),
+          f"{name}: the polish CG not captured: {cg}")
 
 
 def loop_line(tag, name, res, levels):
@@ -616,6 +814,7 @@ def loop_line(tag, name, res, levels):
           f"outer iterations); tnt_level + tnt_refine {tnt_s:.3f} s, "
           f"{1e6 * tnt_s / max(tcg, 1):.2f} us per tCG iteration",
           flush=True)
+    cert_line(tag, name)
     return st
 
 
@@ -814,7 +1013,7 @@ def phase_slice(problems, reference):
     import numpy as np
     import torch
 
-    from cora_tpu_torch.ops import tnt_kernels
+    from cora_tpu_torch.ops import small_eigh, tnt_kernels
 
     runs = reference["graphs"]
 
@@ -831,14 +1030,17 @@ def phase_slice(problems, reference):
     warm = {name: solve_once(problems[name], config(name, "auto"),
                              starts[name])[0] for name in bench}
     tnt_kernels.reset_launch_counts()
-    results, per_solve, before = {}, {}, {}
+    small_eigh.reset_launch_counts()
+    results, per_solve, before, loops = {}, {}, {}, {}
     for name in runs:
         results[name] = solve_once(problems[name], config(name, "auto"),
                                    starts[name])
+        loops[name] = dict(LAST)
+        counts = dict(tnt_kernels.LAUNCHES, **small_eigh.LAUNCHES)
         per_solve[name] = {k: v - before.get(k, 0)
-                           for k, v in tnt_kernels.LAUNCHES.items() if v}
-        before = dict(tnt_kernels.LAUNCHES)
-    launches = dict(tnt_kernels.LAUNCHES)
+                           for k, v in counts.items() if v}
+        before = counts
+    launches = dict(tnt_kernels.LAUNCHES, **small_eigh.LAUNCHES)
     # the kernels and the float64 polish reduce in a fixed order: a second
     # solve from the same start ends on the same bits
     for name, res in warm.items():
@@ -868,6 +1070,9 @@ def phase_slice(problems, reference):
               f"{len(levels)} TNT levels; tnt_level + tnt_refine "
               f"{tnt_s:.3f} s, {1e6 * tnt_s / max(tcg_iters, 1):.2f} us per "
               f"tCG iteration", flush=True)
+        LAST.update(loops[name])
+        cert_line("slice", name)
+        captured_loops(name)
         print(f"[slice] {name} reference (JAX, CPU): " + json.dumps(
             {k: ref[k] for k in ("certified", "sdp_cost", "f", "ate",
                                  "ranks", "spread") if k in ref}), flush=True)
@@ -879,6 +1084,7 @@ def phase_slice(problems, reference):
             problems[name], config(name, "never"), starts[name])
         check_first_level(name + " (plain)", levels[0], runs[name])
         gate(name + " (plain)", problems[name], res, ate, runs[name])
+        cert_line("slice", name + " plain")
         print(f"[slice] {name} plain: ranks {res.ranks_visited} certified "
               f"{res.certified} sdp_cost {res.sdp_cost:.6f} f "
               f"{res.result.f:.6f} ATE {ate:.4f} m wall {wall:.3f} s phases "
@@ -981,7 +1187,59 @@ def phase_level_f64(problems, reference, device="cuda"):
               f"iterations lies outside the JAX runs' ends")
 
 
-def phase_general(reference, device="cuda"):
+def cert_loops_checked(name, calls, stats):
+    """The solve's first failed certificate (one whose LOBPCG ran) and its
+    first polish again: captured afresh with every warm-up, capture and
+    first replay under `set_sync_debug_mode("error")`, then eagerly
+    (`device_loop(graphs=False)`); both must end on the solve's bits. The
+    eager certificate's Rayleigh–Ritz matrices are held to small_eigh's
+    plain twin (`check_small_eigh`)."""
+    import probe_cert_loop as cert_probe
+    import torch
+
+    from cora_tpu_torch.ops import lobpcg
+    from cora_tpu_torch.utils.graphs import clear_graphs
+
+    for kind in ("certify", "polish"):
+        call = cert_probe.first_call(calls, kind)
+        check(call is not None, f"{name}: no {kind} call with a device loop")
+        clear_graphs()
+        out, wall, st = cert_probe.rerun(call, sync_debug=True)
+        same = cert_probe.same_result(out, call[4])
+        print(f"[general] {name}: first {kind} loop captured afresh under "
+              f"set_sync_debug_mode('error'): {st['captures']} captures in "
+              f"{st['capture_s']:.3f} s, {st['replays']} replays, "
+              f"{wall:.3f} s, no host synchronisation; on the solve's bits: "
+              f"{same}", flush=True)
+        check(st["captures"] > 0 and st["replays"] > 0 and same,
+              f"{name}: the sync-checked {kind} made {st}, same {same}")
+        clear_graphs()
+        rr, real = [], lobpcg.small_eigh
+
+        def recording(A):
+            rr.append(A.clone())
+            return real(A)
+
+        lobpcg.small_eigh = recording
+        try:
+            out, wall_e, st = cert_probe.rerun(call, graphs=False)
+        finally:
+            lobpcg.small_eigh = real
+        same = cert_probe.same_result(out, call[4])
+        print(f"[general] {name}: first {kind} eager "
+              f"(device_loop(graphs=False)) {wall_e:.3f} s against "
+              f"{wall:.3f} s captured, {st['eager_calls']} eager step calls; "
+              f"on the solve's bits: {same}", flush=True)
+        check(not st["captures"] and st["eager_calls"] and same,
+              f"{name}: the eager {kind} made {st}, same {same}")
+        if rr:
+            n = max(A.shape[-1] for A in rr)
+            check_small_eigh(torch.stack([A for A in rr
+                                          if A.shape[-1] == n]), stats,
+                             f"{name} certificate's Rayleigh–Ritz")
+
+
+def phase_general(reference, device="cuda", stats=None):
     """`parse_pyfg` → `solve_cora` on the multi-robot graphs from the
     odometry start, with the launch counts zeroed before the first solve
     and read after the last. Returns {name: (problem, result)}."""
@@ -1014,6 +1272,8 @@ def phase_general(reference, device="cuda"):
         st = loop_line("general", name, res, levels)
         check(st["captures"] >= 3 and not st["eager_calls"],
               f"{name}: the device loop did not run captured: {st}")
+        captured_loops(name)
+        calls, lp, cg = LAST["calls"], LAST["lobpcg"], LAST["cg"]
         fac = problem.preconditioner_fn(cfg.preconditioner, cfg.dtype,
                                         cfg.reg_chol_max_cond, device).fac
         print(f"[general] {name}: N {problem.data_matrix_size}, permuted "
@@ -1049,6 +1309,11 @@ def phase_general(reference, device="cuda"):
                 (pd, X, precon, dataclasses.replace(params,
                                                     max_iterations=0)),
                 kwargs))
+            check(lp["host_reads"] <= 0.5 * lp["iterations"]
+                  and cg["host_reads"] <= 0.5 * cg["cg_iters"],
+                  f"{name}: more than 0.5 host reads per LOBPCG or CG "
+                  f"iteration: {lp}, {cg}")
+            cert_loops_checked(name, calls, stats)
         if name == "mrclam5a_shaped":
             sync_checked_level("general", name, first_call)
             # the same solve with every step function run eagerly
@@ -1203,6 +1468,7 @@ def phase_implicit(reference, device="cuda"):
         x0 = numpy_start(reference, problem, problem.dim + jump)[:h]
         res, wall, ate, levels = solve_once(problem, cfg, x0, device)
         loop_line("implicit", name, res, levels)
+        captured_loops(name)
         soln = extract_solution(problem, cfg, res)
         check_first_level(name, levels[0], ref, 1e-6, 1e-6)
         gate(name, problem, res, ate, ref, Y=soln)
@@ -1223,6 +1489,7 @@ def phase_implicit(reference, device="cuda"):
         first, _, _, first_levels = solve_once(problem, cfg, None, device,
                                                checkpoint_path=path)
         loop_line("implicit", name + " (checkpointed)", first, first_levels)
+        captured_loops(name)
         first_call = LEVEL_CALLS[0]
         # its first level again, eagerly, then captured afresh under the
         # sync check: both on the captured level's bits
@@ -1479,7 +1746,7 @@ def main():
     check(not any(launches[k] for k in COMPARATORS),
           f"the main path launched a single-CTA comparator: {launches}")
     timed("level_f64", phase_level_f64, problems, reference)
-    solved = timed("general", phase_general, reference)
+    solved = timed("general", phase_general, reference, "cuda", stats)
     implicit_f = timed("implicit", phase_implicit, reference)
     timed("parallel", phase_parallel, problems, solved, implicit_f, reference)
     total = time.time() - t_start
@@ -1490,7 +1757,9 @@ def main():
 
     kernels = []
     for k, v in stats.items():
-        entry = dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+        entry = dict(name=k, route="cuda",
+                     source=EIGH_SOURCE if k == "small_eigh" else SOURCE,
+                     replaces=REPLACES[k],
                      launches=launches[k], max_abs_err=v["max_abs_err"],
                      max_rel_err=v["max_rel_err"], ms=v["ms"],
                      plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],

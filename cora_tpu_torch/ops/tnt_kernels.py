@@ -137,29 +137,36 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def load_library():
-    """Build (once per source hash) and load the kernels' shared library."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+def compile_library(stem: str, sources, main: str, flags=NVCC_FLAGS):
+    """nvcc `CSRC/main` into `BUILD_DIR/<stem>_<hash>.so`, once per hash of
+    `sources` and `flags`: (path, nvcc's output, "" when it was built
+    already). A failed build raises."""
     digest = hashlib.sha256()
-    for name in SOURCES:
+    for name in sources:
         digest.update((CSRC / name).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"cora_tnt_{digest.hexdigest()[:16]}.so"
-    t0 = time.time()
+    digest.update(" ".join(flags).encode())
+    so = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / "tnt_kernels.cu")]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / main)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         (BUILD_DIR / (so.stem + ".log")).write_text(log)
         if proc.returncode != 0:
             raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so)
+    return so, log
+
+
+def load_library():
+    """Build (once per source hash) and load the kernels' shared library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    t0 = time.time()
+    so, log = compile_library("cora_tnt", SOURCES, "tnt_kernels.cu")
     try:
         lib = ctypes.CDLL(str(so))
     except OSError as e:

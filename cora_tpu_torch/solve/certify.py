@@ -34,7 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cora_tpu_torch.ops.lobpcg import lobpcg_min
+from cora_tpu_torch.ops import lobpcg as _lobpcg
+from cora_tpu_torch.ops.lobpcg import LobpcgLoop, lobpcg_min
 from cora_tpu_torch.ops.quadratic import (
     data_matrix_product,
     jacobi_diagonal,
@@ -42,6 +43,8 @@ from cora_tpu_torch.ops.quadratic import (
     split_state,
 )
 from cora_tpu_torch.types import CertResults
+from cora_tpu_torch.utils import graphs as loops
+from cora_tpu_torch.utils.timing import named_scope
 
 DENSE_CUTOFF = 100  # reference `CORA_utils.cpp:63`
 
@@ -97,6 +100,96 @@ def materialize_certificate(problem, pd, Y) -> np.ndarray:
     return S
 
 
+class _CertLoop:
+    """The two LOBPCG stages of `_cert_eig_device` on M = S + ηI over kept
+    buffers: Λ (`Lam_rot`, `lam_sph`), η and the stage-2 preconditioner's
+    data (the banded factor's tensors, or the Jacobi diagonal) are copied
+    in before each call, so one capture serves every certificate of a solve
+    whose shapes match, as the JAX package compiles `_cert_eig_device` once
+    with η and the factor as traced operands. Stage 2 starts from stage
+    1's block buffer."""
+
+    def __init__(self, pd, N, k, dtype, device, tol, bfac, blocks, graphs,
+                 sync_debug):
+        self.pd = pd
+        self.Lam_rot = torch.zeros((pd.n, pd.d, pd.d), dtype=dtype,
+                                   device=device)
+        self.lam_sph = torch.zeros(pd.m, dtype=dtype, device=device)
+        self.eta = torch.zeros((), dtype=dtype, device=device)
+        if bfac is None:
+            self.bfac = None
+            self.inv_diag = torch.zeros((N, 1), dtype=dtype, device=device)
+
+            def precon(V):
+                return self.inv_diag * V
+        else:
+            from cora_tpu_torch.precond.banded import banded_apply
+
+            self.bfac = {key: v.clone() if isinstance(v, torch.Tensor)
+                         else v for key, v in bfac.items()}
+
+            def precon(V):
+                return banded_apply(pd, self.bfac, V)
+        self.precon = precon
+        args = (N, k, dtype, device, tol, 1)
+        self.stage1 = LobpcgLoop(self.M_op, *args, None, True, blocks[0],
+                                 graphs, sync_debug, read_last=False)
+        self.stage2 = LobpcgLoop(self.M_op, *args, precon, True, blocks[1],
+                                 graphs, sync_debug, X0=self.stage1.c["X"],
+                                 report=self._report,
+                                 report_size=5 + N * k)
+
+    def M_op(self, V):
+        return (data_matrix_product(self.pd, V)
+                - apply_lambda(self.pd, self.Lam_rot, self.lam_sph, V)
+                + self.eta * V)
+
+    def _report(self, c, stop):
+        """Stage 2's report: (stop, both stages' iterations, their
+        eigensolver flag, θ = the leading Rayleigh quotient on S, the
+        leading pair's residual on M) and the block, so the block that
+        stops brings back everything `_cert_eig_device` returns."""
+        X, s1 = c["X"], self.stage1.c
+        MX = self.M_op(X[:, :1])
+        x = X[:, 0]
+        theta = x @ (MX[:, 0] - self.eta * x)
+        resnorm = torch.linalg.vector_norm(MX - (theta + self.eta) * X[:, :1])
+        dt = X.dtype
+        head = torch.stack([stop.to(dt), (s1["it"] + c["it"]).to(dt),
+                            (s1["bad"] | c["bad"]).to(dt), theta, resnorm])
+        return torch.cat([head, X.reshape(-1)])
+
+    def load(self, Lam_rot, lam_sph, eta: float, X0, bfac):
+        """Copy this certificate's Λ, η, start block and preconditioner
+        data into the buffers (outside any graph)."""
+        pd = self.pd
+        self.Lam_rot.copy_(Lam_rot)
+        self.lam_sph.copy_(lam_sph)
+        self.eta.fill_(eta)
+        self.stage1.X0.copy_(X0)
+        if bfac is not None:
+            for key, v in bfac.items():
+                if isinstance(v, torch.Tensor):
+                    self.bfac[key].copy_(v)
+            return
+        lam_diag = torch.cat([
+            torch.diagonal(Lam_rot, dim1=-2, dim2=-1).reshape(-1), lam_sph,
+            lam_sph.new_zeros(pd.num_translations)])
+        diagM = jacobi_diagonal(pd) - lam_diag + eta
+        self.inv_diag.copy_(torch.where(
+            diagM.abs() > 1e-8, 1.0 / diagM.abs(),
+            torch.ones_like(diagM))[:, None])
+
+
+def _factor_signature(bfac):
+    """What a kept `_CertLoop`'s preconditioner buffers must match."""
+    if bfac is None:
+        return None
+    return tuple(sorted(
+        (key, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
+        else (key, v) for key, v in bfac.items()))
+
+
 def _cert_eig_device(pd, Lam_rot, lam_sph, X0, eta, it1, it2, tol,
                      bfac=None):
     """Minimum eigenpair of S = Q − Λ by the two-stage LOBPCG cascade of
@@ -105,37 +198,51 @@ def _cert_eig_device(pd, Lam_rot, lam_sph, X0, eta, it1, it2, tol,
     negative curvature (θ_M < η/2 ⟺ θ_S < −η/2), stage 2 preconditioned
     with the rest. The stage-2 preconditioner is the banded factor of
     S + σI (`bfac`) when one exists, a clamped Jacobi diagonal otherwise.
-    Returns (θ, x, block, iterations, ‖residual‖)."""
 
-    def M_op(V):
-        return (data_matrix_product(pd, V)
-                - apply_lambda(pd, Lam_rot, lam_sph, V) + eta * V)
+    Both stages run as one device loop each (`ops.lobpcg.LobpcgLoop`),
+    captured on a CUDA device and kept between calls (`_CertLoop`); the
+    host reads one report per block, and stage 2's last brings back what
+    the JAX program returns (the block covering stage 1's cap is not
+    read). Returns (θ, x, block, iterations, ‖residual‖), x and the block
+    on the host."""
 
-    _, X1, k1, _ = lobpcg_min(M_op, X0, it1, tol=tol, nev=1,
-                              early_stop_below=eta / 2.0)
-    if bfac is not None:
-        from cora_tpu_torch.precond.banded import banded_apply
+    N, k = X0.shape
+    dt, dev = X0.dtype, X0.device
+    opts = loops.options()
+    graphs = dev.type == "cuda" and opts.graphs
+    # no block longer than its stage's cap: stage 1's (1 % of the budget)
+    # is shorter than a block
+    blocks = (min(_lobpcg.loop_block(graphs), max(it1, 1)),
+              _lobpcg.loop_block(graphs))
 
-        def precon(V):
-            return banded_apply(pd, bfac, V)
+    def make():
+        return _CertLoop(pd, N, k, dt, dev, tol, bfac, blocks, graphs,
+                         opts.sync_debug)
+
+    if graphs:
+        key = (id(pd), N, k, dt, dev, tol, blocks, _factor_signature(bfac),
+               opts.sync_debug)
+        cl = loops.keep("certificate", key, make)
+        if cl.pd is not pd:
+            cl = loops.keep("certificate", key, make, fresh=True)
     else:
-        lam_diag = torch.cat([
-            torch.diagonal(Lam_rot, dim1=-2, dim2=-1).reshape(-1), lam_sph,
-            lam_sph.new_zeros(pd.num_translations)])
-        diagM = jacobi_diagonal(pd) - lam_diag + eta
-        inv_diag = torch.where(diagM.abs() > 1e-8, 1.0 / diagM.abs(),
-                               torch.ones_like(diagM))[:, None]
-
-        def precon(V):
-            return inv_diag * V
-
-    _, X2, k2, _ = lobpcg_min(M_op, X1, it2, tol=tol, nev=1, precon=precon,
-                              early_stop_below=eta / 2.0)
-    x = X2[:, 0]
-    theta = x @ (M_op(x[:, None])[:, 0] - eta * x)  # Rayleigh quotient on S
-    resnorm = torch.linalg.vector_norm(
-        M_op(X2[:, :1]) - (theta + eta) * X2[:, :1])
-    return float(theta), x, X2, k1 + k2, float(resnorm)
+        cl = make()
+    cl.load(Lam_rot, lam_sph, eta, X0, bfac)
+    M_op = cl.M_op
+    with named_scope("certify/lobpcg1"):
+        _, X1, _, _ = lobpcg_min(M_op, cl.stage1.X0, it1, tol=tol, nev=1,
+                                 early_stop_below=eta / 2.0, loop=cl.stage1)
+    with named_scope("certify/lobpcg2"):
+        lobpcg_min(M_op, X1, it2, tol=tol, nev=1, precon=cl.precon,
+                   early_stop_below=eta / 2.0, loop=cl.stage2)
+    out = cl.stage2.last  # the stopping block's report
+    _, iters, bad, theta, resnorm = out[:5].tolist()
+    _lobpcg.LOOP_STATS["iterations"] += int(iters)
+    if bad:
+        raise RuntimeError("small_eigh did not converge in the certificate's "
+                           "LOBPCG")
+    X_blk = out[5:].reshape(N, k)
+    return theta, X_blk[:, 0], X_blk, int(iters), resnorm
 
 
 def certify_solution(

@@ -26,6 +26,7 @@ import torch
 
 from cora_tpu_torch.ops import riemannian as rm
 from cora_tpu_torch.ops.quadratic import data_matrix_product
+from cora_tpu_torch.utils import graphs as loops
 from cora_tpu_torch.utils.device import check_device
 
 # zero columns are exactly invariant under the whole polish; the JAX
@@ -34,6 +35,18 @@ from cora_tpu_torch.utils.device import check_device
 POLISH_PAD_RANK = 6
 # the Armijo ladder's step lengths, largest first
 ALPHAS = 0.5 ** np.arange(16, dtype=np.float64)
+# CG iterations per captured block (chosen on the card, PERF.md §6); eager
+# loops read after every iteration
+CG_BLOCK = 4
+# what the Newton-CG loops did, summed until `reset_loop_stats()`: captures
+# and their seconds, replays, eager step calls, host reads (one per block,
+# one per Newton step), blocks, CG iterations and Newton steps
+LOOP_STATS = dict(captures=0, capture_s=0.0, replays=0, eager_calls=0,
+                  host_reads=0, blocks=0, cg_iters=0, newton_steps=0)
+
+
+def reset_loop_stats():
+    loops.reset_stats(LOOP_STATS)
 
 
 @dataclasses.dataclass
@@ -77,52 +90,157 @@ def hessian_vector_product(pd, Q, Y, nablaF, dotY) -> np.ndarray:
                              op=q_op).numpy()
 
 
+class _NewtonCG:
+    """The damped-Newton direction's CG as a device loop (the JAX
+    package's `lax.while_loop` inside its jitted `newton_step`,
+    `cora_tpu/solve/polish.py:300-328`): the iterate Y, τ and the CG cap
+    are buffers filled before each step; `setup` forms f, the gradient and
+    the CG start, `block` runs `CG_BLOCK` masked CG iterations (once done
+    or at the cap every value keeps its old one), and `finish` takes the
+    descent test, the fallback to −z₀ and packs (f, ‖grad‖, ⟨grad, s⟩,
+    iterations) for the step's one read. On a CUDA device the three are
+    captured once per problem (the rank is padded to `POLISH_PAD_RANK`)
+    and replayed; the host reads the stop flag once per block."""
+
+    def __init__(self, pd, precon, N, r, device, block, graphs,
+                 sync_debug=False):
+        self.pd, self.precon, self.block = pd, precon, block
+        f64, i64 = torch.float64, torch.int64
+
+        def buf(*shape, dt=f64):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        self.Y, self.tau, self.cap = buf(N, r), buf(), buf(dt=i64)
+        self.c = dict(nablaF=buf(N, r), grad=buf(N, r), z0=buf(N, r),
+                      f=buf(), gn=buf(), rz0=buf(), rz_stop=buf())
+        self.t = dict(s=buf(N, r), r=buf(N, r), d=buf(N, r), rz=buf(),
+                      k=buf(dt=i64), done=buf(dt=torch.bool))
+        self.stop = buf(dt=torch.bool)
+        self.out = buf(4)
+        self.loop = loops.StepGraphs(
+            dict(setup=self._setup, block=self._block, finish=self._finish),
+            LOOP_STATS, graphs, device, sync_debug, scope="polish")
+
+    def _prec(self, v):
+        return rm.tangent_space_projection(self.pd, self.Y,
+                                           self.precon(v))
+
+    def _hess(self, v):
+        return rm.riemannian_hvp(self.pd, self.Y, self.c["nablaF"],
+                                 v) + self.tau * v
+
+    def _setup(self, commit=True):
+        pd, Y = self.pd, self.Y
+        nablaF = data_matrix_product(pd, Y)
+        grad = rm.tangent_space_projection(pd, Y, nablaF)
+        z0 = self._prec(grad)
+        rz0 = _dot(grad, z0)
+        c = dict(nablaF=nablaF, grad=grad, z0=z0, f=0.5 * _dot(Y, nablaF),
+                 gn=torch.sqrt(_dot(grad, grad)), rz0=rz0,
+                 rz_stop=rz0 * torch.clamp(torch.sqrt(torch.clamp(
+                     rz0, min=0.0)), max=0.25) ** 2)
+        done = (rz0 <= 0) | (self.cap <= 0)
+        t = dict(s=torch.zeros_like(grad), r=grad, d=-z0, rz=rz0,
+                 k=torch.zeros_like(self.t["k"]), done=rz0 <= 0)
+        if commit:
+            loops.copy_into(self.c, c)
+            loops.copy_into(self.t, t)
+            self.stop.copy_(done)
+
+    def _iteration(self, t):
+        """One masked CG iteration (the JAX body, `cora_tpu/solve/
+        polish.py:306-319`): negative-curvature truncation, superlinear
+        forcing term."""
+        tiny = torch.finfo(torch.float64).tiny
+        s, r, d, rz, k = t["s"], t["r"], t["d"], t["rz"], t["k"]
+        Hd = self._hess(d)
+        dHd = _dot(d, Hd)
+        neg = dHd <= 0
+        alpha = rz / torch.where(dHd == 0, tiny, dHd)
+        r_new = r + alpha * Hd
+        z = self._prec(r_new)
+        rz_new = _dot(r_new, z)
+        beta = rz_new / torch.where(rz == 0, tiny, rz)
+        new = dict(s=torch.where(neg, torch.where(k == 0, d, s),
+                                 s + alpha * d),
+                   r=r_new, d=-z + beta * d, rz=rz_new, k=k + 1,
+                   done=neg | (rz_new <= self.c["rz_stop"]))
+        active = ~t["done"] & (k < self.cap)
+        return {key: torch.where(active, v, t[key]) for key, v in new.items()}
+
+    def _block(self, commit=True):
+        t = self.t
+        for _ in range(self.block):
+            t = self._iteration(t)
+        if commit:
+            loops.copy_into(self.t, t)
+            self.stop.copy_(t["done"] | (t["k"] >= self.cap))
+
+    def _finish(self, commit=True):
+        c, s = self.c, self.t["s"]
+        gdir = _dot(c["grad"], s)
+        # not a descent direction: preconditioned steepest descent
+        descent = gdir < 0
+        s = torch.where(descent, s, -c["z0"])
+        gdir = torch.where(descent, gdir, -c["rz0"])
+        out = torch.stack([c["f"], c["gn"], gdir,
+                           self.t["k"].to(torch.float64)])
+        if commit:
+            self.t["s"].copy_(s)
+            self.out.copy_(out)
+
+    def step(self, Y, tau: float, max_cg: int):
+        """(f, ‖grad‖, ⟨grad, s⟩, CG iterations) at Y; s and the gradient
+        stay in the buffers."""
+        self.Y.copy_(Y)
+        self.tau.fill_(tau)
+        self.cap.fill_(int(max_cg))
+        self.loop.run("setup")
+        ran = 0
+        while True:
+            self.loop.run("block")
+            LOOP_STATS["blocks"] += 1
+            ran += self.block
+            # no read once the blocks have covered the cap
+            if ran >= max_cg or self.loop.read(self.stop):
+                break
+        self.loop.run("finish")
+        f, gn, gdir, k = self.loop.read(self.out)
+        LOOP_STATS["newton_steps"] += 1
+        LOOP_STATS["cg_iters"] += int(k)
+        return f, gn, gdir, int(k)
+
+
+def _newton_loop(pd, precon, Y) -> _NewtonCG:
+    """The Newton-CG loop for Y's shape: built per call when eager; kept
+    while (problem data, preconditioner, shape, block) hold when captured,
+    so one capture serves every polish of a problem."""
+    opts = loops.options()
+    graphs = Y.device.type == "cuda" and opts.graphs
+    block = opts.block_of("cg_block", CG_BLOCK, graphs)
+
+    def make():
+        return _NewtonCG(pd, precon, *Y.shape, Y.device, block, graphs,
+                         opts.sync_debug)
+
+    if not graphs:
+        return make()
+    key = (id(pd), id(precon), tuple(Y.shape), Y.device, block,
+           opts.sync_debug)
+    nl = loops.keep("polish", key, make)
+    if nl.pd is not pd or nl.precon is not precon:
+        nl = loops.keep("polish", key, make, fresh=True)
+    return nl
+
+
 def newton_step(pd, precon, Y, tau: float, max_cg: int):
     """f and grad at Y, plus the damped-Newton direction s from a
     preconditioned CG solve of (Hess + τI)s = −grad (negative-curvature
-    truncation, superlinear forcing term). Returns (f, grad, ‖grad‖, s,
-    ⟨grad, s⟩, CG iterations)."""
-    nablaF = data_matrix_product(pd, Y)
-    f = 0.5 * float(_dot(Y, nablaF))
-    grad = rm.tangent_space_projection(pd, Y, nablaF)
-    gn = float(torch.sqrt(_dot(grad, grad)))
-
-    def hess(v):
-        return rm.riemannian_hvp(pd, Y, nablaF, v) + tau * v
-
-    def prec(v):
-        return rm.tangent_space_projection(pd, Y, precon(v))
-
-    tiny = float(np.finfo(np.float64).tiny)
-    z0 = prec(grad)
-    rz0 = float(_dot(grad, z0))
-    rz_stop = rz0 * min(0.25, np.sqrt(max(rz0, 0.0))) ** 2
-    s = torch.zeros_like(grad)
-    r, d, rz = grad, -z0, rz0
-    k = 0
-    done = rz0 <= 0
-    while k < max_cg and not done:
-        Hd = hess(d)
-        dHd = float(_dot(d, Hd))
-        neg = dHd <= 0
-        alpha = rz / (tiny if dHd == 0 else dHd)
-        if neg:
-            s = d if k == 0 else s
-        else:
-            s = s + alpha * d
-        r = r + alpha * Hd
-        z = prec(r)
-        rz_new = float(_dot(r, z))
-        conv = rz_new <= rz_stop
-        beta = rz_new / (tiny if rz == 0 else rz)
-        d = -z + beta * d
-        rz = rz_new
-        k += 1
-        done = neg or conv
-    gdir = float(_dot(grad, s))
-    if not gdir < 0:  # not a descent direction: preconditioned steepest
-        s, gdir = -z0, -rz0
-    return f, grad, gn, s, gdir, k
+    truncation, superlinear forcing term), as a device loop (`_NewtonCG`).
+    Returns (f, grad, ‖grad‖, s, ⟨grad, s⟩, CG iterations)."""
+    nl = _newton_loop(pd, precon, Y)
+    f, gn, gdir, k = nl.step(Y, tau, max_cg)
+    return f, nl.c["grad"].clone(), gn, nl.t["s"].clone(), gdir, k
 
 
 def probe_ladder(pd, Y, s, alphas):

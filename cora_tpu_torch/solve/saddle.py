@@ -6,7 +6,8 @@ r → r+1, the uncertified solution Y is lifted by a zero column and a step
 is taken along Ẏ = e_{r+1} vᵀ, v the negative-curvature eigenvector of
 the certificate. The ±α ladder (both signs, since an eigenvector's sign is
 arbitrary; α from max(100·tol/|θ|, 1) halving 24 times) is evaluated
-trial by trial, and the largest step that decreases the objective with
+in one batched pass, as the JAX package evaluates it in one program, with
+one host read; the largest step that decreases the objective with
 both gradient norms above the stopping tolerances wins; else the best
 strict decrease; else the lifted saddle itself.
 
@@ -28,14 +29,25 @@ from cora_tpu_torch.ops.riemannian import retract, tangent_space_projection
 N_ALPHAS = 24  # α ladder: alpha0 / 2^k, k = 0..N_ALPHAS-1
 
 
-def _trial(pd, Y_aug, Ydot, alpha: float, precon, op):
-    """(f, ‖grad‖, ‖Proj(P grad)‖) at retract(Y_aug, α·Ẏ), on the device."""
-    Y = retract(pd, Y_aug, alpha * Ydot)
-    QY = op(Y)
-    grad = tangent_space_projection(pd, Y, QY)
-    pgrad = tangent_space_projection(pd, Y, precon(grad))
-    return torch.stack([0.5 * (Y * QY).sum(), torch.linalg.vector_norm(grad),
-                        torch.linalg.vector_norm(pgrad)])
+def _trial_ladder(pd, Y_aug, Ydot, signed, precon, op):
+    """(f, ‖grad‖, ‖Proj(P grad)‖) at retract(Y_aug, α·Ẏ) for every signed
+    α in one batched pass (`cora_tpu/solve/saddle.py:41-71`): the trial
+    states go through Q and the preconditioner side by side as columns,
+    both acting on each column alone. Returns (3, A) on the device."""
+    N, r = Y_aug.shape
+    A = signed.shape[0]
+    Yb = retract(pd, Y_aug, signed[:, None, None] * Ydot)  # (A, N, r)
+
+    def columns(fn, V):
+        out = fn(V.permute(1, 0, 2).reshape(N, A * r))
+        return out.reshape(-1, A, r).permute(1, 0, 2)
+
+    QYb = columns(op, Yb)
+    grad = tangent_space_projection(pd, Yb, QYb)
+    pgrad = tangent_space_projection(pd, Yb, columns(precon, grad))
+    return torch.stack([0.5 * (Yb * QYb).sum((1, 2)),
+                        torch.linalg.vector_norm(grad, dim=(1, 2)),
+                        torch.linalg.vector_norm(pgrad, dim=(1, 2))])
 
 
 def saddle_escape(pd, Y: torch.Tensor, theta: float, v, precon,
@@ -43,24 +55,24 @@ def saddle_escape(pd, Y: torch.Tensor, theta: float, v, precon,
                   preconditioned_gradient_tolerance: float = 1e-4,
                   verbose: bool = False, op=None) -> torch.Tensor:
     """Escape the rank-r saddle Y into rank r+1; returns the (N, r+1)
-    state. `op` is the quadratic-form operator (explicit Q when None)."""
+    state. `op` is the quadratic-form operator (explicit Q when None). The
+    saddle's f and the 48 trials' scalars come back in one host read."""
     if op is None:
         op = functools.partial(data_matrix_product, pd)
     N, _ = Y.shape
     Y_aug = torch.cat([Y, Y.new_zeros((N, 1))], dim=1)
-    QY = op(Y_aug)
-    f_saddle = float(0.5 * (Y_aug * QY).sum())
     Ydot = torch.zeros_like(Y_aug)
     Ydot[:, -1] = torch.as_tensor(np.asarray(v).reshape(N)).to(Ydot)
 
     # the JAX package's floor 16·α_min (1.6e-5) never binds under 1
     alpha0 = max(100 * gradient_tolerance / abs(theta), 1.0)
     alphas = torch.tensor(alpha0 * 0.5 ** np.arange(N_ALPHAS),
-                          dtype=Y.dtype).tolist()
-    signed = np.stack([alphas, [-a for a in alphas]], axis=1).reshape(-1)
-    f, gn, pgn = torch.stack([
-        _trial(pd, Y_aug, Ydot, float(a), precon, op) for a in signed
-    ], dim=1).cpu().numpy()
+                          dtype=Y.dtype)
+    signed = torch.stack([alphas, -alphas], dim=1).reshape(-1)
+    trials = _trial_ladder(pd, Y_aug, Ydot, signed.to(Y.device), precon, op)
+    f_saddle = 0.5 * (Y_aug * op(Y_aug)).sum()
+    host = torch.cat([f_saddle.view(1), trials.reshape(-1)]).cpu().numpy()
+    f_saddle, (f, gn, pgn) = host[0], host[1:].reshape(3, -1)
 
     ok = ((f < f_saddle) & (gn > gradient_tolerance)
           & (pgn > preconditioned_gradient_tolerance))

@@ -34,7 +34,8 @@ plain versions on the CPU); any other solve — the implicit formulation,
 other preconditioners, float64 — runs the canonical path (`tnt_solve`,
 `saddle_escape`) on the canonical ops, announced under `verbose`; its TNT
 levels run as the device loop of `solve/tnt.py`, captured as CUDA graphs
-on the card (eager with `use_kernels="never"` and on a mesh). On a CUDA
+on the card (eager with `use_kernels="never"` and on a mesh), as do the
+certificate's LOBPCG and the polish's CG on both paths. On a CUDA
 device a kernel that fails to build or launch, or a loop that fails to
 capture, raises: nothing falls back to another path. Both paths certify
 with `method="auto"`. A sharded solve (`mesh=`, `cora_tpu_torch.parallel`) runs the canonical path
@@ -166,6 +167,16 @@ def solve_cora(
     share, so every rank ends on the same bits. `device` must be the
     mesh's kind of device."""
     config = config or SolverConfig()
+    # the device loops (TNT levels, the certificate's LOBPCG, the polish's
+    # CG) run captured on the card, eagerly for `use_kernels="never"` (the
+    # plain versions) and on a mesh, whose collectives stay outside graphs
+    with device_loop(graphs=mesh is None and config.use_kernels != "never"):
+        return _solve_cora(problem, x0, max_rank, config, verbose,
+                           checkpoint_path, device, mesh)
+
+
+def _solve_cora(problem, x0, max_rank, config, verbose, checkpoint_path,
+                device, mesh) -> CoraResult:
     device = check_device(device)
     implicit = config.formulation == Formulation.IMPLICIT
     if max_rank is None:
@@ -239,16 +250,10 @@ def solve_cora(
         def project(X):
             return project_to_manifold(pd, X)
 
-        # the device loop runs captured on the card, eagerly for
-        # `use_kernels="never"` (the plain versions) and on a mesh, whose
-        # collectives stay outside the graphs
-        graphs = mesh is None and config.use_kernels != "never"
-
         def run_tnt(X, **kw):
-            with device_loop(graphs=graphs):
-                return tnt_solve(pd, X, precon, config.tnt, op=solver_op,
-                                 log_iterates=config.log_iterates,
-                                 clock=clock, **kw)
+            return tnt_solve(pd, X, precon, config.tnt, op=solver_op,
+                             log_iterates=config.log_iterates, clock=clock,
+                             **kw)
 
         def escape(Y, theta, v):
             return saddle_escape(

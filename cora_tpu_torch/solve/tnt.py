@@ -41,8 +41,6 @@ below.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import dataclasses
 import time
 from typing import Callable
@@ -57,7 +55,12 @@ from cora_tpu_torch.ops.riemannian import (
     tangent_space_projection,
 )
 from cora_tpu_torch.types import TNTParams, TNTResult
-from cora_tpu_torch.utils.timing import named_scope
+from cora_tpu_torch.utils import graphs as loops
+from cora_tpu_torch.utils.graphs import (  # noqa: F401 (the loop's names)
+    clear_graphs,
+    copy_into as _copy_into,
+    device_loop,
+)
 
 # termination reason codes
 RUNNING = 0
@@ -100,39 +103,7 @@ LOOP_STATS = dict(captures=0, capture_s=0.0, replays=0, eager_calls=0,
 
 
 def reset_loop_stats():
-    for k in LOOP_STATS:
-        LOOP_STATS[k] = 0.0 if k == "capture_s" else 0
-
-
-@dataclasses.dataclass(frozen=True)
-class _LoopOptions:
-    graphs: bool = True  # capture on a CUDA device
-    block: int | None = None  # tCG iterations per block (None: default)
-    sync_debug: bool = False  # captures under set_sync_debug_mode("error")
-
-
-_OPTIONS = contextvars.ContextVar("cora_tnt_loop", default=_LoopOptions())
-
-
-@contextlib.contextmanager
-def device_loop(graphs: bool | None = None, block: int | None = None,
-                sync_debug: bool | None = None):
-    """Options of the device loop for the `tnt_solve` calls inside:
-    `graphs=False` runs the step functions eagerly on the card too (the
-    staircase's `use_kernels="never"` and sharded solves); `block` sets the
-    tCG iterations per block; `sync_debug=True` runs each warm-up, capture
-    and first replay under `torch.cuda.set_sync_debug_mode("error")`, so
-    any host synchronisation in a step function raises."""
-    cur = _OPTIONS.get()
-    token = _OPTIONS.set(dataclasses.replace(
-        cur,
-        graphs=cur.graphs if graphs is None else bool(graphs),
-        block=cur.block if block is None else int(block),
-        sync_debug=cur.sync_debug if sync_debug is None else bool(sync_debug)))
-    try:
-        yield
-    finally:
-        _OPTIONS.reset(token)
+    loops.reset_stats(LOOP_STATS)
 
 
 def _inner(a, b):
@@ -231,20 +202,6 @@ def _f_and_grad(pd, Y, op=None):
         tangent_space_projection(pd, Y, nablaF), nablaF
 
 
-@contextlib.contextmanager
-def _sync_errors(on: bool):
-    """Every host synchronisation raises inside, when `on`."""
-    if not on:
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
-
-
 class _Level:
     """The device loop of one TNT level: the carry in fixed-address
     buffers and the three step functions over them, eager or captured.
@@ -288,12 +245,9 @@ class _Level:
                       mdec=scalar(), k=scalar(i64), done=scalar(torch.bool),
                       hit=scalar(torch.bool), rz_stop=scalar(),
                       cap=scalar(i64))
-        self.fns = dict(setup=self._setup, block=self._block,
-                        step=self._step)
-        self.cuda_graphs = {}
-        if graphs:
-            self.pool = torch.cuda.graph_pool_handle()
-            self.stream = torch.cuda.Stream(device=dev)
+        self.loop = loops.StepGraphs(
+            dict(setup=self._setup, block=self._block, step=self._step),
+            LOOP_STATS, graphs, dev, sync_debug, scope="tnt")
 
     # --- the operators at the carry's point --------------------------------
 
@@ -443,73 +397,18 @@ class _Level:
 
     # --- driving ------------------------------------------------------------
 
-    def _run(self, name):
-        with named_scope(f"tnt/{name}"):
-            if not self.graphs:
-                LOOP_STATS["eager_calls"] += 1
-                self.fns[name]()
-                return
-            g = self.cuda_graphs.get(name)
-            if g is None:
-                with _sync_errors(self.sync_debug):
-                    g = self._capture(name)
-                    g.replay()
-            else:
-                g.replay()
-            LOOP_STATS["replays"] += 1
-
-    def _capture(self, name):
-        """Warm the step function up on the side stream (its results
-        dropped, the buffers untouched), then capture it there into the
-        level's graph pool. A failure raises."""
-        t0 = time.time()
-        fn = self.fns[name]
-        cur = torch.cuda.current_stream()
-        self.stream.wait_stream(cur)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream):
-            fn(commit=False)
-            g.capture_begin(pool=self.pool)
-            try:
-                fn()
-            finally:
-                g.capture_end()
-        cur.wait_stream(self.stream)
-        self.cuda_graphs[name] = g
-        LOOP_STATS["captures"] += 1
-        LOOP_STATS["capture_s"] += time.time() - t0
-        return g
-
-    def _read(self, x):
-        LOOP_STATS["host_reads"] += 1
-        return x.tolist()
-
     def outer_iteration(self):
         """One TNT iteration: tCG set-up, blocks until `done`, the step.
         Returns (k, status) after it."""
-        self._run("setup")
+        self.loop.run("setup")
         while True:
-            self._run("block")
+            self.loop.run("block")
             LOOP_STATS["blocks"] += 1
-            if self._read(self.t["done"]):
+            if self.loop.read(self.t["done"]):
                 break
-        self._run("step")
+        self.loop.run("step")
         LOOP_STATS["outer_iters"] += 1
-        return self._read(self.ks)
-
-
-def _copy_into(dst: dict, src: dict):
-    for key, v in src.items():
-        dst[key].copy_(v)
-
-
-# one captured level kept between calls: (key, _Level)
-_CAPTURED: list = [None, None]
-
-
-def clear_graphs():
-    """Free the kept captured level (its graphs, pool and buffers)."""
-    _CAPTURED[0] = _CAPTURED[1] = None
+        return self.loop.read(self.ks)
 
 
 def _level_for(pd, Y0, precon, params, op, history_len, log_iterates,
@@ -524,14 +423,14 @@ def _level_for(pd, Y0, precon, params, op, history_len, log_iterates,
     key = (id(pd), id(op), id(precon), tuple(Y0.shape), Y0.dtype,
            Y0.device, tuple(dataclasses.asdict(params).items()), history_len,
            log_iterates, block)
-    held = _CAPTURED[1]
-    if _CAPTURED[0] == key and held.pd is pd and held.op is op \
-            and held.precon is precon and not sync_debug:
-        return held
-    clear_graphs()
-    lvl = _Level(pd, Y0, precon, params, op, history_len, log_iterates,
-                 block, True, sync_debug)
-    _CAPTURED[0], _CAPTURED[1] = key, lvl
+
+    def make():
+        return _Level(pd, Y0, precon, params, op, history_len, log_iterates,
+                      block, True, sync_debug)
+
+    lvl = loops.keep("tnt", key, make, fresh=sync_debug)
+    if lvl.pd is not pd or lvl.op is not op or lvl.precon is not precon:
+        lvl = loops.keep("tnt", key, make, fresh=True)
     return lvl
 
 
@@ -571,14 +470,14 @@ def tnt_solve(
     """
     params = params or TNTParams()
     t0 = time.time()
-    opts = _OPTIONS.get()
+    opts = loops.options()
     ramp_until = max(int(ramp_iterations), 0)
     iter_cap = params.max_iterations + ramp_until
     tcg_cap = params.max_tcg_iterations
     ramp_tcg = min(int(ramp_tcg) if ramp_tcg > 0 else tcg_cap, tcg_cap)
     max_time = params.max_computation_time
     graphs = Y0.device.type == "cuda" and opts.graphs
-    block = opts.block or (TCG_BLOCK if graphs else 1)
+    block = opts.block_of("block", TCG_BLOCK, graphs)
 
     lvl = _level_for(pd, Y0, precon, params, op, iter_cap, log_iterates,
                      block, graphs, opts.sync_debug)
