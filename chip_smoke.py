@@ -27,10 +27,15 @@ raises and the script exits non-zero:
      the same bits at K = 1 and at the chosen K, agrees at each α with the
      cluster `step` at s = α·Ẏ within 1e-6 (and says at how many α it is
      bit-equal), and is timed at K = 1, 2, 3, 4, 6, 8 where they fit.
-     `small_eigh` (LOBPCG's Rayleigh–Ritz eigensolver) against its plain
-     twin on random symmetric 30 × 30 and 36 × 36 matrices in float32 and
-     float64 (eigenvalues to 1e-5 / 1e-12 relative, ‖VᵀV − I‖ and
-     ‖AV − VΛ‖), timed at n = 30 float32 against the twin and
+     `small_eigh` (LOBPCG's Rayleigh–Ritz eigensolver: the one-warp
+     kernel for n ≤ 32, the one-CTA kernel `small_eigh_cta` above) against
+     its plain twin on random symmetric 30 × 30 and 36 × 36 matrices in
+     float32 and float64 and on the graded matrices of
+     `scripts/small_eigh_cases.py` at n = 10 and 30 (eigenvalues to 1e-5 /
+     1e-12 relative, ‖VᵀV − I‖ and ‖AV − VΛ‖); wherever the one-warp
+     kernel runs, it must give the one-CTA kernel's bits (w, V, info), and
+     the one-CTA kernel is held to the twin too; both timed at n = 30
+     float32 in turns (one-CTA, warp, warp, one-CTA) beside the twin and
      `torch.linalg.eigh`;
   3. slice — `solve_cora` on both graphs with bench.py's configuration and
      the kernels, from the numpy-seeded start, and on the plaza2-shaped
@@ -81,7 +86,8 @@ raises and the script exits non-zero:
      and per CG iteration, and its first failed certificate and first
      polish run again, captured afresh under the sync check and eagerly,
      both on the solve's bits, the eager certificate's Rayleigh–Ritz
-     matrices held to small_eigh's plain twin;
+     matrices held to small_eigh's plain twin and, at n ≤ 32, to the
+     one-CTA kernel's bits;
   6. implicit — the translation-implicit (marginalized) formulation and
      the solve's host surroundings, in float64: the native PyFG tokenizer
      against the Python parser on both multi-robot graphs (identical data
@@ -124,7 +130,8 @@ raises and the script exits non-zero:
 The kernels' launch counts are zeroed just before the timed kernel-path
 solves and read just after them; the main path must launch the cluster
 `chunk`, `step` and `ladder` and `small_eigh` (its failed certificates),
-and never a single-CTA comparator. The line before the last is one JSON
+and never a single-CTA comparator (`small_eigh_cta` only for a routed
+n > 32, that is a certificate at rank 9 or more). The line before the last is one JSON
 object with the route, source, launches, error, times and bound of each
 kernel the main path launches (`chunk`, `step`, `ladder`, `small_eigh`;
 `tcg`, whose loop runs inside `chunk`, gets a line of its own). A
@@ -179,6 +186,9 @@ EIGH_TOL = {"float32": 1e-5, "float64": 1e-12}
 EIGH_ORTH = {"float32": 1e-4, "float64": 1e-12}
 EIGH_CASES = ((30, "float32"), (36, "float32"), (30, "float64"),
               (36, "float64"))
+# the probe's graded matrices (eigenvalues 1e-3 … 1e5, a near-degenerate
+# pair at the bottom) at the main path's k and 3k
+EIGH_GRADED = (10, 30)
 # the card's float64 peak outside the tensor cores (NVIDIA's H100 SXM
 # data sheet): small_eigh computes in float64 for either input type
 PEAK_F64 = 34e12
@@ -321,9 +331,10 @@ def phase_device():
     for name, regs, st, ld in ptxas_summary(info["log"]):
         print(f"[device] ptxas {name}: {regs} registers, spills {st} B stored"
               f" / {ld} B loaded", flush=True)
-    for line in small_eigh.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[device] ptxas small_eigh: {line.strip()}", flush=True)
+    from small_eigh_cases import ptxas_lines
+
+    for name, line in ptxas_lines(small_eigh.BUILD_INFO["log"]):
+        print(f"[device] ptxas {name}: {line}", flush=True)
     res = probe.measure(probe_lib, quick=True)
     print("[device] probe: __syncthreads (1024 threads) "
           f"{res['syncthreads_us']:.4f} us; cluster.sync " + ", ".join(
@@ -608,11 +619,28 @@ def check_small_eigh(A, stats, what):
     per matrix."""
     import torch
 
-    from cora_tpu_torch.ops.small_eigh import small_eigh, small_eigh_plain
+    from small_eigh_cases import bits_equal
+
+    from cora_tpu_torch.ops.small_eigh import route, small_eigh, \
+        small_eigh_plain
 
     dt = "float32" if A.dtype == torch.float32 else "float64"
     w, V, info = small_eigh(A)
     wp, Vp, _ = small_eigh_plain(A)
+    if route(A.shape[-1], A.dtype) == "warp":
+        # the one-warp kernel against the one-CTA kernel, bit for bit; the
+        # one-CTA kernel against the twin as the routed one is below
+        cta = small_eigh(A, kernel="cta")
+        same = bits_equal((w, V, info), cta)
+        print(f"[kernels] small_eigh {what}: one-warp and one-CTA kernels "
+              f"bit for bit: {same}", flush=True)
+        check(same, f"small_eigh {what}: the one-warp kernel left the "
+              "one-CTA kernel's bits")
+        ew = float(((cta[0] - wp).abs().amax(-1)
+                    / wp.abs().amax(-1).clamp_min(1e-30)).max())
+        check(ew <= EIGH_TOL[dt] and min(cta[2].tolist()) >= 0,
+              f"small_eigh_cta {what}: eigenvalues {ew:.3e}, info "
+              f"{cta[2].tolist()}")
     scale = wp.abs().amax(-1).clamp_min(1e-30)
     ev = float(((w - wp).abs().amax(-1) / scale).max())
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
@@ -651,14 +679,17 @@ def check_small_eigh(A, stats, what):
 
 def phase_small_eigh(stats, probe):
     """`small_eigh` on random symmetric matrices of the Rayleigh–Ritz
-    sizes (n = 3k = 30, 36) in float32 and float64, held to its plain twin;
-    timed (median of 20, CUDA events) at the main path's n = 30 in float32
-    against the twin and `torch.linalg.eigh`, with its bound: the larger of
-    its bytes at 3.35 TB/s, its FLOPs at the float64 peak and its dependent
-    rounds (sweeps × (n − 1)) times the `__syncthreads` the probe measured
-    in this run."""
+    sizes (n = 3k = 30, 36) in float32 and float64 and on the probe's
+    graded matrices at n = 10 and 30, held to its plain twin and, at
+    n ≤ 32, to the one-CTA kernel's bits; timed (median of 20, CUDA
+    events) at the main path's n = 30 in float32, the one-CTA kernel and
+    the routed one in turns, beside the twin and `torch.linalg.eigh`, with
+    its bound: the larger of its bytes at 3.35 TB/s, its FLOPs at the
+    float64 peak and its dependent rounds (sweeps × (n − 1)) times the
+    `__syncthreads` the probe measured in this run."""
     import numpy as np
     import torch
+    from small_eigh_cases import corpus
 
     from cora_tpu_torch.ops.small_eigh import small_eigh, small_eigh_plain
 
@@ -670,7 +701,9 @@ def phase_small_eigh(stats, probe):
         sweeps = check_small_eigh(A, stats, "random")
         if (n, dt) == (30, "float32"):  # the main path's matrices
             A1 = A[0].contiguous()
-            ms = median_ms(lambda: small_eigh(A1), torch)
+            t = [median_ms(lambda: small_eigh(A1, kernel=k), torch)
+                 for k in ("cta", None, None, "cta")]
+            ms, cta_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             plain_ms = median_ms(lambda: small_eigh_plain(A1), torch)
             lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch)
             npad, h = n + n % 2, (n + n % 2) // 2
@@ -687,13 +720,22 @@ def phase_small_eigh(stats, probe):
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=terms[term],
                 bound_by="bytes" if term == "bytes" else "operations",
-                bound_term=term, work=work, group="one CTA per matrix",
-                block_ms=None)
-            print(f"[kernels] small_eigh n = {n} {dt}: {ms:.4f} ms (plain "
-                  f"twin {plain_ms:.4f} ms, torch.linalg.eigh {lib_ms:.4f} "
-                  f"ms); bound {terms[term]:.4f} ms by {term} "
+                bound_term=term, work=work,
+                group="one CTA of 3 update warps and a rotation warp per "
+                "matrix, a lane per row", block_ms=cta_ms,
+                turns_ms=t)
+            print(f"[kernels] small_eigh n = {n} {dt}: {ms:.4f} ms against "
+                  f"the one-CTA kernel's {cta_ms:.4f} ms (in turns one-CTA, "
+                  "warp, warp, one-CTA: " + ", ".join(f"{x:.4f}" for x in t)
+                  + f" ms; plain twin {plain_ms:.4f} ms, torch.linalg.eigh "
+                  f"{lib_ms:.4f} ms); bound {terms[term]:.4f} ms by {term} "
                   f"({sweeps[0]} sweeps × {npad - 1} rounds × "
                   f"{probe['syncthreads_us']:.4f} us)", flush=True)
+    for n in EIGH_GRADED:
+        for dt in (torch.float32, torch.float64):
+            A = torch.as_tensor(np.stack([corpus(n, s)["graded"]
+                                          for s in range(4)])).to("cuda", dt)
+            check_small_eigh(A, stats, "graded")
 
 
 def solve_once(problem, cfg, x0, device="cuda", **kw):
@@ -704,8 +746,8 @@ def solve_once(problem, cfg, x0, device="cuda", **kw):
     `LEVEL_CALLS`;
     the device loop's counts (`tnt.LOOP_STATS`) are zeroed first, so after
     the call they are this solve's. The certificate's and the polish's
-    loop counts, small_eigh's launches, the certify / polish split and the
-    certificate and polish calls go to `LAST`."""
+    loop counts, small_eigh's launches (both kernels), the certify / polish
+    split and the certificate and polish calls go to `LAST`."""
     import probe_cert_loop as cert_probe
     import torch
 
@@ -718,7 +760,7 @@ def solve_once(problem, cfg, x0, device="cuda", **kw):
     tnt.reset_loop_stats()
     lobpcg.reset_loop_stats()
     polish.reset_loop_stats()
-    eigh0 = small_eigh.LAUNCHES["small_eigh"]
+    eigh0 = sum(small_eigh.LAUNCHES.values())
     solvers = {name: getattr(staircase, name)
                for name in ("tnt_solve_tiles", "tnt_solve")}
 
@@ -748,7 +790,7 @@ def solve_once(problem, cfg, x0, device="cuda", **kw):
             setattr(staircase, name, solve)
     LAST.update(lobpcg=dict(lobpcg.LOOP_STATS), cg=dict(polish.LOOP_STATS),
                 parts=dict(parts), calls=calls,
-                small_eigh=small_eigh.LAUNCHES["small_eigh"] - eigh0)
+                small_eigh=sum(small_eigh.LAUNCHES.values()) - eigh0)
     ate = float(evaluate_ate(problem,
                              staircase.extract_solution(problem, cfg, res)))
     return res, wall, ate, levels
@@ -783,7 +825,8 @@ def cert_line(tag, name):
 def captured_loops(name):
     """In the last `solve_once`, every failed certificate's LOBPCG and
     every polish's CG ran as replayed graphs (no eager step call), the
-    LOBPCG through small_eigh."""
+    LOBPCG through small_eigh (either kernel: the one-CTA one from rank
+    9)."""
     lp, cg = LAST["lobpcg"], LAST["cg"]
     failed = any(c[0] == "certify" and not c[4].is_certified
                  and c[4].num_iters > 0 for c in LAST["calls"])
@@ -1079,6 +1122,14 @@ def phase_slice(problems, reference):
     print(f"[slice] launches in the timed kernel-path solves: "
           f"{json.dumps(launches)}; per solve {json.dumps(per_solve)}",
           flush=True)
+    # a certificate at rank r runs LOBPCG on k = max(10, r + 2) columns: its
+    # 3k × 3k Rayleigh–Ritz matrices route to the one-CTA kernel from r = 9
+    top = max(max(res.ranks_visited) for res, *_ in results.values())
+    print(f"[slice] small_eigh: one-warp kernel {launches['small_eigh']} "
+          f"launches, one-CTA kernel {launches['small_eigh_cta']} (highest "
+          f"rank {top}: n = 3k ≤ {3 * max(10, top + 2)})", flush=True)
+    check(top >= 9 or not launches["small_eigh_cta"],
+          f"the one-CTA small_eigh ran on the main path at n ≤ 32: {launches}")
     for name in bench:
         res, wall, ate, levels = solve_once(
             problems[name], config(name, "never"), starts[name])
@@ -1232,8 +1283,7 @@ def cert_loops_checked(name, calls, stats):
               f"on the solve's bits: {same}", flush=True)
         check(not st["captures"] and st["eager_calls"] and same,
               f"{name}: the eager {kind} made {st}, same {same}")
-        if rr:
-            n = max(A.shape[-1] for A in rr)
+        for n in sorted({A.shape[-1] for A in rr}):  # k × k and 3k × 3k
             check_small_eigh(torch.stack([A for A in rr
                                           if A.shape[-1] == n]), stats,
                              f"{name} certificate's Rayleigh–Ritz")
@@ -1767,7 +1817,7 @@ def main():
                      library_ms=v["library_ms"], group=v["group"],
                      block_ms=v["block_ms"])
         for x in ("us_per_tcg_iter", "block_us_per_tcg_iter", "sweep_ms",
-                  "scratch_mb"):
+                  "scratch_mb", "turns_ms"):
             if x in v:
                 entry[x] = v[x]
         kernels.append(entry)

@@ -139,21 +139,22 @@ def _nvcc() -> str:
 
 def compile_library(stem: str, sources, main: str, flags=NVCC_FLAGS):
     """nvcc `CSRC/main` into `BUILD_DIR/<stem>_<hash>.so`, once per hash of
-    `sources` and `flags`: (path, nvcc's output, "" when it was built
-    already). A failed build raises."""
+    `sources` and `flags`: (path, nvcc's output, kept beside the library
+    when it was built already). A failed build raises."""
     digest = hashlib.sha256()
     for name in sources:
         digest.update((CSRC / name).read_bytes())
     digest.update(" ".join(flags).encode())
     so = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
-    log = ""
+    saved = BUILD_DIR / (so.stem + ".log")
+    log = saved.read_text() if saved.exists() else ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / main)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr
-        (BUILD_DIR / (so.stem + ".log")).write_text(log)
+        saved.write_text(log)
         if proc.returncode != 0:
             raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so)

@@ -1,0 +1,340 @@
+#!/usr/bin/env python3
+"""The `small_eigh` kernels alone on one NVIDIA GPU: build, bits and times.
+
+    python3 scripts/probe_small_eigh.py [--split] [--parent FILE] [--sass DIR]
+                                        [--out FILE]
+
+Builds only `cora_tpu_torch/ops/csrc/small_eigh.cu` (seconds): the
+package's library, whose one-warp kernel has 3 update warps, and beside it
+the same source with `-DSMALL_EIGH_UPDATE_WARPS=1, 2, 4` (one nvcc each, in
+parallel). Prints nvcc's `-Xptxas -v` lines of the package's kernels, then:
+  (a) bits: on the seeded corpus of `small_eigh_cases.corpus` (random
+      symmetric, graded Qᵀ diag(λ) Q with λ over 1e-3 … 1e5 and a
+      near-degenerate pair at the bottom, a repeated-eigenvalue and a
+      zero-block matrix, one with a NaN) at n = 10, 12, 30, 31, 32, 36, 64,
+      96 in float32 and float64, batch 1 and 4, the routed `small_eigh`
+      against the one-CTA kernel (`small_eigh_cta`), and at n ≤ 32 the
+      one-warp kernel of every update-warp count: `torch.equal` on the
+      bits of w, V and info, counted per case; the eigenvalues' error
+      against `torch.linalg.eigh` in float64;
+  (b) times: median of 20 single calls (CUDA events around each, as
+      `chip_smoke.py` times) of the one-CTA kernel, the one-warp kernel of
+      each update-warp count (`warp<w>_ms`) and `torch.linalg.eigh`, in
+      turns (one-CTA, warp, warp, one-CTA), at n = 10, 30, 36 in both
+      dtypes, with the sweeps taken; and each kernel's device ms per call
+      over 50 calls back to back (`loop_ms`);
+  (c) with `--split`: builds with `-DSMALL_EIGH_SPLIT` (never set by the
+      package's build), whose one-warp kernel stamps `clock64()` in each
+      round: the cycles per round of the rotation warp (the next round's
+      entries and rotations), of update warp 0 and of its wait at the
+      round's barrier, and per stop test, at n = 10 and 30 for each
+      update-warp count.
+With `--parent FILE`, another version's `small_eigh.cu` (the one-CTA
+kernel's C interface before its rename, `cora_small_eigh_f32/f64`) is
+built too and held to both kernels of this tree bit for bit on the same
+corpus. With `--sass DIR`, `cuobjdump -sass` of the package's library goes
+to DIR/small_eigh.sass. Prints the card's name and power limit first and,
+last, one JSON object of all the numbers. Exits non-zero without a CUDA
+device or when a result differs from the one-CTA kernel's.
+"""
+
+import argparse
+import concurrent.futures
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from small_eigh_cases import bits_equal, corpus, ptxas_lines  # noqa: E402
+
+SIZES = (10, 12, 30, 31, 32, 36, 64, 96)
+TIMED = (10, 30, 36)
+SPLIT = (10, 30)
+WIDTHS = (1, 2, 3, 4)  # update warps of the one-warp kernel; the package: 3
+REPS = 20
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, torch):
+    times = []
+    for _ in range(REPS + 2):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times[2:])
+
+
+def loop_ms(fn, torch, count=50):
+    """Device ms per call over `count` calls back to back (the queue stays
+    full when a call's host work is shorter than its kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(count):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / count
+
+
+def build(se, defines):
+    """nvcc the package's source with `-D<define>`s into its own library
+    (once per source hash and flags), bound with ctypes."""
+    from cora_tpu_torch.ops.tnt_kernels import compile_library
+
+    so, _ = compile_library("probe_small_eigh", (se.SOURCE,), se.SOURCE,
+                            se.NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.cora_small_eigh_warp_f32, lib.cora_small_eigh_warp_f64):
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+        fn.restype = ci
+    return lib
+
+
+def run_warp(lib, A, torch, se):
+    """(w, V, info) of `lib`'s one-warp kernel on A (n, n) or (B, n, n),
+    as `small_eigh` allocates and launches them."""
+    n = A.shape[-1]
+    Ab = A.reshape(-1, n, n).contiguous()
+    w = torch.empty((Ab.shape[0], n), dtype=A.dtype, device=A.device)
+    V = torch.empty_like(Ab)
+    info = torch.empty(Ab.shape[0], dtype=torch.int32, device=A.device)
+    fn = lib.cora_small_eigh_warp_f32 if A.dtype == torch.float32 \
+        else lib.cora_small_eigh_warp_f64
+    err = fn(Ab.data_ptr(), w.data_ptr(), V.data_ptr(), info.data_ptr(),
+             Ab.shape[0], n, se.MAX_SWEEPS,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"one-warp kernel failed: CUDA error {err}")
+    lead = A.shape[:-2]
+    return w.reshape(*lead, n), V.reshape(A.shape), info.reshape(lead)
+
+
+def check_bits(torch, se, libs):
+    """(a): per (n, dtype, batch, case), whether the routed result and
+    every update-warp count's equal the one-CTA kernel's bit for bit; and
+    the eigenvalues' error against float64 eigh."""
+    rows, failed = [], []
+    for n in SIZES:
+        mats = [corpus(n, s) for s in range(4)]
+        for dt in (torch.float32, torch.float64):
+            for batch in (1, 4):
+                for name in mats[0]:
+                    A = torch.as_tensor(np.stack([m[name] for m in mats[:batch]])
+                                        if batch > 1 else mats[0][name]
+                                        ).to("cuda", dt)
+                    routed = se.small_eigh(A)
+                    cta = se.small_eigh(A, kernel="cta")
+                    same = bits_equal(routed, cta)
+                    if n <= se.WARP_MAX_N:
+                        same = same and all(bits_equal(
+                            run_warp(libs[w], A, torch, se), cta)
+                            for w in WIDTHS)
+                    err = None
+                    if name != "nonfinite":
+                        w64 = torch.linalg.eigh(A.double())[0]
+                        err = float(((routed[0].double() - w64).abs().amax(-1)
+                                     / w64.abs().amax(-1)).max())
+                    rows.append(dict(n=n, dtype=str(dt)[6:], batch=batch,
+                                     case=name, route=se.route(n, dt),
+                                     same=same,
+                                     sweeps=routed[2].reshape(-1).tolist(),
+                                     eig_err=err))
+                    if not same:
+                        failed.append((n, str(dt)[6:], batch, name))
+    return rows, failed
+
+
+def time_kernels(torch, se, libs):
+    """(b): the kernels in turns, per (n, dtype)."""
+    out = []
+    for n in TIMED:
+        for dt in (torch.float32, torch.float64):
+            A = torch.as_tensor(corpus(n)["random"]).to("cuda", dt)
+            row = dict(n=n, dtype=str(dt)[6:],
+                       sweeps=int(se.small_eigh(A, kernel="cta")[2]))
+
+            def cta():
+                return se.small_eigh(A, kernel="cta")
+
+            def warp(w):
+                return lambda: run_warp(libs[w], A, torch, se)
+
+            row["cta_ms"] = [median_ms(cta, torch)]
+            if n <= se.WARP_MAX_N:
+                for w in WIDTHS:
+                    row[f"warp{w}_ms"] = [median_ms(warp(w), torch)
+                                          for _ in range(2)]
+            row["cta_ms"].append(median_ms(cta, torch))
+            row["routed_ms"] = median_ms(lambda: se.small_eigh(A), torch)
+            row["eigh_ms"] = median_ms(lambda: torch.linalg.eigh(A), torch)
+            row["loop_ms"] = {"cta": loop_ms(cta, torch)}
+            if n <= se.WARP_MAX_N:
+                for w in WIDTHS:
+                    row["loop_ms"][f"warp{w}"] = loop_ms(warp(w), torch)
+            out.append(row)
+            print(f"[times] n={n} {row['dtype']}: " + json.dumps(
+                {k: v for k, v in row.items() if k not in ("n", "dtype")}),
+                flush=True)
+    return out
+
+
+def round_split(torch, se, libs):
+    """(c): cycles per round of the rotation, the update and the barriers,
+    from the `-DSMALL_EIGH_SPLIT` builds' clock64() stamps (matrix 0)."""
+    out = []
+    for n in SPLIT:
+        for w in WIDTHS:
+            lib = libs[w]
+            A = torch.as_tensor(corpus(n)["random"]).to("cuda", torch.float32)
+            info = run_warp(lib, A, torch, se)[2]
+            torch.cuda.synchronize()
+            clk = (ctypes.c_longlong * 8)()
+            err = lib.cora_small_eigh_split_clocks(clk)
+            if err:
+                raise RuntimeError(f"split clocks: CUDA error {err}")
+            c = list(clk)
+            rounds = max(c[0], 1)
+            row = dict(n=n, update_warps=w, rounds=c[0],
+                       rotation_warp=c[1] / rounds, update_warp0=c[2] / rounds,
+                       barrier_wait=c[3] / rounds,
+                       stop_test=c[4] / max(c[5], 1), total=c[6],
+                       sweeps=int(info))
+            out.append(row)
+            print(f"[split] {json.dumps(row)}", flush=True)
+    return out
+
+
+def build_other(path, se):
+    """nvcc another version's small_eigh.cu into its own library."""
+    import hashlib
+
+    from cora_tpu_torch.ops.tnt_kernels import BUILD_DIR, _nvcc
+
+    with open(path, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    so = BUILD_DIR / f"other_small_eigh_{digest}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_nvcc(), *se.NVCC_FLAGS, "-o", str(so), path],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.cora_small_eigh_f32, lib.cora_small_eigh_f64):
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+        fn.restype = ci
+    return lib
+
+
+def check_other(torch, se, lib):
+    """Per case, whether the other version's kernel gives this tree's
+    one-CTA and routed bits."""
+    same_cta = same_routed = total = 0
+    for n in SIZES:
+        for dt in (torch.float32, torch.float64):
+            for name, M in corpus(n).items():
+                A = torch.as_tensor(M).to("cuda", dt).contiguous()
+                w = torch.empty(n, dtype=dt, device="cuda")
+                V = torch.empty(n, n, dtype=dt, device="cuda")
+                info = torch.empty(1, dtype=torch.int32, device="cuda")
+                fn = lib.cora_small_eigh_f32 if dt == torch.float32 \
+                    else lib.cora_small_eigh_f64
+                err = fn(A.data_ptr(), w.data_ptr(), V.data_ptr(),
+                         info.data_ptr(), 1, n, se.MAX_SWEEPS,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"other kernel failed: {err}")
+                other = (w, V, info.reshape(()))
+                total += 1
+                same_cta += bits_equal(other, se.small_eigh(A, kernel="cta"))
+                same_routed += bits_equal(other, se.small_eigh(A))
+    return dict(cases=total, same_as_cta=same_cta, same_as_routed=same_routed)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--parent")
+    ap.add_argument("--sass")
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_small_eigh: no CUDA device available")
+    card = card_line()
+    print(card, flush=True)
+    sys.path.insert(0, REPO)
+    from cora_tpu_torch.ops import small_eigh as se
+
+    t0 = time.time()
+    variants = {("width", w): [f"SMALL_EIGH_UPDATE_WARPS={w}"]
+                for w in WIDTHS if w != 3}
+    if args.split:
+        variants.update({("split", w): ["SMALL_EIGH_SPLIT",
+                                        f"SMALL_EIGH_UPDATE_WARPS={w}"]
+                         for w in WIDTHS})
+    with concurrent.futures.ThreadPoolExecutor(len(variants) + 1) as pool:
+        package = pool.submit(se.load_library)
+        built = {k: pool.submit(build, se, d) for k, d in variants.items()}
+        built = {k: f.result() for k, f in built.items()}
+        libs = {w: built[("width", w)] for w in WIDTHS if w != 3}
+        libs[3] = package.result()
+    print(f"[build] small_eigh.cu, {len(variants) + 1} builds in "
+          f"{time.time() - t0:.1f} s ({se.BUILD_INFO['path']})", flush=True)
+    for name, line in ptxas_lines(se.BUILD_INFO["log"]):
+        print(f"[ptxas] {name}: {line}", flush=True)
+    rows, failed = check_bits(torch, se, libs)
+    print("[bits] routed and every update-warp count against one-CTA, "
+          f"equal: {sum(r['same'] for r in rows)} of {len(rows)}", flush=True)
+    for r in rows:
+        print(f"[bits] {json.dumps(r)}", flush=True)
+    res = dict(card=card, bits=rows, failed=failed,
+               ptxas=ptxas_lines(se.BUILD_INFO["log"]))
+    if args.parent:
+        res["parent"] = check_other(torch, se, build_other(args.parent, se))
+        print(f"[parent] {json.dumps(res['parent'])}", flush=True)
+    if args.sass:
+        os.makedirs(args.sass, exist_ok=True)
+        from cora_tpu_torch.ops.tnt_kernels import _nvcc
+
+        dump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+        with open(os.path.join(args.sass, "small_eigh.sass"), "w") as fh:
+            subprocess.run([dump, "-sass", se.BUILD_INFO["path"]], stdout=fh,
+                           stderr=subprocess.STDOUT, timeout=120)
+    res["times"] = time_kernels(torch, se, libs)
+    if args.split:
+        res["split"] = round_split(torch, se, {w: built[("split", w)]
+                                               for w in WIDTHS})
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(json.dumps(res))
+    print(json.dumps({k: v for k, v in res.items() if k != "bits"}))
+    if failed:
+        raise SystemExit(f"probe_small_eigh: results differ: {failed}")
+
+
+if __name__ == "__main__":
+    main()
