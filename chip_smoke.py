@@ -27,8 +27,16 @@ raises and the script exits non-zero:
      the same bits at K = 1 and at the chosen K, agrees at each α with the
      cluster `step` at s = α·Ẏ within 1e-6 (and says at how many α it is
      bit-equal), and is timed at K = 1, 2, 3, 4, 6, 8 where they fit.
+     Past rank 10 (HIGH_RANK_CASES: ranks 11, 32 and 80 on the
+     plaza2-shaped graph, the JAX package's VMEM guard there being 80,
+     and 12 on the single_drone-shaped one) the four kernels are held to
+     their plain versions at the same tolerances, the ladder's bits at one
+     cluster (in as many launches as shared memory needs) to the chosen
+     K's and its scalars to the cluster `step`'s, and each kernel and its
+     plain version timed (median of 3) beside its bound.
      `small_eigh` (LOBPCG's Rayleigh–Ritz eigensolver: the one-warp
-     kernel for n ≤ 32, the one-CTA kernel `small_eigh_cta` above) against
+     kernel for n ≤ 32, the one-CTA kernel `small_eigh_cta` to 96, the
+     global kernel `small_eigh_global` above) against
      its plain twin on random symmetric 30 × 30 and 36 × 36 matrices in
      float32 and float64 and on the graded matrices of
      `scripts/small_eigh_cases.py` at n = 10 and 30 (eigenvalues to 1e-5 /
@@ -36,7 +44,11 @@ raises and the script exits non-zero:
      kernel runs, it must give the one-CTA kernel's bits (w, V, info), and
      the one-CTA kernel is held to the twin too; both timed at n = 30
      float32 in turns (one-CTA, warp, warp, one-CTA) beside the twin and
-     `torch.linalg.eigh`;
+     `torch.linalg.eigh`; the global kernel bit for bit against the
+     one-CTA kernel at n = 36 and 96 (forced), against the twin in float64
+     at n = 99, 150 and 246 (1e-12) and, for float32 inputs, against
+     float64 eigh; the one-CTA kernel timed at n = 36 and the global one
+     at n = 99 and 246, each beside its bound;
   3. slice — `solve_cora` on both graphs with bench.py's configuration and
      the kernels, from the numpy-seeded start, and on the plaza2-shaped
      graph from rank d (the run that takes a saddle escape), each gated
@@ -56,6 +68,20 @@ raises and the script exits non-zero:
      the `certify` / `polish_f64` split (`scripts/probe_cert_loop.py`);
      in the kernel-path solves every failed certificate's LOBPCG and every
      polish's CG must run as replayed graphs;
+  3b. ranks — past the main path's ranks, each path with the launch
+     counts zeroed before it and read after it: the plaza2-shaped staircase
+     from rank 11 (`init_rank_jump` 9, `max_rank` 12) on the chain
+     kernels, from the fixture's numpy start at that rank, gated as phase
+     3 against the fixture's plaza2-shaped run (the certified optimum does
+     not depend on the start rank); a failed certificate at a random
+     point at rank 10 (Rayleigh–Ritz n = 36: `small_eigh_cta`) and at rank
+     31 (n = 99: `small_eigh_global`), whose LOBPCG must run as replayed
+     graphs through that kernel; the visualize CLI's solve half
+     (`cora_tpu_torch.visualize.solve`) on a one-robot chain written as
+     PyFG, in float32 on the chain kernels and with `--animate` (float64,
+     iterates logged, the canonical path), both certified and within 1 %
+     of each other, and the drawing only where matplotlib imports (the
+     script says which it did);
   4. level f64 — the single_drone-shaped graph's first level (rank 5) in
      float64 on the card, with the canonical `tnt_solve` and with the chain
      plain path on a float64 plan, from the fixture's start, against the
@@ -131,9 +157,13 @@ The kernels' launch counts are zeroed just before the timed kernel-path
 solves and read just after them; the main path must launch the cluster
 `chunk`, `step` and `ladder` and `small_eigh` (its failed certificates),
 and never a single-CTA comparator (`small_eigh_cta` only for a routed
-n > 32, that is a certificate at rank 9 or more). The line before the last is one JSON
+n > 32, that is a certificate at rank 9 or more). The certificate path
+of phase 3b must launch `small_eigh_cta` and `small_eigh_global`. The
+line before the last is one JSON
 object with the route, source, launches, error, times and bound of each
-kernel the main path launches (`chunk`, `step`, `ladder`, `small_eigh`;
+kernel the paths launch (`chunk`, `step`, `ladder`, `small_eigh` from
+phase 3, `small_eigh_cta` and `small_eigh_global` from phase 3b, with
+the chain kernels' times and bounds past rank 10 under `by_rank`;
 `tcg`, whose loop runs inside `chunk`, gets a line of its own). A
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s, and its
@@ -162,9 +192,13 @@ REPLACES = {
     "tcg": "cora_tpu/ops/pallas_tcg.py:401",
     "chunk": "cora_tpu/ops/pallas_tcg.py:733",
     "ladder": "cora_tpu/ops/pallas_tcg.py:792",
-    # not a pallas_call: the jnp.linalg.eigh in LOBPCG's lax.while_loop
+    # not a pallas_call: the jnp.linalg.eigh in LOBPCG's lax.while_loop,
+    # in three routes by n (small_eigh.route)
     "small_eigh": "cora_tpu/ops/lobpcg.py:61",
+    "small_eigh_cta": "cora_tpu/ops/lobpcg.py:61",
+    "small_eigh_global": "cora_tpu/ops/lobpcg.py:61",
 }
+EIGH_KEYS = ("small_eigh", "small_eigh_cta", "small_eigh_global")
 # the CPU tests' tolerances (tests/test_torch_kernels_plain.py)
 TOL_STATE, TOL_F, TOL_GN, TOL_PGN = 2e-5, 1e-4, 1e-4, 1e-3
 TOL_MDEC = TOL_SNORM = 2e-2
@@ -179,6 +213,10 @@ LADDER_SWEEP = (1, 2, 3, 4, 6, 7, 8)
 # `small_eigh` is the Rayleigh–Ritz step of every failed certificate's
 # LOBPCG)
 PATH_KERNELS = ("chunk", "step", "ladder", "small_eigh")
+# the kernels of the certificate path past the main path's ranks (phase
+# 3b): the Rayleigh–Ritz matrices of a certificate at rank 10 (n = 36, the
+# one-CTA kernel) and at rank 31 (n = 99, the global kernel)
+CERT_RANKS = {"small_eigh_cta": 10, "small_eigh_global": 31}
 # small_eigh against its plain twin: eigenvalues relative to the largest
 # (the float32 / float64 eigh's accuracy), ‖VᵀV − I‖ and ‖AV − VΛ‖ / ‖Λ‖
 # (n·ε with room for the Jacobi rotations' rounding)
@@ -196,6 +234,31 @@ PEAK_F64 = 34e12
 COMPARATORS = ("step_block", "ladder_block", "chunk_block", "tcg_block")
 KERNEL_CASES = [("plaza2_shaped", 4), ("plaza2_shaped", 6),
                 ("single_drone_shaped", 5)]
+# phase 2 past rank 10, up to the JAX package's VMEM guard on the
+# plaza2-shaped graph (rank 80): each kernel against its plain version at
+# the tolerances above, timed with fewer repeats and no comparators
+HIGH_RANK_CASES = [("plaza2_shaped", 11), ("plaza2_shaped", 32),
+                   ("plaza2_shaped", 80), ("single_drone_shaped", 12)]
+HIGH_REPS = 3
+# small_eigh's global route (n > 96) against its twin in float64, as the
+# JAX package's eigh computes, and bit for bit against the one-CTA kernel
+# where both run (forced); timed at the first and last size
+EIGH_GLOBAL = (99, 150, 246)
+EIGH_FORCED = (36, 96)
+# phase 3b: the plaza2-shaped staircase from rank 11 (init_rank_jump 9)
+# with max_rank 12 on the kernels; a staircase from rank 10 that escapes
+# to rank 11 on the kernels (a chain whose relaxation's optimum has rank
+# 11: `noisy_chain_pyfg`), its levels run to a near-critical end (no ramp
+# stall); the visualize CLI's solve half on a one-robot chain written as
+# PyFG
+RANK_START, RANK_MAX = 11, 12
+ESCAPE_GRAPH = dict(n_poses=200, n_landmarks=16, ranges_per_pose=4,
+                    noise_scale=100.0, seed=0)
+ESCAPE_START, ESCAPE_MAX = 10, 12
+ESCAPE_CONFIG = dict(max_staircase_iterations=400, ramp_stall_window=0)
+CLI_GRAPH = dict(n_robots=1, poses_per_robot=400, n_inter_ranges=0,
+                 n_landmarks=4, n_landmark_ranges=200, n_loop_closures=0,
+                 dim=2, seed=1)
 # the float64 level against the JAX package's, per iteration in f
 # (relative), over the iterations before the JAX package's own level from a
 # start one ulp away parts from it by as much; and its end f against the
@@ -233,10 +296,10 @@ def absdiff(a, b):
     return float((a - b).abs().max())
 
 
-def median_ms(fn, torch, prepare=None):
-    """Median over REPS of one call's device time (CUDA events)."""
+def median_ms(fn, torch, prepare=None, reps=REPS):
+    """Median over `reps` of one call's device time (CUDA events)."""
     times = []
-    for _ in range(REPS + 2):
+    for _ in range(reps + 2):
         args = prepare() if prepare else ()
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
@@ -517,7 +580,9 @@ def phase_kernels(problems, hp, probe):
         al = 4.0 * 0.5 ** np.arange(24)
         al = torch.tensor(np.stack([al, -al], 1).reshape(-1),
                           dtype=torch.float32)
-        K, A = min(cu.ladder_clusters, len(al)), len(al)
+        A = len(al)
+        K = cu.ladder_split(rank, A)[0]
+        cap = cu.ladder_capacity(rank)
         la, lb = cu.ladder(Y, V, al), pl.ladder(Y, V, al)
         for i, tol in enumerate((TOL_F, TOL_GN, TOL_PGN)):
             note("ladder", la[i], lb[i], tol, f"row {i}")
@@ -543,7 +608,7 @@ def phase_kernels(problems, hp, probe):
               flush=True)
         check(worst <= 1e-6, f"ladder vs cluster step: rel {worst:.3e}")
         sweep = {}
-        Ks = [k for k in LADDER_SWEEP if k <= cu.ladder_max_clusters]
+        Ks = [k for k in LADDER_SWEEP if k <= cap]
         for k in Ks + Ks[::-1]:  # in turns, forward then back
             sweep.setdefault(k, []).append(median_ms(
                 lambda: cu.ladder(Y, V, al, clusters=k), torch))
@@ -557,7 +622,7 @@ def phase_kernels(problems, hp, probe):
               f"cluster reading Linv and the propagators, + scratch): "
               + ", ".join(f"K={k} {v:.3f} ms ({scratch_mb[k]:.1f} MB)"
                           for k, v in sweep.items())
-              + f"; the card holds {cu.ladder_max_clusters} clusters",
+              + f"; the card holds {cap} clusters",
               flush=True)
         blk, clu, turns = in_turns(lambda b: median_ms(
             lambda: cu.ladder(Y, V, al, block=b), torch))
@@ -600,6 +665,7 @@ def phase_kernels(problems, hp, probe):
                 if k == "ladder":
                     stats[k]["group"] = (f"{extra[k]['clusters']} clusters of "
                                          f"{C} CTAs")
+    high_ranks(problems, hp, stats, barrier_us, note)
     phase_small_eigh(stats, probe)
     print("[kernels] max errors vs plain: " + " | ".join(
         f"{k} abs {v['max_abs_err']:.3e} rel {v['max_rel_err']:.3e}"
@@ -608,6 +674,135 @@ def phase_kernels(problems, hp, probe):
         f"{k} {v['bound_ms']:.4f} ms by {v['bound_term']} ({v['work']})"
         for k, v in stats.items()), flush=True)
     return stats
+
+
+def high_ranks(problems, hp, stats, barrier_us, note):
+    """The four chain kernels past rank 10 (HIGH_RANK_CASES): each against
+    its plain version on the card at phase 2's tolerances (`note`), the
+    ladder's bits at one cluster (its 48 trial points then in as many
+    one-cluster launches as shared memory needs) against the chosen K, and
+    its scalars at each α against the cluster `step`; each kernel and its
+    plain version timed (median of HIGH_REPS) beside its bound. The
+    numbers go to `stats[k]["by_rank"]`."""
+    import numpy as np
+    import torch
+
+    from cora_tpu_torch.ops import tnt_kernels
+    from cora_tpu_torch.ops.riemannian import random_initial_guess
+    from cora_tpu_torch.ops.tnt_kernels import CudaTNT, PlainTNT
+    from cora_tpu_torch.solve.tnt_kernel import get_chain_plan
+
+    C = tnt_kernels.CLUSTER
+    al = 4.0 * 0.5 ** np.arange(24)
+    al = torch.tensor(np.stack([al, -al], 1).reshape(-1), dtype=torch.float32)
+    A = len(al)
+    for ci, (gname, rank) in enumerate(HIGH_RANK_CASES):
+        problem = problems[gname]
+        plan = get_chain_plan(problem, np.float32, "cuda")
+        cu, pl = CudaTNT(plan, hp), PlainTNT(plan, hp)
+        check(rank <= cu.rank_bound, f"{gname}: rank {rank} over the bound "
+              f"{cu.rank_bound}")
+        pd = problem.device_data(np.float32, "cuda")
+        gen = torch.Generator().manual_seed(200 + ci)
+        Y = random_initial_guess(pd, rank, gen).contiguous()
+        V = (0.1 * torch.randn(Y.shape, generator=gen, dtype=torch.float64)
+             ).to(Y).contiguous()
+        what = f"r={rank}"
+        for flag in (1, 0):
+            a, b = cu.step(Y, V, flag), pl.step(Y, V, flag)
+            note("step", a[0], b[0], TOL_STATE, f"{what} flag {flag} Y")
+            note("step", a[2], b[2], TOL_GN, f"{what} flag {flag} grad")
+            for i, tol in enumerate((TOL_F, TOL_GN, TOL_PGN)):
+                note("step", a[3][i:i + 1], b[3][i:i + 1], tol,
+                     f"{what} flag {flag} scalar {i}")
+        _, QY, G, _ = pl.step(Y, V, False)
+        cases = {"boundary": (QY, 5.0), "long": (torch.zeros_like(QY), 1e8)}
+        iters = {}
+        for case, (nF, delta) in cases.items():
+            sa, ta = cu.tcg(G, Y, nF, delta, 80)
+            sb, tb = pl.tcg(G, Y, nF, delta, 80)
+            ta, tb = ta.tolist(), tb.tolist()
+            tag = f"tcg {case} {what}"
+            check(abs(ta[2] - tb[2]) <= 2, f"{tag} iterations {ta} {tb}")
+            check(ta[1] == tb[1], f"{tag} hit {ta} {tb}")
+            check(abs(ta[0] - tb[0]) <= TOL_MDEC * abs(tb[0]),
+                  f"{tag} mdec {ta} {tb}")
+            check(abs(ta[3] - tb[3]) <= TOL_SNORM * abs(tb[3]),
+                  f"{tag} |s| {ta} {tb}")
+            st = stats["tcg"]
+            st["max_abs_err"] = max(st["max_abs_err"], absdiff(sa, sb))
+            st["max_rel_err"] = max(st["max_rel_err"], rel(sa, sb))
+            iters[case] = int(ta[2])
+
+        def chunk_args():
+            fs = torch.tensor([0, 0, 0, 5.0, float("inf"), 1e-4, 0, 0],
+                              dtype=torch.float32, device="cuda")
+            isc = torch.tensor([0, 0, 0, 0, 0, 8, 80, 60, 24, 10, 1, 0],
+                               dtype=torch.int32, device="cuda")
+            hist = torch.zeros((5, 80), dtype=torch.float32, device="cuda")
+            return (Y.clone(), torch.zeros_like(Y), torch.zeros_like(Y), fs,
+                    isc, hist)
+
+        ra, rb = chunk_args(), chunk_args()
+        cu.chunk(*ra)
+        pl.chunk(*rb)
+        check(ra[4][:5].tolist() == rb[4][:5].tolist(),
+              f"chunk {what} k/status/streaks {ra[4][:5].tolist()} vs "
+              f"{rb[4][:5].tolist()}")
+        note("chunk", ra[0], rb[0], TOL_STATE, f"{what} Y")
+        note("chunk", ra[3][:1], rb[3][:1], TOL_F, f"{what} f")
+        note("chunk", ra[5][0, :8], rb[5][0, :8], TOL_F, f"{what} f history")
+        outer, its = int(ra[4][0]), int(ra[5][4, :8].sum())
+
+        K, grp = cu.ladder_split(rank, A)
+        _, grp1 = cu.ladder_split(rank, A, 1)
+        la, lb = cu.ladder(Y, V, al), pl.ladder(Y, V, al)
+        for i, tol in enumerate((TOL_F, TOL_GN, TOL_PGN)):
+            note("ladder", la[i], lb[i], tol, f"{what} row {i}")
+        one = cu.ladder(Y, V, al, clusters=1)
+        check(torch.equal(one, la), f"ladder {what}: K = 1 ({len(grp1) - 1} "
+              f"launches) and K = {K} differ by {absdiff(one, la):.3e}")
+        worst = 0.0
+        for i, a in enumerate(al.tolist()):
+            s = (torch.tensor(a, dtype=torch.float32, device="cuda") * V
+                 ).contiguous()
+            worst = max(worst, rel(la[:, i], cu.step(Y, s, 1)[3]))
+        check(worst <= 1e-6, f"ladder {what} vs cluster step: rel "
+              f"{worst:.3e}")
+        nF = cases["long"][0]
+        runs = {
+            "step": (lambda: cu.step(Y, V, 1), lambda: pl.step(Y, V, 1),
+                     None, tnt_kernels.work_counts(plan, rank, 0, "step",
+                                                   parts=C)),
+            "tcg": (lambda: cu.tcg(G, Y, nF, 1e8, 80),
+                    lambda: pl.tcg(G, Y, nF, 1e8, 80), None,
+                    tnt_kernels.work_counts(plan, rank, iters["long"], "tcg",
+                                            parts=C)),
+            "chunk": (cu.chunk, pl.chunk, chunk_args,
+                      tnt_kernels.work_counts(plan, rank, its, "chunk",
+                                              outer_iters=outer, init=True,
+                                              parts=C)),
+            "ladder": (lambda: cu.ladder(Y, V, al),
+                       lambda: pl.ladder(Y, V, al), None,
+                       tnt_kernels.work_counts(plan, rank, 0, "ladder",
+                                               alphas=A, parts=C,
+                                               clusters=len(grp) - 1)),
+        }
+        line = []
+        for k, (kern, twin, prep, wc) in runs.items():
+            ms = median_ms(kern, torch, prep, reps=HIGH_REPS)
+            plain_ms = median_ms(twin, torch, prep, reps=HIGH_REPS)
+            b_ms, b_by, b_term = bound(wc, barrier_us)
+            stats[k].setdefault("by_rank", {})[f"{gname} r={rank}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_term=b_term)
+            line.append(f"{k} {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+                        f"{b_ms:.4f} ms by {b_term})")
+        print(f"[kernels] {gname} r={rank} (bound {cu.rank_bound}): "
+              + " | ".join(line) + f"; tcg iterations {iters}; ladder K = "
+              f"{K} over {len(grp) - 1} groups of <= {cu.ladder_batch(rank)}"
+              f" trial points, K = 1 in {len(grp1) - 1} launches, bit-equal;"
+              f" ladder vs cluster step max rel {worst:.3e}", flush=True)
 
 
 def check_small_eigh(A, stats, what):
@@ -621,13 +816,14 @@ def check_small_eigh(A, stats, what):
 
     from small_eigh_cases import bits_equal
 
-    from cora_tpu_torch.ops.small_eigh import route, small_eigh, \
+    from cora_tpu_torch.ops.small_eigh import KEYS, route, small_eigh, \
         small_eigh_plain
 
     dt = "float32" if A.dtype == torch.float32 else "float64"
+    which = route(A.shape[-1], A.dtype)
     w, V, info = small_eigh(A)
     wp, Vp, _ = small_eigh_plain(A)
-    if route(A.shape[-1], A.dtype) == "warp":
+    if which == "warp":
         # the one-warp kernel against the one-CTA kernel, bit for bit; the
         # one-CTA kernel against the twin as the routed one is below
         cta = small_eigh(A, kernel="cta")
@@ -641,6 +837,9 @@ def check_small_eigh(A, stats, what):
         check(ew <= EIGH_TOL[dt] and min(cta[2].tolist()) >= 0,
               f"small_eigh_cta {what}: eigenvalues {ew:.3e}, info "
               f"{cta[2].tolist()}")
+        st = stats["small_eigh_cta"]
+        st["max_abs_err"] = max(st["max_abs_err"], absdiff(cta[0], wp))
+        st["max_rel_err"] = max(st["max_rel_err"], ew)
     scale = wp.abs().amax(-1).clamp_min(1e-30)
     ev = float(((w - wp).abs().amax(-1) / scale).max())
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
@@ -656,7 +855,7 @@ def check_small_eigh(A, stats, what):
     check(ev <= EIGH_TOL[dt] and orth <= EIGH_ORTH[dt]
           and res <= EIGH_ORTH[dt], f"small_eigh {what}: eigenvalues "
           f"{ev:.3e}, orthonormality {orth:.3e}, residual {res:.3e}")
-    st = stats["small_eigh"]
+    st = stats[KEYS[which]]
     st["max_abs_err"] = max(st["max_abs_err"], absdiff(w, wp))
     st["max_rel_err"] = max(st["max_rel_err"], ev)
     if dt == "float32":
@@ -689,7 +888,7 @@ def phase_small_eigh(stats, probe):
     `__syncthreads` the probe measured in this run."""
     import numpy as np
     import torch
-    from small_eigh_cases import corpus
+    from small_eigh_cases import bits_equal, corpus
 
     from cora_tpu_torch.ops.small_eigh import small_eigh, small_eigh_plain
 
@@ -706,16 +905,8 @@ def phase_small_eigh(stats, probe):
             ms, cta_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             plain_ms = median_ms(lambda: small_eigh_plain(A1), torch)
             lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch)
-            npad, h = n + n % 2, (n + n % 2) // 2
-            rounds = sweeps[0] * (npad - 1)
-            work = dict(bytes=4 * (2 * n * n + n),
-                        flops=rounds * (12 * h * (h + 1) + 6 * n * h + 15 * h)
-                        + (sweeps[0] + 1) * 2 * npad * npad,
-                        phases=rounds)
-            terms = {"bytes": work["bytes"] / 3.35e12 * 1e3,
-                     "flops": work["flops"] / PEAK_F64 * 1e3,
-                     "barriers": rounds * probe["syncthreads_us"] * 1e-3}
-            term = max(terms, key=terms.get)
+            npad = n + n % 2
+            work, terms, term = eigh_bound(n, sweeps[0], 4, probe)
             stats["small_eigh"].update(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=terms[term],
@@ -736,6 +927,88 @@ def phase_small_eigh(stats, probe):
             A = torch.as_tensor(np.stack([corpus(n, s)["graded"]
                                           for s in range(4)])).to("cuda", dt)
             check_small_eigh(A, stats, "graded")
+    # the global route: the one-CTA kernel's bits where both run (forced)
+    for n in EIGH_FORCED:
+        for dt in (torch.float32, torch.float64):
+            M = rng.standard_normal((4, n, n))
+            A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda", dt)
+            same = bits_equal(small_eigh(A, kernel="global"),
+                              small_eigh(A, kernel="cta"))
+            print(f"[kernels] small_eigh n = {n} {dt}: global and one-CTA "
+                  f"kernels bit for bit: {same}", flush=True)
+            check(same, f"small_eigh n = {n}: the global kernel left the "
+                  "one-CTA kernel's bits")
+    # ... past it, against the twin in float64 and, for float32 inputs,
+    # against float64 eigh of the same matrices; timed at the certificate
+    # path's float32 (rank 31: n = 99) and at rank 80's n = 246
+    for n in EIGH_GLOBAL:
+        M = rng.standard_normal((2, n, n))
+        A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda")
+        sweeps = check_small_eigh(A, stats, "random")
+        A32 = A.float()
+        w32 = small_eigh(A32)[0]
+        w64 = torch.linalg.eigh(A32.double())[0]
+        e32 = float(((w32.double() - w64).abs().amax(-1)
+                     / w64.abs().amax(-1)).max())
+        check(e32 <= EIGH_TOL["float32"], f"small_eigh_global n = {n} "
+              f"float32: eigenvalues {e32:.3e} off float64 eigh")
+        if n not in (EIGH_GLOBAL[0], EIGH_GLOBAL[-1]):
+            continue
+        A1 = A32[0].contiguous()
+        ms = median_ms(lambda: small_eigh(A1), torch, reps=5)
+        plain_ms = median_ms(lambda: small_eigh_plain(A1), torch, reps=5)
+        lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch, reps=5)
+        work, terms, term = eigh_bound(n, sweeps[0], 4, probe)
+        entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=terms[term],
+                     bound_by="bytes" if term == "bytes" else "operations",
+                     bound_term=term, work=work, n=n)
+        st = stats["small_eigh_global"]
+        st.setdefault("by_n", {})[n] = entry
+        if n == EIGH_GLOBAL[0]:  # the certificate path's matrices
+            st.update(entry, group="one CTA of up to 1024 threads per "
+                      "matrix, A and V in a global workspace")
+        print(f"[kernels] small_eigh_global n = {n} float32: {ms:.4f} ms "
+              f"(plain twin {plain_ms:.4f} ms, torch.linalg.eigh "
+              f"{lib_ms:.4f} ms); float32 eigenvalues {e32:.3e} off float64"
+              f" eigh; bound {terms[term]:.4f} ms by {term} ({sweeps[0]} "
+              f"sweeps × {n + n % 2 - 1} rounds)", flush=True)
+    # the one-CTA route at n = 36 (a certificate at rank 10), timed
+    n = 36
+    M = rng.standard_normal((n, n))
+    A1 = torch.as_tensor(M + M.T).to("cuda", torch.float32)
+    sweeps = small_eigh(A1)[2].item()
+    ms = median_ms(lambda: small_eigh(A1), torch)
+    plain_ms = median_ms(lambda: small_eigh_plain(A1), torch)
+    lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch)
+    work, terms, term = eigh_bound(n, sweeps, 4, probe)
+    stats["small_eigh_cta"].update(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=terms[term],
+        bound_by="bytes" if term == "bytes" else "operations",
+        bound_term=term, work=work, n=n,
+        group="one CTA per matrix, a thread per 2 × 2 block")
+    print(f"[kernels] small_eigh_cta n = {n} float32: {ms:.4f} ms (plain "
+          f"twin {plain_ms:.4f} ms, torch.linalg.eigh {lib_ms:.4f} ms); "
+          f"bound {terms[term]:.4f} ms by {term} ({sweeps} sweeps × "
+          f"{n - 1} rounds)", flush=True)
+
+
+def eigh_bound(n, sweeps, itemsize, probe):
+    """small_eigh's work at n × n over `sweeps` sweeps and its bound
+    terms (ms): the input read and w, V written once at 3.35 TB/s, the
+    FLOPs at the float64 peak, and the dependent rounds (sweeps × (n − 1))
+    times the `__syncthreads` the probe measured in this run. (work,
+    terms, the largest term)."""
+    npad, h = n + n % 2, (n + n % 2) // 2
+    rounds = sweeps * (npad - 1)
+    work = dict(bytes=itemsize * (2 * n * n + n),
+                flops=rounds * (12 * h * (h + 1) + 6 * n * h + 15 * h)
+                + (sweeps + 1) * 2 * npad * npad,
+                phases=rounds)
+    terms = {"bytes": work["bytes"] / 3.35e12 * 1e3,
+             "flops": work["flops"] / PEAK_F64 * 1e3,
+             "barriers": rounds * probe["syncthreads_us"] * 1e-3}
+    return work, terms, max(terms, key=terms.get)
 
 
 def solve_once(problem, cfg, x0, device="cuda", **kw):
@@ -1142,6 +1415,186 @@ def phase_slice(problems, reference):
               + json.dumps({k: round(v, 4) for k, v in res.phases.items()}),
               flush=True)
     return launches
+
+
+def phase_ranks(problems, reference):
+    """Past the main path's ranks, each path driven with the launch counts
+    zeroed just before it and read just after: the plaza2-shaped staircase
+    from rank RANK_START (the fixture's numpy start at that rank) with
+    max_rank RANK_MAX on the chain kernels, gated as phase 3 against the
+    fixture's plaza2-shaped run (the certified optimum does not depend on
+    the start rank); a staircase from rank ESCAPE_START on ESCAPE_GRAPH
+    whose certificate fails at rank 10, so that the escape (`step`,
+    `ladder`) runs past rank 10 on the kernels, gated against the chain
+    plain path's solve (`use_kernels="never"`) of the same graph from the
+    same start; a failed
+    certificate at rank 10 and at rank 31 (`method="auto"` at a random
+    point), whose LOBPCG must run as replayed graphs through the one-CTA and
+    the global small_eigh; the visualize CLI's solve half, still and
+    `--animate`, as the CLI runs it (float64, so the canonical path), on a
+    one-robot chain written as PyFG, the drawing where matplotlib imports.
+    Returns the certificate path's launches per small_eigh route."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch_port_reference import multi_robot_pyfg, noisy_chain_pyfg
+
+    from cora_tpu_torch import visualize
+    from cora_tpu_torch.io.pyfg import parse_pyfg
+    from cora_tpu_torch.ops import lobpcg, small_eigh, tnt_kernels
+    from cora_tpu_torch.ops.riemannian import random_initial_guess
+    from cora_tpu_torch.solve import staircase
+    from cora_tpu_torch.utils.graphs import device_loop
+
+    def kernel_run(tag, problem, cfg, x0):
+        tnt_kernels.reset_launch_counts()
+        small_eigh.reset_launch_counts()
+        res, wall, ate, _ = solve_once(problem, cfg, x0)
+        launches = {k: v for k, v in dict(tnt_kernels.LAUNCHES,
+                                          **small_eigh.LAUNCHES).items() if v}
+        check(staircase.kernel_path_reason(
+            cfg, problem.device_data(np.float32, "cuda")) is None
+            and launches.get("chunk", 0) > 0,
+            f"{tag}: not on the chain kernels: {res.ranks_visited}, "
+            f"{launches}")
+        check(not any(launches.get(k) for k in COMPARATORS),
+              f"{tag}: a single-CTA comparator ran: {launches}")
+        return res, wall, ate, launches
+
+    name = "plaza2_shaped"
+    problem, ref = problems[name], reference["graphs"][name]
+    dim = ref["graph"]["dim"]
+    cfg = bench_config(reference, RANK_START - dim, "auto",
+                       max_rank=RANK_MAX)
+    tag = f"{name} from rank {RANK_START}"
+    res, wall, ate, launches = kernel_run(
+        tag, problem, cfg, numpy_start(reference, problem, RANK_START))
+    print(f"[ranks] {tag} (max_rank {RANK_MAX}): ranks {res.ranks_visited} "
+          f"certified {res.certified} sdp_cost {res.sdp_cost:.6f} f "
+          f"{res.result.f:.6f} (reference {ref['f']:.6f}, rel "
+          f"{(res.result.f - ref['f']) / ref['f']:+.2e}) ATE {ate:.4f} m "
+          f"(reference {ref['ate']:.4f}) wall {wall:.3f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    check(res.ranks_visited[0] == RANK_START,
+          f"{tag}: ranks {res.ranks_visited}")
+    gate(tag, problem, res, ate, ref)
+    cert_line("ranks", tag)
+    captured_loops(tag)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "noisy_chain.pyfg")
+        with open(path, "w") as fh:
+            fh.write(noisy_chain_pyfg(**ESCAPE_GRAPH))
+        problem = parse_pyfg(path)
+    x0 = np.random.default_rng(reference["x0_seed"]).uniform(
+        -1.0, 1.0, (problem.data_matrix_size, ESCAPE_START))
+    runs = {}
+    for use_kernels in ("never", "auto"):
+        ecfg = bench_config(reference, ESCAPE_START - problem.dim,
+                            use_kernels, max_rank=ESCAPE_MAX, **ESCAPE_CONFIG)
+        tag = f"noisy chain from rank {ESCAPE_START} ({use_kernels})"
+        if use_kernels == "auto":
+            res, wall, ate, launches = kernel_run(tag, problem, ecfg, x0)
+        else:
+            tnt_kernels.reset_launch_counts()
+            res, wall, ate, _ = solve_once(problem, ecfg, x0)
+            launches = {k: v for k, v in tnt_kernels.LAUNCHES.items() if v}
+            check(not launches, f"{tag}: kernels launched {launches}")
+        failed = sum(1 for c in LAST["calls"] if c[0] == "certify"
+                     and not c[4].is_certified)
+        print(f"[ranks] {tag} (max_rank {ESCAPE_MAX}): ranks "
+              f"{res.ranks_visited} certified {res.certified} sdp_cost "
+              f"{res.sdp_cost:.6f} f {res.result.f:.6f} ATE {ate:.4f} m wall "
+              f"{wall:.3f} s; failed certificates {failed}; launches "
+              f"{json.dumps(launches)}", flush=True)
+        cert_line("ranks", tag)
+        if use_kernels == "auto":  # the plain path's loops run eagerly
+            captured_loops(tag)
+        runs[use_kernels] = res, ate
+    res, ate = runs["auto"]
+    # each escape starts a level one rank up: every level after the first
+    # at rank 11 or more puts every escape's `ladder` and `step` past 10
+    check(res.ranks_visited[0] == ESCAPE_START
+          and min(res.ranks_visited[1:] or [0]) > 10
+          and launches.get("ladder", 0) > 0 and launches.get("step", 0) > 0,
+          f"{tag}: no escape past rank 10 on the kernels: ranks "
+          f"{res.ranks_visited}, launches {launches}")
+    plain, plain_ate = runs["never"]
+    gate(tag, problem, res, ate, dict(certified=plain.certified,
+                                      f=plain.result.f, ate=plain_ate))
+
+    pd = problems[name].device_data(np.float32, "cuda")
+    cert_launches = {}
+    for key, r in CERT_RANKS.items():
+        Y = random_initial_guess(pd, r, torch.Generator().manual_seed(300 + r))
+        n = 3 * max(cfg.cert.lobpcg_block_size, r + 2)
+        small_eigh.reset_launch_counts()
+        lobpcg.reset_loop_stats()
+        t0 = time.time()
+        with device_loop(graphs=True):
+            cert = staircase._certify_with_retry(
+                problems[name], pd, Y.cpu().numpy(), 1e-5, cfg.cert, None)
+        torch.cuda.synchronize()
+        lp = dict(lobpcg.LOOP_STATS)
+        cert_launches[key] = small_eigh.LAUNCHES[key]
+        print(f"[ranks] certificate at rank {r} (a random point): certified "
+              f"{cert.is_certified} theta {cert.theta:.4e}, {cert.num_iters}"
+              f" LOBPCG iterations, {time.time() - t0:.3f} s; Rayleigh–Ritz "
+              f"n = {n} → {small_eigh.route(n, torch.float32)}; LOBPCG "
+              f"{lp['captures']} captures, {lp['replays']} replays, "
+              f"{lp['eager_calls']} eager calls; small_eigh launches "
+              f"{json.dumps(small_eigh.LAUNCHES)}", flush=True)
+        check(not cert.is_certified and cert.num_iters > 0
+              and np.isfinite(cert.theta), f"rank {r} certificate: {cert}")
+        check(lp["replays"] > 0 and not lp["eager_calls"]
+              and cert_launches[key] > 0,
+              f"rank {r} certificate's LOBPCG not replayed through {key}: "
+              f"{lp}, {small_eigh.LAUNCHES}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chain.pyfg")
+        with open(path, "w") as fh:
+            fh.write(multi_robot_pyfg(**CLI_GRAPH))
+        out = {}
+        for animate in (False, True):
+            tnt_kernels.reset_launch_counts()
+            t0 = time.time()
+            out[animate] = visualize.solve(path, animate, "cuda",
+                                           verbose=False)
+            torch.cuda.synchronize()
+            cfg, r = out[animate][1:]
+            chain_launches = sum(tnt_kernels.LAUNCHES.values())
+            iterates = len(r.result.iterates or [])
+            print(f"[ranks] visualize {'--animate ' if animate else ''}"
+                  f"({np.dtype(cfg.dtype).name}): ranks {r.ranks_visited} "
+                  f"certified {r.certified} f {r.result.f:.6f}, "
+                  f"{time.time() - t0:.3f} s; chain kernel launches "
+                  f"{chain_launches}; logged iterates {iterates}", flush=True)
+            check(r.certified and np.isfinite(r.result.f),
+                  f"visualize: not certified, f {r.result.f}")
+            # the CLI's float64 config: the canonical path either way
+            check(not chain_launches and (iterates > 0) == animate,
+                  f"visualize {'--animate' if animate else 'still'}: "
+                  f"{chain_launches} kernel launches, {iterates} iterates")
+        gap = abs(out[False][2].result.f - out[True][2].result.f) / abs(
+            out[True][2].result.f)
+        check(gap <= 1e-6, f"visualize: the still's and --animate's costs "
+              f"{gap:.3e} apart")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print("[ranks] visualize: matplotlib does not import here: the "
+                  "solve half ran, the drawing did not", flush=True)
+        else:
+            for animate, fname in ((False, "still.png"), (True, "anim.gif")):
+                dst = os.path.join(tmp, fname)
+                visualize.draw(*out[animate], path, dst, animate,
+                               max_frames=10)
+                check(os.path.getsize(dst) > 0, f"visualize: empty {dst}")
+            print("[ranks] visualize: drew the still and the animation "
+                  "(matplotlib imports here)", flush=True)
+    return cert_launches
 
 
 def phase_level_f64(problems, reference, device="cuda"):
@@ -1795,6 +2248,8 @@ def main():
               f"{name} kernel not launched on the main path: {launches}")
     check(not any(launches[k] for k in COMPARATORS),
           f"the main path launched a single-CTA comparator: {launches}")
+    # the certificate path past the main path's ranks: its own launches
+    launches.update(timed("ranks", phase_ranks, problems, reference))
     timed("level_f64", phase_level_f64, problems, reference)
     solved = timed("general", phase_general, reference, "cuda", stats)
     implicit_f = timed("implicit", phase_implicit, reference)
@@ -1808,26 +2263,27 @@ def main():
     kernels = []
     for k, v in stats.items():
         entry = dict(name=k, route="cuda",
-                     source=EIGH_SOURCE if k == "small_eigh" else SOURCE,
+                     source=EIGH_SOURCE if k in EIGH_KEYS else SOURCE,
                      replaces=REPLACES[k],
                      launches=launches[k], max_abs_err=v["max_abs_err"],
                      max_rel_err=v["max_rel_err"], ms=v["ms"],
                      plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                      bound_by=v["bound_by"], bound_term=v["bound_term"],
                      library_ms=v["library_ms"], group=v["group"],
-                     block_ms=v["block_ms"])
+                     block_ms=v.get("block_ms"))
         for x in ("us_per_tcg_iter", "block_us_per_tcg_iter", "sweep_ms",
-                  "scratch_mb", "turns_ms"):
+                  "scratch_mb", "turns_ms", "n", "by_rank", "by_n"):
             if x in v:
                 entry[x] = v[x]
         kernels.append(entry)
     # `tcg` is checked and timed in phase 2, but the main path runs its loop
     # inside `chunk`, not as a launch of its own: the JSON line lists the
-    # kernels the path launches
+    # kernels the paths launch
+    listed = PATH_KERNELS + tuple(CERT_RANKS)
     print("[kernels] tcg (not launched on the main path): " + json.dumps(
-        [k for k in kernels if k["name"] not in PATH_KERNELS]), flush=True)
+        [k for k in kernels if k["name"] not in listed]), flush=True)
     print(json.dumps({"kernels": [k for k in kernels
-                                  if k["name"] in PATH_KERNELS]}))
+                                  if k["name"] in listed]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

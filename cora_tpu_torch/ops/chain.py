@@ -54,7 +54,49 @@ from cora_tpu_torch.utils.device import check_device
 
 S_MAX = 8  # max range slots per pose the kernels support
 L_MAX = 16  # max landmarks
-R_MAX = 10  # max rank the kernels support
+# The kernels' rank-sized buffers live in dynamic shared memory sized at
+# launch (`csrc/tnt_kernels.cu`: chain_smem, ladder_smem): RING partial-sum
+# slots of max(l·r, 1) floats and the landmark solve's two (l, r) buffers;
+# the ladder per trial point also 32 warp partials and 3 sums. What one
+# block may use is the card's opt-in shared memory (232 448 bytes on
+# sm_90, the only architecture the kernels are built for), less the
+# kernels' static shared memory (< SMEM_STATIC).
+RING = 4
+SMEM_OPTIN = 232448
+SMEM_STATIC = 1024
+INT32_MAX = 2 ** 31 - 1
+
+
+def chain_smem_bytes(l: int, r: int) -> int:
+    """Dynamic shared memory of `step`, `tcg`, `chunk` and `ladder_block`
+    at rank r with l landmarks."""
+    return 4 * (RING * max(l * r, 1) + 2 * l * r)
+
+
+def ladder_smem_bytes(l: int, r: int, ab: int) -> int:
+    """Dynamic shared memory of a `ladder` cluster batching ab trial
+    points at rank r."""
+    return 4 * ab * (RING * max(l * r, 1) + 32 + 2 * l * r + 3)
+
+
+def ladder_batch_max(l: int, r: int) -> int:
+    """The most trial points one `ladder` cluster can batch at rank r."""
+    return (SMEM_OPTIN - SMEM_STATIC) // ladder_smem_bytes(l, r, 1)
+
+
+def rank_bound(l: int, N: int) -> int:
+    """The largest rank the kernels take for l landmarks and N state rows:
+    their buffers (a ladder cluster of one trial point, the largest) must
+    fit in one block's shared memory, and N·r must index as int32.
+    The JAX package's bound is its VMEM guard (`cora_tpu/ops/
+    pallas_tcg.py` `kernel_supported`); this is the card's counterpart."""
+    by_index = INT32_MAX // max(N, 1)
+    if l == 0:
+        return by_index
+    # a trial point's (RING + 2)·l·r floats and its 32 + 3 of
+    # `ladder_smem_bytes`
+    floats = (SMEM_OPTIN - SMEM_STATIC) // 4 - 35
+    return min(floats // ((RING + 2) * l), by_index)
 
 
 def plan_supported(pd: ProblemData) -> str | None:

@@ -49,7 +49,8 @@
 // each CTA's propagator slice in shared memory by TMA measured slower
 // (PERF.md), so the scan reads the propagators from L2.
 // No tensor cores: the products are (w × w)·(w × r) with w ∈ {6, 8} and
-// r ≤ 10, far below a wgmma tile, and TF32 would change the float32 results.
+// r in the tens (the staircase's ranks), far below a wgmma tile, and TF32
+// would change the float32 results.
 //
 // Reductions are deterministic: fixed thread-to-element assignment, warp
 // shuffles and a fixed-order tree within each CTA, then the C partials read
@@ -67,13 +68,10 @@
 
 namespace cg = cooperative_groups;
 
-#define CORA_RMAX 10
-#define CORA_LMAX 16
 #define CORA_NTHREADS 1024
 // partial-sum slots per CTA, reused round-robin: a slot is written again
 // four publications later, after at least two group barriers past its reads
 #define CORA_RING 4
-#define CORA_RING_W (CORA_LMAX * CORA_RMAX)
 
 // Host-built constants of one problem (see ChainPlan in ops/chain.py).
 // Edge g joins pose g to g+1; the band is the pose-pair blocking of the
@@ -151,9 +149,22 @@ struct Ctx {
   int rank;      // CTA rank in the group
   int b0, b1;    // own band blocks
   int g0, g1;    // own poses
-  float* ring;   // (CORA_RING, CORA_RING_W) this CTA's published partials
+  float* ring;   // (CORA_RING, W) this CTA's published partials
+  int W;         // ring slot width: max(l·r, 1)
+  float* lmA;    // (l, r) landmark solution of precon_solve
+  float* lmB;    // (l, r) its right-hand side
   int nsum;      // publications so far
 };
+
+// The dynamic shared memory of a single-state kernel (step, tcg, chunk,
+// ladder_block), in floats: the ring, lmA and lmB, all sized by l·r at
+// launch, so the kernels' rank bound is the card's shared memory
+// (chain.rank_bound); the reductions read only p < l·r, so the sizing
+// changes no arithmetic.
+__host__ __device__ inline size_t chain_smem_floats(int l, int r) {
+  const int lr = l * r;
+  return (size_t)CORA_RING * (lr > 1 ? lr : 1) + 2 * (size_t)lr;
+}
 
 // ---------------------------------------------------------------------------
 // Reductions
@@ -166,7 +177,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The next slot of this CTA's ring, for a partial that all CTAs read after
 // the next group barrier.
 __device__ __forceinline__ float* publish_slot(Ctx& c) {
-  return c.ring + (c.nsum++ % CORA_RING) * CORA_RING_W;
+  return c.ring + (c.nsum++ % CORA_RING) * c.W;
 }
 
 // Σ over the group's CTAs of slot[p], in rank order (after the barrier that
@@ -702,8 +713,8 @@ __device__ void hvp(Ctx& c, const float* Y, const float* nF, const float* dY,
 // ---------------------------------------------------------------------------
 template <int D, class G>
 __device__ void precon_solve(Ctx& c, const float* V, float* out) {
-  __shared__ float lmA[CORA_LMAX * CORA_RMAX];
-  __shared__ float lmB[CORA_LMAX * CORA_RMAX];
+  float* lmA = c.lmA;
+  float* lmB = c.lmB;
   const ChainPlanArgs& P = c.P;
   const int r = c.r, l = P.l, lm0 = P.n * D + P.m + P.n;
   const int q = D + 1, w = 2 * q, nb = P.nb;

@@ -1,6 +1,7 @@
 // small_eigh: the full eigendecomposition of small symmetric matrices
-// (n ≤ 96) for the Rayleigh–Ritz step of LOBPCG, by parallel-order
-// (round-robin) cyclic Jacobi, in two kernels that give the same bits.
+// for the Rayleigh–Ritz step of LOBPCG, by parallel-order (round-robin)
+// cyclic Jacobi, in three kernels that give the same bits where they
+// overlap.
 //
 // Replaces `jnp.linalg.eigh` inside the JAX package's LOBPCG
 // `lax.while_loop` (cora_tpu/ops/lobpcg.py:61; not a Pallas kernel). The
@@ -32,6 +33,12 @@
 //   stays exactly symmetric) and one per (row, pair) of V, A and V in
 //   shared memory, two __syncthreads phases a round. The first design; it
 //   runs the matrices of 32 < n ≤ 96 and is the comparator of the other.
+// small_eigh_global_kernel (any n, routed n > 96): the one-CTA kernel's
+//   body (`jacobi_cta`, written once for both) with A, V and the round's
+//   tables in a global workspace instead of shared memory, at the same
+//   thread count, so the same bits where both run. 2·n²·8 B stays in L2
+//   (~1 MB at n = 246); each round's loads go through L1/L2, ~10 µs a
+//   round at n = 99 on the H100 (PERF.md).
 // small_eigh_warp_kernel (n ≤ 32): a lane per row of A and of V, in W = 3
 //   update warps (each taking every W-th column pair of a round) and one
 //   rotation warp that runs a round ahead: 4 warps, one per SM
@@ -245,23 +252,31 @@ __device__ T block_sum(T v, T* red, int nwarps) {
   return out;
 }
 
+// Where one matrix's Jacobi state lives: shared memory (the one-CTA
+// kernel) or a global workspace (the global kernel). The arithmetic below
+// reads and writes it the same way wherever it is.
+struct JacobiBufs {
+  R* A;                   // np × np
+  R* V;                   // np × np
+  R *cs_c, *cs_s, *cs_t;  // (h) this round's rotations
+  int *pr_p, *pr_q;       // (h) this round's pairs
+  R* diag;                // (n)
+  int* perm;              // (n)
+};
+
+// The one-CTA Jacobi of one matrix (the block's), its state in B, a thread
+// per 2 × 2 block (i ≤ j) of A and one per (row, pair) of V, two
+// __syncthreads phases a round.
 template <typename T>
-__global__ void small_eigh_cta_kernel(const T* __restrict__ A_in, T* __restrict__ w_out,
-                                      T* __restrict__ V_out, int* __restrict__ info,
-                                      int n, int max_sweeps) {
-  extern __shared__ unsigned char smem_raw[];
+__device__ void jacobi_cta(const T* __restrict__ Ab, T* __restrict__ w_b,
+                           T* __restrict__ V_b, int* __restrict__ info_b, int n,
+                           int max_sweeps, const JacobiBufs& B, R* red) {
   const int np = n + (n & 1);
   const int h = np / 2;
-  R* A = reinterpret_cast<R*>(smem_raw);  // np × np
-  R* V = A + np * np;                       // np × np
-  __shared__ R cs_c[MAX_PAIRS], cs_s[MAX_PAIRS], cs_t[MAX_PAIRS];
-  __shared__ int pr_p[MAX_PAIRS], pr_q[MAX_PAIRS];
-  __shared__ R red[33];
-  __shared__ R diag[MAX_N];
-  __shared__ int perm[MAX_N];
-
-  const int b = blockIdx.x;
-  const T* Ab = A_in + (size_t)b * n * n;
+  R* A = B.A;
+  R* V = B.V;
+  R *cs_c = B.cs_c, *cs_s = B.cs_s, *cs_t = B.cs_t;
+  int *pr_p = B.pr_p, *pr_q = B.pr_q;
   const int tid = threadIdx.x, nt = blockDim.x, nwarps = nt >> 5;
 
   // load the lower triangle, mirrored (as torch.linalg.eigh's UPLO='L')
@@ -278,9 +293,9 @@ __global__ void small_eigh_cta_kernel(const T* __restrict__ A_in, T* __restrict_
   const R norm2 = block_sum(sq, red, nwarps);
   if (!isfinite(norm2)) {
     const R nan = R(0) / R(0);
-    for (int e = tid; e < n * n; e += nt) V_out[(size_t)b * n * n + e] = T(nan);
-    for (int i = tid; i < n; i += nt) w_out[(size_t)b * n + i] = T(nan);
-    if (tid == 0) info[b] = 0;
+    for (int e = tid; e < n * n; e += nt) V_b[e] = T(nan);
+    for (int i = tid; i < n; i += nt) w_b[i] = T(nan);
+    if (tid == 0) info_b[0] = 0;
     return;
   }
   const R tol2 = EPS * EPS * norm2;
@@ -352,9 +367,70 @@ __global__ void small_eigh_cta_kernel(const T* __restrict__ A_in, T* __restrict_
     }
     ++sweeps;
   }
-  write_sorted(A, V, np, n, diag, perm, w_out + (size_t)b * n, V_out + (size_t)b * n * n,
-               tid, nt);
-  if (tid == 0) info[b] = converged ? sweeps : -1;
+  write_sorted(A, V, np, n, B.diag, B.perm, w_b, V_b, tid, nt);
+  if (tid == 0) info_b[0] = converged ? sweeps : -1;
+}
+
+template <typename T>
+__global__ void small_eigh_cta_kernel(const T* __restrict__ A_in, T* __restrict__ w_out,
+                                      T* __restrict__ V_out, int* __restrict__ info,
+                                      int n, int max_sweeps) {
+  extern __shared__ unsigned char smem_raw[];
+  const int np = n + (n & 1);
+  __shared__ R cs_c[MAX_PAIRS], cs_s[MAX_PAIRS], cs_t[MAX_PAIRS];
+  __shared__ int pr_p[MAX_PAIRS], pr_q[MAX_PAIRS];
+  __shared__ R red[33];
+  __shared__ R diag[MAX_N];
+  __shared__ int perm[MAX_N];
+  JacobiBufs B;
+  B.A = reinterpret_cast<R*>(smem_raw);  // np × np
+  B.V = B.A + np * np;                     // np × np
+  B.cs_c = cs_c;
+  B.cs_s = cs_s;
+  B.cs_t = cs_t;
+  B.pr_p = pr_p;
+  B.pr_q = pr_q;
+  B.diag = diag;
+  B.perm = perm;
+  const int b = blockIdx.x;
+  jacobi_cta(A_in + (size_t)b * n * n, w_out + (size_t)b * n,
+             V_out + (size_t)b * n * n, info + b, n, max_sweeps, B, red);
+}
+
+// doubles of one matrix's global workspace
+__host__ __device__ inline size_t global_work_doubles(int n) {
+  const size_t np = n + (n & 1), h = np / 2;
+  return 2 * np * np + 3 * h + n + (2 * h + n);  // the int tables as doubles
+}
+
+// small_eigh_global_kernel (any n): the one-CTA kernel's arithmetic with
+// A, V, the rotations, pairs, diagonal and ranking in a global workspace
+// (`work`, global_work_doubles(n) per matrix; 2·n²·8 B ≈ 1 MB at n = 246
+// stays in the 50 MB L2), for the Rayleigh–Ritz matrices past the one-CTA
+// kernel's shared memory (n > 96, a certificate at rank ≥ 31). Same
+// threads as the one-CTA kernel at the same n, so the same bits where
+// both run; up to 1024 of them, which caps its registers at 64.
+template <typename T>
+__global__ void __launch_bounds__(1024) small_eigh_global_kernel(const T* __restrict__ A_in,
+                                         T* __restrict__ w_out, T* __restrict__ V_out,
+                                         int* __restrict__ info, int n, int max_sweeps,
+                                         R* __restrict__ work) {
+  __shared__ R red[33];
+  const int np = n + (n & 1), h = np / 2;
+  const int b = blockIdx.x;
+  R* base = work + (size_t)b * global_work_doubles(n);
+  JacobiBufs B;
+  B.A = base;
+  B.V = B.A + (size_t)np * np;
+  B.cs_c = B.V + (size_t)np * np;
+  B.cs_s = B.cs_c + h;
+  B.cs_t = B.cs_s + h;
+  B.diag = B.cs_t + h;
+  B.pr_p = reinterpret_cast<int*>(B.diag + n);
+  B.pr_q = B.pr_p + h;
+  B.perm = B.pr_q + h;
+  jacobi_cta(A_in + (size_t)b * n * n, w_out + (size_t)b * n,
+             V_out + (size_t)b * n * n, info + b, n, max_sweeps, B, red);
 }
 
 // ---------------------------------------------------------------------------
@@ -659,6 +735,15 @@ int launch_cta(const void* A, void* w, void* V, void* info, int batch, int n,
 }
 
 template <typename T>
+int launch_global(const void* A, void* w, void* V, void* info, int batch, int n,
+                  int max_sweeps, void* work, void* stream) {
+  if (n < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+  small_eigh_global_kernel<T><<<batch, cta_threads(n), 0, (cudaStream_t)stream>>>(
+      (const T*)A, (T*)w, (T*)V, (int*)info, n, max_sweeps, (R*)work);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_warp(const void* A, void* w, void* V, void* info, int batch, int n,
                 int max_sweeps, void* stream) {
   if (n < 1 || n > WARP_N || batch < 1) return (int)cudaErrorInvalidValue;
@@ -689,6 +774,23 @@ int cora_small_eigh_warp_f32(const void* A, void* w, void* V, void* info, int ba
 int cora_small_eigh_warp_f64(const void* A, void* w, void* V, void* info, int batch,
                              int n, int max_sweeps, void* stream) {
   return launch_warp<double>(A, w, V, info, batch, n, max_sweeps, stream);
+}
+
+int cora_small_eigh_global_f32(const void* A, void* w, void* V, void* info,
+                               int batch, int n, int max_sweeps, void* work,
+                               void* stream) {
+  return launch_global<float>(A, w, V, info, batch, n, max_sweeps, work, stream);
+}
+
+int cora_small_eigh_global_f64(const void* A, void* w, void* V, void* info,
+                               int batch, int n, int max_sweeps, void* work,
+                               void* stream) {
+  return launch_global<double>(A, w, V, info, batch, n, max_sweeps, work, stream);
+}
+
+// doubles of the global kernel's workspace per matrix of size n
+long long cora_small_eigh_global_work(int n) {
+  return (long long)global_work_doubles(n);
 }
 
 int cora_small_eigh_max_n() { return MAX_N; }

@@ -34,9 +34,17 @@
 // dependent passes once for its whole group (ladder_core): the barriers
 // and the pass latency are paid once per cluster, and each propagator row
 // is read once per pass for the group's AB·r band columns. Its partial-sum
-// ring is AB trial points wide, in dynamic shared memory. K is at most the
-// clusters the card holds at once (cora_ladder_capacity); chip_smoke.py
-// sweeps it.
+// ring is AB trial points wide, in dynamic shared memory, so AB is at most
+// what one block's shared memory holds at this rank: where A/K trial
+// points do not fit, the host cuts the A points into more groups and
+// launches them K clusters at a time (tnt_kernels.CudaTNT.ladder). A trial
+// point's bits do not depend on its group. K is at most the clusters the
+// card holds at once (cora_ladder_capacity); chip_smoke.py sweeps it.
+//
+// Every buffer sized by the rank lives in dynamic shared memory sized at
+// launch (chain_smem, ladder_smem), so the kernels take every rank whose
+// buffers fit in one block's shared memory (227 KB on the H100):
+// chain.rank_bound.
 //
 // step_block, ladder_block, chunk_block and tcg_block are the single-CTA
 // versions (ladder_block: one CTA per α): the comparators that
@@ -73,11 +81,12 @@ struct Carver {
   }
 };
 
-// The context of this CTA: its share of the partition, the scan scratch
-// and the ring of partial sums.
+// The context of this CTA: its share of the partition, the scan scratch,
+// and the ring of partial sums and the landmark buffers in the dynamic
+// shared memory `smem` (chain_smem_floats(l, r) floats).
 template <class G>
-__device__ Ctx make_ctx(const ChainPlanArgs& P, int r, Carver& w) {
-  __shared__ float ring[CORA_RING * CORA_RING_W];
+__device__ Ctx make_ctx(const ChainPlanArgs& P, int r, Carver& w,
+                        float* smem) {
   Ctx c;
   c.P = P;
   c.r = r;
@@ -89,7 +98,11 @@ __device__ Ctx make_ctx(const ChainPlanArgs& P, int r, Carver& w) {
   c.b1 = P.blk_ptr[c.rank + 1];
   c.g0 = min(2 * c.b0, P.n);
   c.g1 = min(2 * c.b1, P.n);
-  c.ring = ring;
+  const int lr = P.l * r;
+  c.W = lr > 1 ? lr : 1;
+  c.ring = smem;
+  c.lmA = smem + CORA_RING * c.W;
+  c.lmB = c.lmA + lr;
   c.nsum = 0;
   return c;
 }
@@ -99,8 +112,9 @@ __global__ void __launch_bounds__(CORA_NTHREADS, 1)
 step_kernel(ChainPlanArgs P, int r, const float* Y, const float* s,
             int do_retract, float* Yn, float* QY, float* grad, float* scal,
             float* work) {
+  extern __shared__ float smem[];
   Carver w{work};
-  Ctx c = make_ctx<G>(P, r, w);
+  Ctx c = make_ctx<G>(P, r, w, smem);
   float* pg = w.take((size_t)P.N * r);
   StepOut o = step_core<D, G>(c, Y, s, 1.f, do_retract, Yn, QY, grad, pg);
   if (c.rank == 0 && threadIdx.x == 0) {
@@ -116,8 +130,9 @@ __global__ void __launch_bounds__(CORA_NTHREADS, 1)
 tcg_kernel(ChainPlanArgs P, int r, const float* g, const float* Y,
            const float* nF, float delta, int max_iters, float kappa,
            float theta, float* s, float* scal, float* work) {
+  extern __shared__ float smem[];
   Carver w{work};
-  Ctx c = make_ctx<G>(P, r, w);
+  Ctx c = make_ctx<G>(P, r, w, smem);
   const size_t NR = (size_t)P.N * r;
   float* rv = w.take(NR);
   float* dv = w.take(NR);
@@ -144,8 +159,9 @@ __global__ void __launch_bounds__(CORA_NTHREADS, 1)
 chunk_kernel(ChainPlanArgs P, TNTArgs T, int r, float* Y, float* Gr,
              float* NF, float* fs, int* is, float* hist, int H,
              float* work) {
+  extern __shared__ float smem[];
   Carver w{work};
-  Ctx c = make_ctx<G>(P, r, w);
+  Ctx c = make_ctx<G>(P, r, w, smem);
   const size_t NR = (size_t)P.N * r;
   float* s = w.take(NR);
   float* rv = w.take(NR);
@@ -268,10 +284,11 @@ template <int D>
 __global__ void __launch_bounds__(CORA_NTHREADS, 1)
 ladder_block_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
                     const float* alphas, int A, float* out, float* work) {
+  extern __shared__ float smem[];
   const size_t NR = (size_t)P.N * r;
   const size_t per = 4 * NR + 2 * (size_t)P.nb * P.w * r;
   Carver w{work + blockIdx.x * per};
-  Ctx c = make_ctx<BlockGroup>(P, r, w);
+  Ctx c = make_ctx<BlockGroup>(P, r, w, smem);
   float* Yn = w.take(NR);
   float* QY = w.take(NR);
   float* G = w.take(NR);
@@ -285,8 +302,14 @@ ladder_block_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
   }
 }
 
+// Dynamic shared memory of the single-state kernels at rank r.
+size_t chain_smem(const ChainPlanArgs& P, int r) {
+  return sizeof(float) * chain_smem_floats(P.l, r);
+}
+
 // Dynamic shared memory of the α-batched ladder for at most `ab` trial
-// points per cluster: the ring, the warp partials, lmA, lmB and the sums.
+// points per cluster: the ring, the warp partials, lmA, lmB and the sums
+// (chain.ladder_smem_bytes; the host picks ab so that it fits).
 size_t ladder_smem(const ChainPlanArgs& P, int r, int ab) {
   const int lr = P.l * r;
   const size_t W = (size_t)ab * (lr > 1 ? lr : 1);
@@ -325,6 +348,8 @@ ladder_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
   c.g0 = min(2 * c.b0, P.n);
   c.g1 = min(2 * c.b1, P.n);
   c.ring = smem;
+  c.W = B.W;
+  c.lmA = c.lmB = nullptr;  // the batch's own, in B
   c.nsum = 0;
   B.part = smem + CORA_RING * B.W;
   B.lmA = B.part + 32 * AB;
@@ -383,8 +408,22 @@ int launch_clusters(void (*kernel)(Exp...), cudaStream_t st, int clusters,
 }
 
 template <class... Exp, class... Act>
-int launch_cluster(void (*kernel)(Exp...), cudaStream_t st, Act&&... args) {
-  return launch_clusters(kernel, st, 1, 0, std::forward<Act>(args)...);
+int launch_cluster(void (*kernel)(Exp...), cudaStream_t st, size_t smem,
+                   Act&&... args) {
+  return launch_clusters(kernel, st, 1, smem, std::forward<Act>(args)...);
+}
+
+// A plain launch of `grid` single CTAs with `smem` bytes of dynamic shared
+// memory (allowed past the 48 KB default first).
+template <class... Exp, class... Act>
+int launch_blocks(void (*kernel)(Exp...), int grid, cudaStream_t st,
+                  size_t smem, Act&&... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, CORA_NTHREADS, smem, st>>>(std::forward<Act>(args)...);
+  return (int)cudaGetLastError();
 }
 
 // How many clusters of the kernel's configuration fit on the card at once.
@@ -402,9 +441,12 @@ extern "C" {
 
 int cora_cluster_size() { return CORA_CLUSTER; }
 
-int cora_cluster_capacity(const ChainPlanArgs* P, int* clusters) {
-  if (P->d == 2) return cluster_capacity(chunk_kernel<2, Cluster>, clusters);
-  return cluster_capacity(chunk_kernel<3, Cluster>, clusters);
+// Clusters of `chunk` (and so of `step` and `tcg`) at rank r that fit.
+int cora_cluster_capacity(const ChainPlanArgs* P, int r, int* clusters) {
+  const size_t smem = chain_smem(*P, r);
+  if (P->d == 2)
+    return cluster_capacity(chunk_kernel<2, Cluster>, clusters, smem);
+  return cluster_capacity(chunk_kernel<3, Cluster>, clusters, smem);
 }
 
 int cora_ladder_capacity(const ChainPlanArgs* P, int r, int ab,
@@ -419,34 +461,35 @@ int cora_step(const ChainPlanArgs* P, int r, const float* Y, const float* s,
               int do_retract, float* Yn, float* QY, float* grad, float* scal,
               float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = chain_smem(*P, r);
   if (P->d == 2)
-    return launch_cluster(step_kernel<2, Cluster>, st, *P, r, Y, s,
+    return launch_cluster(step_kernel<2, Cluster>, st, smem, *P, r, Y, s,
                           do_retract, Yn, QY, grad, scal, work);
-  return launch_cluster(step_kernel<3, Cluster>, st, *P, r, Y, s, do_retract,
-                        Yn, QY, grad, scal, work);
+  return launch_cluster(step_kernel<3, Cluster>, st, smem, *P, r, Y, s,
+                        do_retract, Yn, QY, grad, scal, work);
 }
 
 int cora_step_block(const ChainPlanArgs* P, int r, const float* Y,
                     const float* s, int do_retract, float* Yn, float* QY,
                     float* grad, float* scal, float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = chain_smem(*P, r);
   if (P->d == 2)
-    step_kernel<2, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
-        *P, r, Y, s, do_retract, Yn, QY, grad, scal, work);
-  else
-    step_kernel<3, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
-        *P, r, Y, s, do_retract, Yn, QY, grad, scal, work);
-  return (int)cudaGetLastError();
+    return launch_blocks(step_kernel<2, BlockGroup>, 1, st, smem, *P, r, Y, s,
+                         do_retract, Yn, QY, grad, scal, work);
+  return launch_blocks(step_kernel<3, BlockGroup>, 1, st, smem, *P, r, Y, s,
+                       do_retract, Yn, QY, grad, scal, work);
 }
 
 int cora_tcg(const ChainPlanArgs* P, int r, const float* g, const float* Y,
              const float* nF, float delta, int max_iters, float kappa,
              float theta, float* s, float* scal, float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = chain_smem(*P, r);
   if (P->d == 2)
-    return launch_cluster(tcg_kernel<2, Cluster>, st, *P, r, g, Y, nF,
+    return launch_cluster(tcg_kernel<2, Cluster>, st, smem, *P, r, g, Y, nF,
                           delta, max_iters, kappa, theta, s, scal, work);
-  return launch_cluster(tcg_kernel<3, Cluster>, st, *P, r, g, Y, nF,
+  return launch_cluster(tcg_kernel<3, Cluster>, st, smem, *P, r, g, Y, nF,
                         delta, max_iters, kappa, theta, s, scal, work);
 }
 
@@ -455,23 +498,23 @@ int cora_tcg_block(const ChainPlanArgs* P, int r, const float* g,
                    float kappa, float theta, float* s, float* scal,
                    float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = chain_smem(*P, r);
   if (P->d == 2)
-    tcg_kernel<2, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
-        *P, r, g, Y, nF, delta, max_iters, kappa, theta, s, scal, work);
-  else
-    tcg_kernel<3, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
-        *P, r, g, Y, nF, delta, max_iters, kappa, theta, s, scal, work);
-  return (int)cudaGetLastError();
+    return launch_blocks(tcg_kernel<2, BlockGroup>, 1, st, smem, *P, r, g, Y,
+                         nF, delta, max_iters, kappa, theta, s, scal, work);
+  return launch_blocks(tcg_kernel<3, BlockGroup>, 1, st, smem, *P, r, g, Y,
+                       nF, delta, max_iters, kappa, theta, s, scal, work);
 }
 
 int cora_chunk(const ChainPlanArgs* P, const TNTArgs* T, int r, float* Y,
                float* G, float* NF, float* fs, int* is, float* hist, int H,
                float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = chain_smem(*P, r);
   if (P->d == 2)
-    return launch_cluster(chunk_kernel<2, Cluster>, st, *P, *T, r, Y, G,
+    return launch_cluster(chunk_kernel<2, Cluster>, st, smem, *P, *T, r, Y, G,
                           NF, fs, is, hist, H, work);
-  return launch_cluster(chunk_kernel<3, Cluster>, st, *P, *T, r, Y, G,
+  return launch_cluster(chunk_kernel<3, Cluster>, st, smem, *P, *T, r, Y, G,
                         NF, fs, is, hist, H, work);
 }
 
@@ -479,15 +522,18 @@ int cora_chunk_block(const ChainPlanArgs* P, const TNTArgs* T, int r,
                      float* Y, float* G, float* NF, float* fs, int* is,
                      float* hist, int H, float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = chain_smem(*P, r);
   if (P->d == 2)
-    chunk_kernel<2, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
-        *P, *T, r, Y, G, NF, fs, is, hist, H, work);
-  else
-    chunk_kernel<3, BlockGroup><<<1, CORA_NTHREADS, 0, st>>>(
-        *P, *T, r, Y, G, NF, fs, is, hist, H, work);
-  return (int)cudaGetLastError();
+    return launch_blocks(chunk_kernel<2, BlockGroup>, 1, st, smem, *P, *T, r,
+                         Y, G, NF, fs, is, hist, H, work);
+  return launch_blocks(chunk_kernel<3, BlockGroup>, 1, st, smem, *P, *T, r, Y,
+                       G, NF, fs, is, hist, H, work);
 }
 
+// One launch of `clusters` clusters, cluster k taking the trial points
+// [grp[k], grp[k+1]) and the band buffers [band_off[k], band_off[k+1]):
+// grp and band_off may point into longer tables (a later pass of the
+// host's split), since they hold global trial indices and offsets.
 int cora_ladder(const ChainPlanArgs* P, int r, const float* Y,
                 const float* Ydot, const float* alphas, int A, const int* grp,
                 const long long* band_off, int clusters, int ab, float* out,
@@ -505,13 +551,12 @@ int cora_ladder_block(const ChainPlanArgs* P, int r, const float* Y,
                       const float* Ydot, const float* alphas, int A,
                       float* out, float* work, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = chain_smem(*P, r);
   if (P->d == 2)
-    ladder_block_kernel<2><<<A, CORA_NTHREADS, 0, st>>>(*P, r, Y, Ydot, alphas,
-                                                        A, out, work);
-  else
-    ladder_block_kernel<3><<<A, CORA_NTHREADS, 0, st>>>(*P, r, Y, Ydot, alphas,
-                                                        A, out, work);
-  return (int)cudaGetLastError();
+    return launch_blocks(ladder_block_kernel<2>, A, st, smem, *P, r, Y, Ydot,
+                         alphas, A, out, work);
+  return launch_blocks(ladder_block_kernel<3>, A, st, smem, *P, r, Y, Ydot,
+                       alphas, A, out, work);
 }
 
 }  // extern "C"

@@ -36,7 +36,12 @@ inside a solve. `ladder` is one step at each of A = 48 trial points: it
 launches K clusters (`LADDER_CLUSTERS`, at most what the card holds at
 once), each evaluating a contiguous group of trial points
 (`chain.ladder_groups`) in one pass chain, its band a solve with AB·r
-columns (`chain.LadderLayout`). `step_block`, `ladder_block` (one CTA per
+columns (`chain.LadderLayout`); where A/K trial points do not fit one
+block's shared memory at the rank, the points go in more, smaller groups,
+launched K clusters at a time. The kernels take every rank up to
+`chain.rank_bound` (their rank-sized buffers are dynamic shared memory
+sized at launch), as the JAX package's take every rank its VMEM guard
+admits. `step_block`, `ladder_block` (one CTA per
 α), `chunk_block` and `tcg_block` are the single-CTA comparators that
 chip_smoke.py times against the cluster kernels; the solver never launches
 them. Times on the card beside the plain versions' and the bounds are in
@@ -82,7 +87,8 @@ SOURCES = ("chain_ops.cuh", "tnt_kernels.cu")
 CLUSTER = 16
 # clusters of the α-batched `ladder` (chip_smoke.py's sweep, PERF.md)
 LADDER_CLUSTERS = 7
-# trial points one ladder cluster may batch (its ring is that wide)
+# trial points one ladder cluster may batch (the saddle escape's A); at a
+# high rank shared memory allows fewer (chain.ladder_batch_max)
 LADDER_MAX_BATCH = 48
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -169,9 +175,18 @@ def load_library():
     t0 = time.time()
     so, log = compile_library("cora_tnt", SOURCES, "tnt_kernels.cu")
     try:
-        lib = ctypes.CDLL(str(so))
+        lib = bind(ctypes.CDLL(str(so)))
     except OSError as e:
         raise KernelBuildError(f"cannot load {so}: {e}") from e
+    if lib.cora_cluster_size() != CLUSTER:
+        raise KernelBuildError(f"{so} was built for another cluster")
+    BUILD_INFO.update(path=str(so), seconds=time.time() - t0, log=log)
+    _LIB = lib
+    return lib
+
+
+def bind(lib):
+    """The argument and result types of the library's C entry points."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.cora_step, lib.cora_step_block):
         fn.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, vp, vp, vp]
@@ -182,7 +197,7 @@ def load_library():
     lib.cora_ladder.argtypes = [vp, ci, vp, vp, vp, ci, vp, vp, ci, ci, vp,
                                 vp, vp]
     lib.cora_ladder_block.argtypes = [vp, ci, vp, vp, vp, ci, vp, vp, vp]
-    lib.cora_cluster_capacity.argtypes = [vp, vp]
+    lib.cora_cluster_capacity.argtypes = [vp, ci, vp]
     lib.cora_ladder_capacity.argtypes = [vp, ci, ci, vp]
     lib.cora_cluster_size.argtypes = []
     for fn in (lib.cora_step, lib.cora_step_block, lib.cora_tcg,
@@ -191,10 +206,6 @@ def load_library():
                lib.cora_cluster_capacity, lib.cora_ladder_capacity,
                lib.cora_cluster_size):
         fn.restype = ci
-    if lib.cora_cluster_size() != CLUSTER:
-        raise KernelBuildError(f"{so} was built for another cluster")
-    BUILD_INFO.update(path=str(so), seconds=time.time() - t0, log=log)
-    _LIB = lib
     return lib
 
 
@@ -277,8 +288,9 @@ def _check_state(x: torch.Tensor, N: int, r: int, name: str):
 class CudaTNT:
     """The CUDA kernels for one chain plan (float32, on a CUDA device).
     `chunk`, `tcg` and `step` launch one cluster of the library's cluster
-    size, `ladder` up to `ladder_clusters` of them; construction raises
-    KernelLaunchError if the card cannot hold one."""
+    size, `ladder` up to `LADDER_CLUSTERS` of them at once; construction
+    raises KernelLaunchError if the card cannot hold one. They take ranks
+    1..`rank_bound` (`chain.rank_bound`)."""
 
     route = "cuda"
 
@@ -311,27 +323,12 @@ class CudaTNT:
                       self.cluster: chain.cluster_partition(plan, self.cluster)}
         self._args1 = self._plan_args(self.parts[1])
         self._argsC = self._plan_args(self.parts[self.cluster])
-        clusters = ctypes.c_int(0)
-        err = self.lib.cora_cluster_capacity(ctypes.byref(self._argsC),
-                                             ctypes.byref(clusters))
-        if err != 0 or clusters.value < 1:
-            raise KernelLaunchError(
-                f"a cluster of {self.cluster} CTAs of 1024 threads cannot be "
-                f"scheduled (CUDA error {err}, {clusters.value} active "
-                f"clusters)")
-        self.max_clusters = clusters.value
-        # the ladder's room at its largest shared memory (a full batch at
-        # the largest rank); the card holds one 1024-thread CTA per SM
-        # whatever the batch, so this is its capacity at every batch
-        err = self.lib.cora_ladder_capacity(
-            ctypes.byref(self._argsC), chain.R_MAX, LADDER_MAX_BATCH,
-            ctypes.byref(clusters))
-        if err != 0 or clusters.value < 1:
-            raise KernelLaunchError(
-                f"no ladder cluster of {self.cluster} CTAs can be scheduled "
-                f"(CUDA error {err}, {clusters.value} active clusters)")
-        self.ladder_max_clusters = clusters.value
-        self.ladder_clusters = min(LADDER_CLUSTERS, self.ladder_max_clusters)
+        self.rank_bound = chain.rank_bound(plan.l, plan.N)
+        # clusters that fit at once, per (kernel, rank, batch); the card
+        # holds one 1024-thread CTA per SM whatever the shared memory, so
+        # these are the same at every rank the bound admits
+        self._capacity = {}
+        self._fits("cluster", 1)
         p = params
         self._tnt = _TNTArgs(
             eta1=p.eta1, eta2=p.eta2, alpha1=p.alpha1, alpha2=p.alpha2,
@@ -370,11 +367,59 @@ class CudaTNT:
                                     f"{err}")
         LAUNCHES[name] += 1
 
+    def _fits(self, kernel: str, r: int, ab: int = 0) -> int:
+        """How many clusters of `kernel` ("cluster": chunk, tcg, step;
+        "ladder" batching `ab` trial points) the card holds at once at rank
+        r; raises KernelLaunchError if not one."""
+        key = (kernel, r, ab)
+        if key not in self._capacity:
+            clusters = ctypes.c_int(0)
+            args = ctypes.byref(self._argsC)
+            err = (self.lib.cora_cluster_capacity(args, r,
+                                                  ctypes.byref(clusters))
+                   if kernel == "cluster" else
+                   self.lib.cora_ladder_capacity(args, r, ab,
+                                                 ctypes.byref(clusters)))
+            if err != 0 or clusters.value < 1:
+                raise KernelLaunchError(
+                    f"no {kernel} cluster of {self.cluster} CTAs of 1024 "
+                    f"threads can be scheduled at rank {r} (CUDA error "
+                    f"{err}, {clusters.value} active clusters)")
+            self._capacity[key] = clusters.value
+        return self._capacity[key]
+
     def _rank(self, Y: torch.Tensor) -> int:
         r = int(Y.shape[1])
-        if not 1 <= r <= chain.R_MAX:
-            raise ValueError(f"rank {r} outside 1..{chain.R_MAX}")
+        if not 1 <= r <= self.rank_bound:
+            raise ValueError(f"rank {r} outside 1..{self.rank_bound}, the "
+                             f"ranks whose buffers fit the card's "
+                             f"{chain.SMEM_OPTIN} bytes of shared memory")
+        self._fits("cluster", r)
         return r
+
+    def ladder_batch(self, r: int) -> int:
+        """The most trial points one ladder cluster batches at rank r."""
+        return min(LADDER_MAX_BATCH,
+                   chain.ladder_batch_max(self.plan.l, r))
+
+    def ladder_capacity(self, r: int) -> int:
+        """Ladder clusters the card holds at once at rank r (at the
+        largest batch, `ladder_batch(r)`)."""
+        return self._fits("ladder", r, self.ladder_batch(r))
+
+    def ladder_split(self, r: int, A: int, clusters: int | None = None):
+        """(K, grp): the ladder's clusters per launch and its groups of
+        trial points (`chain.ladder_groups`) at rank r. K is `clusters`
+        (default `LADDER_CLUSTERS`, at most what the card holds), cut at
+        A; the A points go in K groups, or in as many more as keep each
+        group within `ladder_batch(r)`, run K at a time."""
+        cap = self.ladder_capacity(r)
+        if clusters is not None and not 1 <= clusters <= cap:
+            raise ValueError(f"{clusters} ladder clusters; the card holds "
+                             f"{cap} at rank {r}")
+        K = min(clusters or min(LADDER_CLUSTERS, cap), A)
+        groups = max(K, -(-A // self.ladder_batch(r)))
+        return K, chain.ladder_groups(A, groups)
 
     def step(self, Y, s, do_retract: bool, block: bool = False):
         """(Y, s) → (Y_new, ∇F = QY_new, grad, [f, ‖grad‖, √⟨g,Pg⟩]);
@@ -443,8 +488,8 @@ class CudaTNT:
     def ladder(self, Y, Ydot, alphas, clusters: int | None = None,
                block: bool = False):
         """(3, A): f, ‖grad‖, √⟨g,Pg⟩ at retract(Y, α·Ẏ) for each α: the
-        trial points batched over `clusters` clusters (default
-        `ladder_clusters`; at most A and what the card holds), or with
+        trial points batched over `clusters` clusters at a time
+        (`ladder_split`: one launch per `clusters` groups), or with
         `block` one CTA per α (the comparator)."""
         r = self._rank(Y)
         N = self.plan.N
@@ -460,24 +505,19 @@ class CudaTNT:
                 _ptr(self._work(r, 4, copies=A)), self._stream())
             self._done("ladder_block", err)
             return out
-        K = min(clusters or self.ladder_clusters, A)
-        if not 1 <= K <= self.ladder_max_clusters:
-            raise ValueError(f"{K} ladder clusters; the card holds "
-                             f"{self.ladder_max_clusters}")
-        grp = chain.ladder_groups(A, K)
+        K, grp = self.ladder_split(r, A, clusters)
         ab = int(np.diff(grp).max())
-        if ab > LADDER_MAX_BATCH:
-            raise ValueError(f"{ab} trial points in one cluster > "
-                             f"{LADDER_MAX_BATCH}")
         layout = chain.ladder_layout(self.plan, r, grp)
         grp_t = torch.as_tensor(grp).to(Y.device)
         off_t = torch.as_tensor(layout.band_off).to(Y.device)
         work = torch.empty(layout.total, dtype=torch.float32, device=Y.device)
-        err = self.lib.cora_ladder(
-            ctypes.byref(self._argsC), r, _ptr(Y), _ptr(Ydot), _ptr(alphas), A,
-            _ptr(grp_t), _ptr(off_t), K, ab, _ptr(out), _ptr(work),
-            self._stream())
-        self._done("ladder", err)
+        G = len(grp) - 1
+        for g0 in range(0, G, K):  # one launch per K groups
+            err = self.lib.cora_ladder(
+                ctypes.byref(self._argsC), r, _ptr(Y), _ptr(Ydot),
+                _ptr(alphas), A, _ptr(grp_t[g0:]), _ptr(off_t[g0:]),
+                min(K, G - g0), ab, _ptr(out), _ptr(work), self._stream())
+            self._done("ladder", err)
         return out
 
 

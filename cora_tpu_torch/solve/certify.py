@@ -255,6 +255,7 @@ def certify_solution(
     max_lobpcg_iters: int = 500,
     tol: float = 1e-3,
     seed: int = 0,
+    rank_deficient_exit: bool = False,
     method: str = "host",
     eig_tol: float = 1e-5,
     escape_eig_iters: int | None = None,
@@ -265,12 +266,31 @@ def certify_solution(
     and in its dtype (the escape eigenvector needs no float64); the PSD
     decision is always float64 on the host. The LOBPCG start block comes
     from `np.random.default_rng(seed)`, with the bootstrap block in its
-    first columns, as in the JAX package."""
+    first columns, as in the JAX package.
+
+    `rank_deficient_exit`: certify outright a first-order critical Y whose
+    singular values span more than 1e6 (the reference's early exit,
+    `CORA_problem.cpp:1036-1049`). Off by default, as in the JAX package
+    (`cora_tpu/solve/certify.py:205-227`): at a rank-deficient saddle left
+    by a failed escape it certifies a point that is not optimal."""
     if method not in ("host", "auto", "device"):
         raise ValueError(f"certify method {method!r}")
     Y = _to_numpy(Y)
     N = pd.size
     r = Y.shape[1]
+
+    if rank_deficient_exit:
+        from cora_tpu_torch.ops.riemannian import riemannian_gradient
+
+        Yd = torch.as_tensor(Y).to(pd.device, pd.dtype())
+        grad_norm = float(torch.linalg.vector_norm(
+            riemannian_gradient(pd, Yd)))
+        sv = np.linalg.svd(np.asarray(Y), compute_uv=False)
+        if grad_norm <= 1e-3 * max(1.0, float(sv[0])) and (
+                sv[-1] == 0 or sv[0] / sv[-1] > 1e6):
+            return CertResults(is_certified=True, theta=0.0, x=np.zeros(N),
+                               all_eigvecs=np.zeros((N, nx)), num_iters=0)
+
     num_eigvecs = min(max(nx, r + 2), N)
 
     if N <= DENSE_CUTOFF:

@@ -53,10 +53,13 @@ def _trial_ladder(pd, Y_aug, Ydot, signed, precon, op):
 def saddle_escape(pd, Y: torch.Tensor, theta: float, v, precon,
                   gradient_tolerance: float = 1e-4,
                   preconditioned_gradient_tolerance: float = 1e-4,
+                  alpha_min: float = 1e-6,
                   verbose: bool = False, op=None) -> torch.Tensor:
     """Escape the rank-r saddle Y into rank r+1; returns the (N, r+1)
     state. `op` is the quadratic-form operator (explicit Q when None). The
-    saddle's f and the 48 trials' scalars come back in one host read."""
+    largest step is α₀ = max(16·`alpha_min`, 100·tol/|θ|, 1), as in the
+    JAX package. The saddle's f and the 48 trials' scalars come back in
+    one host read."""
     if op is None:
         op = functools.partial(data_matrix_product, pd)
     N, _ = Y.shape
@@ -64,8 +67,7 @@ def saddle_escape(pd, Y: torch.Tensor, theta: float, v, precon,
     Ydot = torch.zeros_like(Y_aug)
     Ydot[:, -1] = torch.as_tensor(np.asarray(v).reshape(N)).to(Ydot)
 
-    # the JAX package's floor 16·α_min (1.6e-5) never binds under 1
-    alpha0 = max(100 * gradient_tolerance / abs(theta), 1.0)
+    alpha0 = max(16 * alpha_min, 100 * gradient_tolerance / abs(theta), 1.0)
     alphas = torch.tensor(alpha0 * 0.5 ** np.arange(N_ALPHAS),
                           dtype=Y.dtype)
     signed = torch.stack([alphas, -alphas], dim=1).reshape(-1)

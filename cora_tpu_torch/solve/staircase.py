@@ -28,7 +28,9 @@ keeps:
 Two paths, chosen by the JAX package's rule (`cora_tpu/solve/
 staircase.py:239-288`): an explicit float32 solve with the
 RegularizedCholesky preconditioner and no iterate log, on a graph that the
-chain plan covers, runs on the chain kernels (`CudaTNT` on the card, their
+chain plan covers and at ranks up to the kernels' bound
+(`chain.rank_bound`, checked against `max_rank` up front), runs on the
+chain kernels (`CudaTNT` on the card, their
 plain versions on the CPU); any other solve — the implicit formulation,
 `log_iterates`, multi-robot graphs with inter-robot ranges, loop closures,
 other preconditioners, float64 — runs the canonical path (`tnt_solve`,
@@ -119,11 +121,16 @@ def _lift_random(project, Y: torch.Tensor, generator: torch.Generator,
     return project(torch.cat([Y, scale * col], dim=1)).contiguous()
 
 
-def kernel_path_reason(config: SolverConfig, pd, mesh=None) -> str | None:
+def kernel_path_reason(config: SolverConfig, pd, mesh=None,
+                       max_rank: int | None = None) -> str | None:
     """None if the chain kernels run this solve, else why the canonical
     path does (the JAX package's rule, `cora_tpu/solve/staircase.py:
-    239-246`, with its `plan_supported` check): a sharded solve (`mesh`)
-    always runs the canonical path."""
+    239-246`, with its `plan_supported` check, and its per-rank
+    `kernel_supported` as the kernels' rank bound): a sharded solve
+    (`mesh`) always runs the canonical path. `max_rank` (default
+    `config.max_rank`) is the staircase's highest rank, which must be
+    within `chain.rank_bound` (the card's shared memory) for every level,
+    escape and ladder to run on the kernels."""
     if mesh is not None:
         return "mesh"
     if config.formulation == Formulation.IMPLICIT:
@@ -134,7 +141,15 @@ def kernel_path_reason(config: SolverConfig, pd, mesh=None) -> str | None:
         return "log_iterates"
     if np.dtype(config.dtype) != np.float32:
         return f"dtype {np.dtype(config.dtype).name}"
-    return chain.plan_supported(pd)
+    reason = chain.plan_supported(pd)
+    if reason is not None:
+        return reason
+    top = config.max_rank if max_rank is None else max_rank
+    bound = chain.rank_bound(pd.l, pd.size)
+    if top > bound:
+        return (f"max_rank {top} above the kernels' rank bound {bound} "
+                f"({pd.l} landmarks in one block's shared memory)")
+    return None
 
 
 def solve_cora(
@@ -197,7 +212,7 @@ def _solve_cora(problem, x0, max_rank, config, verbose, checkpoint_path,
     cert_p = config.cert
     state_height = pd.rot_range_size if implicit else pd.size
     rank = problem.dim + config.init_rank_jump
-    reason = kernel_path_reason(config, pd, mesh)
+    reason = kernel_path_reason(config, pd, mesh, max_rank)
     solver_op = None  # the explicit Q·Y of the canonical ops
     clock = None  # the wall clock of the time caps (this process's)
     if reason is None:

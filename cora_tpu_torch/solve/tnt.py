@@ -447,6 +447,9 @@ def tnt_solve(
     op: Callable | None = None,
     log_iterates: bool = False,
     clock: Callable[[float], float] | None = None,
+    max_iterations_override: int | None = None,
+    max_tcg_override: int | None = None,
+    max_time: float | None = None,
 ) -> TNTResult:
     """Run TNT to convergence from Y0 on Y0's device and dtype. `precon`
     maps ambient V → P·V (the tangent projection is applied here,
@@ -465,17 +468,24 @@ def tnt_solve(
     exits with status `ramp_exit`, any other continues at the full tCG
     budget with the trust region restarted at Δ₀; a stall status during
     the ramp also promotes to the finish. The ramp budget rides on top of
-    the finish budget. On a CUDA device the loop's step functions run as
-    captured CUDA graphs unless `device_loop(graphs=False)` is in force.
+    the finish budget. `max_iterations_override` and `max_tcg_override`
+    lower the outer and tCG caps below `params`' (never above), and
+    `max_time` replaces `params.max_computation_time`, as the JAX
+    package's `tnt_solve` takes them. On a CUDA device the loop's step
+    functions run as captured CUDA graphs unless
+    `device_loop(graphs=False)` is in force.
     """
     params = params or TNTParams()
     t0 = time.time()
     opts = loops.options()
     ramp_until = max(int(ramp_iterations), 0)
-    iter_cap = params.max_iterations + ramp_until
-    tcg_cap = params.max_tcg_iterations
+    iter_cap = min(max_iterations_override or params.max_iterations,
+                   params.max_iterations) + ramp_until
+    tcg_cap = min(max_tcg_override or params.max_tcg_iterations,
+                  params.max_tcg_iterations)
     ramp_tcg = min(int(ramp_tcg) if ramp_tcg > 0 else tcg_cap, tcg_cap)
-    max_time = params.max_computation_time
+    if max_time is None:
+        max_time = params.max_computation_time
     graphs = Y0.device.type == "cuda" and opts.graphs
     block = opts.block_of("block", TCG_BLOCK, graphs)
 

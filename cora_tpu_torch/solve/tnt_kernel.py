@@ -161,11 +161,14 @@ def saddle_escape_tiles(
     v,
     gradient_tolerance: float = 1e-4,
     preconditioned_gradient_tolerance: float = 1e-4,
+    alpha_min: float = 1e-6,
     verbose: bool = False,
 ) -> torch.Tensor:
     """Saddle escape (reference `src/CORA.cpp:245-350`): the whole ±α trial
-    ladder is ONE `ladder` launch, then one `step` retracts along the
-    chosen direction. Returns the rank-(r+1) state."""
+    ladder is ONE `ladder` call, then one `step` retracts along the
+    chosen direction; the largest step is α₀ = max(16·`alpha_min`,
+    100·tol/|θ|, 1), as in the JAX package. Returns the rank-(r+1)
+    state."""
     plan = kern.plan
     N, r = Y.shape
     Y_aug = torch.cat(
@@ -178,8 +181,7 @@ def saddle_escape_tiles(
     _, _, _, scal = kern.step(Y_aug, torch.zeros_like(Y_aug), False)
     f_saddle = float(scal[0])
 
-    # the reference's 16·α_min floor (α_min = 1e-6) never binds under 1.0
-    alpha0 = max(100 * gradient_tolerance / abs(theta), 1.0)
+    alpha0 = max(16 * alpha_min, 100 * gradient_tolerance / abs(theta), 1.0)
     alphas = alpha0 * 0.5 ** np.arange(N_ALPHAS)
     signed = np.stack([alphas, -alphas], axis=1).reshape(-1)
     out = kern.ladder(Y_aug, Ydot, torch.as_tensor(signed, dtype=plan.dtype))

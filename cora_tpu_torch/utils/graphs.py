@@ -18,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import gc
 import time
 from typing import Callable
 
@@ -86,6 +87,23 @@ def sync_errors(on: bool):
         torch.cuda.set_sync_debug_mode(prev)
 
 
+@contextlib.contextmanager
+def collector_held():
+    """Python's cycle collector held off inside (a CUDA graph's capture).
+    A loop dropped from `keep` is cyclic garbage (its step functions are
+    its own bound methods), so the collector frees its graphs whenever it
+    next runs; a graph destroyed while another is being captured
+    invalidates that capture, and `capture_end` then raises
+    cudaErrorStreamCaptureInvalidated."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def copy_into(dst: dict, src: dict):
     for key, v in src.items():
         dst[key].copy_(v)
@@ -147,11 +165,12 @@ class StepGraphs:
         with torch.cuda.stream(self.stream):
             fn(commit=False)
             before = _counts()
-            g.capture_begin(pool=self.pool)
-            try:
-                fn()
-            finally:
-                g.capture_end()
+            with collector_held():
+                g.capture_begin(pool=self.pool)
+                try:
+                    fn()
+                finally:
+                    g.capture_end()
         cur.wait_stream(self.stream)
         launched = [{k: c[k] - b[k] for k in c if c[k] != b[k]}
                     for c, b in zip(COUNTERS, before)]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Hold the cluster `chunk` and `tcg` of this tree's CUDA sources against
-another build of them, on one card: same bits, and times in turns.
+"""Hold the cluster `chunk`, `tcg` and `ladder` of this tree's CUDA sources
+against another build of them, on one card: same bits, and times in turns.
 
     python3 scripts/compare_kernel_builds.py OTHER_CSRC
 
@@ -12,9 +12,12 @@ Both are built with the same nvcc flags. On the plaza2-shaped graph
 start, the script runs `chunk` (the start's evaluation + 8 TNT iterations)
 and `tcg` (∇F = 0, Δ = 1e8: tens of iterations) with each library, says
 whether every output is bit-equal, and times each in turns (other, this,
-this, other; median of 20, CUDA events). It also checks that the
-α-batched `ladder` gives the same bits five times at one cluster and at
-every cluster count the card holds. Exits non-zero on any difference.
+this, other; median of 20, CUDA events). The α-batched `ladder` (48 trial
+points at the default cluster count) must give the other library's bits,
+and this tree's must give the same bits five times at one cluster and at
+every cluster count the card holds. Only the launch entry points come
+from the other library (its C interface for them is this tree's); the
+capacity queries are this tree's. Exits non-zero on any difference.
 """
 
 import ctypes
@@ -30,9 +33,12 @@ GRAPHS = [(dict(n_poses=4091, n_landmarks=4, n_ranges=1807, dim=2, seed=0), 4),
           (dict(n_poses=1754, n_landmarks=1, n_ranges=1754, dim=3, seed=0), 5)]
 
 
+LAUNCHERS = ("cora_chunk", "cora_tcg", "cora_ladder")
+
+
 def build_other(csrc, tnt_kernels):
-    """The other sources' library, built like this tree's (only `chunk`
-    and `tcg` are bound)."""
+    """The other sources' library, built like this tree's: this tree's
+    library with the other's launch entry points (`LAUNCHERS`)."""
     os.makedirs(tnt_kernels.BUILD_DIR, exist_ok=True)
     so = os.path.join(tnt_kernels.BUILD_DIR, "other_kernels.so")
     proc = subprocess.run([tnt_kernels._nvcc(), *tnt_kernels.NVCC_FLAGS, "-o",
@@ -40,12 +46,17 @@ def build_other(csrc, tnt_kernels):
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed on {csrc}:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(so)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cora_chunk.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp]
-    lib.cora_tcg.argtypes = [vp, ci, vp, vp, vp, cf, ci, cf, cf, vp, vp, vp,
-                             vp]
-    lib.cora_chunk.restype = lib.cora_tcg.restype = ci
+    other = ctypes.CDLL(so)
+    this = tnt_kernels.load_library()
+    types = {}
+    for name in LAUNCHERS:
+        fn, ref = getattr(other, name), getattr(this, name)
+        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+        types[name] = fn
+    lib = type("OtherLibrary", (), {})()
+    for name in dir(this):
+        if name.startswith("cora_"):
+            setattr(lib, name, types.get(name, getattr(this, name)))
     return lib
 
 
@@ -111,18 +122,23 @@ def main():
         al = 4.0 * 0.5 ** np.arange(24)
         al = torch.tensor(np.stack([al, -al], 1).reshape(-1),
                           dtype=torch.float32)
+        cap = this.ladder_capacity(rank)
         outs = [this.ladder(Y, V, al, clusters=1) for _ in range(5)]
-        outs += [this.ladder(Y, V, al, clusters=k)
-                 for k in range(2, this.ladder_max_clusters + 1)]
+        outs += [this.ladder(Y, V, al, clusters=k) for k in range(2, cap + 1)]
         same_ladder = all(torch.equal(o, outs[0]) for o in outs)
+        same_other = torch.equal(this.ladder(Y, V, al), other.ladder(Y, V, al))
+        t_ladder = [chip_smoke.median_ms(lambda k=k: k.ladder(Y, V, al), torch)
+                    for k in (other, this, this, other)]
         name = f"d={graph['dim']} n={graph['n_poses']} r={rank}"
         print(f"[compare] {name}: chunk bit-equal {same_chunk}, tcg "
               f"bit-equal {same_tcg}; chunk ms (other, this, this, other) "
               + ", ".join(f"{t:.4f}" for t in t_chunk) + "; tcg ms "
               + ", ".join(f"{t:.4f}" for t in t_tcg)
+              + f"; ladder bit-equal to the other's {same_other}, ms "
+              + ", ".join(f"{t:.4f}" for t in t_ladder)
               + f"; ladder bit-equal over 5 runs at K = 1 and K = 2.."
-              f"{this.ladder_max_clusters}: {same_ladder}", flush=True)
-        ok = ok and same_chunk and same_tcg and same_ladder
+              f"{cap}: {same_ladder}", flush=True)
+        ok = ok and same_chunk and same_tcg and same_ladder and same_other
     if not ok:
         raise SystemExit("compare_kernel_builds: results differ")
 

@@ -269,13 +269,15 @@ def captures(fn):
     under set_sync_debug_mode('error'), then replayed."""
     import torch
 
+    from cora_tpu_torch.utils.graphs import collector_held
+
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     g = torch.cuda.CUDAGraph()
     prev = torch.cuda.get_sync_debug_mode()
     try:
         torch.cuda.set_sync_debug_mode("error")
-        with torch.cuda.stream(s):
+        with torch.cuda.stream(s), collector_held():
             fn()
             g.capture_begin()
             try:

@@ -272,6 +272,53 @@ def multi_robot_pyfg(n_robots: int, poses_per_robot: int, n_inter_ranges: int,
     return "\n".join(lines) + "\n"
 
 
+def noisy_chain_pyfg(n_poses: int, n_landmarks: int, ranges_per_pose: int,
+                     noise_scale: float, seed: int = 0) -> str:
+    """A 2D odometry chain as PyFG text (numpy only) whose every pose
+    ranges to `ranges_per_pose` distinct landmarks, with noise drawn
+    `noise_scale` times the noise it states (0.05 m and 0.01 rad of
+    odometry, 0.1 m of range). Measurements that disagree with their
+    stated noise raise the rank of the relaxation's optimum: with 200
+    poses, 16 landmarks, 4 ranges a pose and `noise_scale` 100 it is 11, so
+    a staircase from rank 10 fails its certificate there and escapes, on a
+    graph the chain kernels take (one robot, pose → landmark ranges, at
+    most 8 a pose)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sig_t, sig_r, sig_rng = 0.05, 0.01, 0.1
+    yaw, p = 0.0, np.zeros(2)
+    ths, ps = [], []
+    for _ in range(n_poses):
+        ths.append(yaw)
+        ps.append(p.copy())
+        yaw += rng.normal(0.0, 0.15)
+        p = p + _rot2d(yaw) @ np.array([1.0, 0.0])
+    ps = np.stack(ps)
+    lm = rng.uniform(ps.min(0) - 5.0, ps.max(0) + 5.0, (n_landmarks, 2))
+
+    def num(x):
+        return " ".join(f"{float(v):.12g}" for v in np.ravel(x))
+
+    lines = [f"VERTEX_SE2 {t}.0 A{t} {num(ps[t])} {num(ths[t])}"
+             for t in range(n_poses)]
+    lines += [f"VERTEX_XY L{k} {num(lm[k])}" for k in range(n_landmarks)]
+    cov_ut = num(np.diag([sig_t ** 2] * 2 + [sig_r ** 2])[np.triu_indices(3)])
+    for t in range(n_poses - 1):
+        dt = _rot2d(ths[t]).T @ (ps[t + 1] - ps[t]) \
+            + noise_scale * rng.normal(0.0, sig_t, 2)
+        dth = ths[t + 1] - ths[t] + noise_scale * rng.normal(0.0, sig_r)
+        lines.append(f"EDGE_SE2 {t + 1}.0 A{t} A{t + 1} {num(dt)} {num(dth)} "
+                     f"{cov_ut}")
+    for t in range(n_poses):
+        for k in rng.choice(n_landmarks, ranges_per_pose, replace=False):
+            dist = abs(np.linalg.norm(ps[t] - lm[k])
+                       + noise_scale * rng.normal(0.0, sig_rng))
+            lines.append(f"EDGE_RANGE {t}.0 A{t} L{k} {num(max(dist, 0.01))} "
+                         f"{num(sig_rng ** 2)}")
+    return "\n".join(lines) + "\n"
+
+
 def permuted_bandwidth(problem, pd) -> int:
     """Scalar bandwidth of the pose band of Q after the sphere elimination,
     under the RCM pose ordering: the `bw_actual` that the JAX package's

@@ -311,8 +311,16 @@ def test_route_by_size(n):
 
 @pytest.mark.parametrize("n", [0, 97, 128])
 def test_route_refuses_sizes(n):
+    """No kernel takes n = 0; past MAX_N the one-CTA kernel refuses (its A
+    and V would overflow its shared memory) and the route is the global
+    kernel's."""
     with pytest.raises(ValueError):
-        se.route(n, torch.float32)
+        se.route(n, torch.float32, kernel="cta")
+    if n == 0:
+        with pytest.raises(ValueError):
+            se.route(n, torch.float32)
+    else:
+        assert se.route(n, torch.float32) == "global"
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
