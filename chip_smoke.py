@@ -35,20 +35,27 @@ raises and the script exits non-zero:
      K's and its scalars to the cluster `step`'s, and each kernel and its
      plain version timed (median of 3) beside its bound.
      `small_eigh` (LOBPCG's Rayleigh–Ritz eigensolver: the one-warp
-     kernel for n ≤ 32, the one-CTA kernel `small_eigh_cta` to 96, the
-     global kernel `small_eigh_global` above) against
+     kernel for n ≤ 32, the cluster family `small_eigh_cluster` to 320,
+     the global kernel `small_eigh_global` above; the one-CTA kernel
+     `small_eigh_cta`, n ≤ 96, their comparator) against
      its plain twin on random symmetric 30 × 30 and 36 × 36 matrices in
      float32 and float64 and on the graded matrices of
      `scripts/small_eigh_cases.py` at n = 10 and 30 (eigenvalues to 1e-5 /
      1e-12 relative, ‖VᵀV − I‖ and ‖AV − VΛ‖); wherever the one-warp
-     kernel runs, it must give the one-CTA kernel's bits (w, V, info), and
-     the one-CTA kernel is held to the twin too; both timed at n = 30
-     float32 in turns (one-CTA, warp, warp, one-CTA) beside the twin and
-     `torch.linalg.eigh`; the global kernel bit for bit against the
-     one-CTA kernel at n = 36 and 96 (forced), against the twin in float64
-     at n = 99, 150 and 246 (1e-12) and, for float32 inputs, against
-     float64 eigh; the one-CTA kernel timed at n = 36 and the global one
-     at n = 99 and 246, each beside its bound;
+     kernel or the cluster family runs, it must give its comparator's bits
+     (w, V, info: the one-CTA kernel's to n = 96, the global kernel's
+     past it), and the comparator is held to the twin too; the one-warp
+     kernel timed at n = 30 float32 in turns (one-CTA, warp, warp,
+     one-CTA) beside the twin and `torch.linalg.eigh`; the cluster family
+     and the global kernel bit for bit against the one-CTA kernel at n =
+     36 and 96 (forced), the cluster family against the global kernel at
+     n = 99, 150, 198 and 246 (1, 2, 4 and 8 CTAs) in float32 and float64
+     and against the twin in float64 (1e-12), its float32 eigenvalues
+     against float64 eigh; the cluster family timed in turns with its
+     comparator (cluster, old, old, cluster) at n = 36 (the one-CTA
+     kernel), 99 and 246 (the global kernel), each beside its bound, with
+     its cluster size; the global route past 320 at n = 324 (rank 106)
+     against the twin, timed beside it and `torch.linalg.eigh`;
   3. slice — `solve_cora` on both graphs with bench.py's configuration and
      the kernels, from the numpy-seeded start, and on the plaza2-shaped
      graph from rank d (the run that takes a saddle escape), each gated
@@ -74,9 +81,11 @@ raises and the script exits non-zero:
      kernels, from the fixture's numpy start at that rank, gated as phase
      3 against the fixture's plaza2-shaped run (the certified optimum does
      not depend on the start rank); a failed certificate at a random
-     point at rank 10 (Rayleigh–Ritz n = 36: `small_eigh_cta`) and at rank
-     31 (n = 99: `small_eigh_global`), whose LOBPCG must run as replayed
-     graphs through that kernel; the visualize CLI's solve half
+     point at rank 10 (Rayleigh–Ritz n = 36), at rank 31 (n = 99) and at
+     rank 106 (n = 324), whose LOBPCG must run as replayed graphs through
+     `small_eigh_cluster` (`small_eigh_global` for rank 106's 3k = 324,
+     past the cluster family's n = 320), the k × k matrices through their
+     own route, and no other route; the visualize CLI's solve half
      (`cora_tpu_torch.visualize.solve`) on a one-robot chain written as
      PyFG, in float32 on the chain kernels and with `--animate` (float64,
      iterates logged, the canonical path), both certified and within 1 %
@@ -156,21 +165,24 @@ raises and the script exits non-zero:
 The kernels' launch counts are zeroed just before the timed kernel-path
 solves and read just after them; the main path must launch the cluster
 `chunk`, `step` and `ladder` and `small_eigh` (its failed certificates),
-and never a single-CTA comparator (`small_eigh_cta` only for a routed
-n > 32, that is a certificate at rank 9 or more). The certificate path
-of phase 3b must launch `small_eigh_cta` and `small_eigh_global`. The
-line before the last is one JSON
+and never a comparator (`small_eigh_cluster` only for a routed n > 32,
+that is a certificate at rank 9 or more). The certificate path of phase
+3b must launch `small_eigh_cluster`. The line before the last is one JSON
 object with the route, source, launches, error, times and bound of each
 kernel the paths launch (`chunk`, `step`, `ladder`, `small_eigh` from
-phase 3, `small_eigh_cta` and `small_eigh_global` from phase 3b, with
-the chain kernels' times and bounds past rank 10 under `by_rank`;
-`tcg`, whose loop runs inside `chunk`, gets a line of its own). A
+phase 3, `small_eigh_cluster` from phase 3b, with the chain kernels'
+times and bounds past rank 10 under `by_rank` and the cluster family's at
+n = 36, 99 and 246 under `by_n`; `tcg`, whose loop runs inside `chunk`,
+and small_eigh's one-CTA and global kernels, the cluster family's
+comparators, get a line of their own). A
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s, and its
 dependent group-barrier phases (`tnt_kernels.work_counts`) times the
 C-CTA cluster barrier the probe measured in this run (`small_eigh`: its
-sweeps × (n − 1) rounds times the probe's `__syncthreads`, its FLOPs at
-the float64 peak, 34 TFLOP/s); the last line is
+sweeps × (n − 1) rounds times the barrier it waits on each round, the
+probe's `__syncthreads` or, for the cluster family on C > 1 CTAs, its
+C-CTA `cluster.sync`, its FLOPs at the float64 peak, 34 TFLOP/s); the
+last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -193,12 +205,14 @@ REPLACES = {
     "chunk": "cora_tpu/ops/pallas_tcg.py:733",
     "ladder": "cora_tpu/ops/pallas_tcg.py:792",
     # not a pallas_call: the jnp.linalg.eigh in LOBPCG's lax.while_loop,
-    # in three routes by n (small_eigh.route)
+    # in routes by n (small_eigh.route), and the one-CTA comparator
     "small_eigh": "cora_tpu/ops/lobpcg.py:61",
+    "small_eigh_cluster": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_cta": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_global": "cora_tpu/ops/lobpcg.py:61",
 }
-EIGH_KEYS = ("small_eigh", "small_eigh_cta", "small_eigh_global")
+EIGH_KEYS = ("small_eigh", "small_eigh_cluster", "small_eigh_cta",
+             "small_eigh_global")
 # the CPU tests' tolerances (tests/test_torch_kernels_plain.py)
 TOL_STATE, TOL_F, TOL_GN, TOL_PGN = 2e-5, 1e-4, 1e-4, 1e-3
 TOL_MDEC = TOL_SNORM = 2e-2
@@ -214,9 +228,14 @@ LADDER_SWEEP = (1, 2, 3, 4, 6, 7, 8)
 # LOBPCG)
 PATH_KERNELS = ("chunk", "step", "ladder", "small_eigh")
 # the kernels of the certificate path past the main path's ranks (phase
-# 3b): the Rayleigh–Ritz matrices of a certificate at rank 10 (n = 36, the
-# one-CTA kernel) and at rank 31 (n = 99, the global kernel)
-CERT_RANKS = {"small_eigh_cta": 10, "small_eigh_global": 31}
+# 3b): the 3k × 3k Rayleigh–Ritz matrices of a certificate at rank 10 (n =
+# 36) and at rank 31 (n = 99), both the cluster family's (one CTA), and at
+# rank 106 (n = 324), past the cluster family's n = 320: the global
+# kernel's (its k × k ones, n = 108, the cluster family's)
+CERT_RANKS = (("small_eigh_cluster", 10), ("small_eigh_cluster", 31),
+              ("small_eigh_global", 106))
+# small_eigh's comparator, which no path launches (the one-CTA kernel)
+EIGH_COMPARATORS = ("small_eigh_cta",)
 # small_eigh against its plain twin: eigenvalues relative to the largest
 # (the float32 / float64 eigh's accuracy), ‖VᵀV − I‖ and ‖AV − VΛ‖ / ‖Λ‖
 # (n·ε with room for the Jacobi rotations' rounding)
@@ -240,11 +259,18 @@ KERNEL_CASES = [("plaza2_shaped", 4), ("plaza2_shaped", 6),
 HIGH_RANK_CASES = [("plaza2_shaped", 11), ("plaza2_shaped", 32),
                    ("plaza2_shaped", 80), ("single_drone_shaped", 12)]
 HIGH_REPS = 3
-# small_eigh's global route (n > 96) against its twin in float64, as the
-# JAX package's eigh computes, and bit for bit against the one-CTA kernel
-# where both run (forced); timed at the first and last size
-EIGH_GLOBAL = (99, 150, 246)
+# small_eigh's cluster family bit for bit against the one-CTA kernel at
+# n ≤ 96 and the global kernel past it (and the global kernel against the
+# one-CTA kernel where both run), in float32 and float64, at an n of each
+# cluster size the route picks (99: 1 CTA, 150: 2, 198: 4, 246: 8); against
+# its twin in float64, as the JAX package's eigh computes, past 96; timed
+# in turns with its comparator at the certificates' n = 36 (rank 10) and
+# 99 (rank 31) and at rank 80's 246; the global route past n = 320 (rank
+# 105) checked and timed at rank 106's 324
 EIGH_FORCED = (36, 96)
+EIGH_GLOBAL = (99, 150, 198, 246)
+EIGH_TIMED = (36, 99, 246)
+EIGH_PAST = 324
 # phase 3b: the plaza2-shaped staircase from rank 11 (init_rank_jump 9)
 # with max_rank 12 on the kernels; a staircase from rank 10 that escapes
 # to rank 11 on the kernels (a chain whose relaxation's optimum has rank
@@ -816,29 +842,32 @@ def check_small_eigh(A, stats, what):
 
     from small_eigh_cases import bits_equal
 
-    from cora_tpu_torch.ops.small_eigh import KEYS, route, small_eigh, \
-        small_eigh_plain
+    from cora_tpu_torch.ops.small_eigh import KEYS, MAX_N, route, \
+        small_eigh, small_eigh_plain
 
     dt = "float32" if A.dtype == torch.float32 else "float64"
-    which = route(A.shape[-1], A.dtype)
+    n = A.shape[-1]
+    which = route(n, A.dtype)
     w, V, info = small_eigh(A)
     wp, Vp, _ = small_eigh_plain(A)
-    if which == "warp":
-        # the one-warp kernel against the one-CTA kernel, bit for bit; the
-        # one-CTA kernel against the twin as the routed one is below
-        cta = small_eigh(A, kernel="cta")
-        same = bits_equal((w, V, info), cta)
-        print(f"[kernels] small_eigh {what}: one-warp and one-CTA kernels "
-              f"bit for bit: {same}", flush=True)
-        check(same, f"small_eigh {what}: the one-warp kernel left the "
-              "one-CTA kernel's bits")
-        ew = float(((cta[0] - wp).abs().amax(-1)
+    if which in ("warp", "cluster"):
+        # the routed kernel against its comparator (the one-CTA kernel to
+        # n = 96, the global one past it), bit for bit; the comparator
+        # against the twin as the routed one is below
+        old = "cta" if n <= MAX_N else "global"
+        ref = small_eigh(A, kernel=old)
+        same = bits_equal((w, V, info), ref)
+        print(f"[kernels] small_eigh {what}: {KEYS[which]} and "
+              f"{KEYS[old]} bit for bit: {same}", flush=True)
+        check(same, f"small_eigh {what}: {KEYS[which]} left {KEYS[old]}'s "
+              "bits")
+        ew = float(((ref[0] - wp).abs().amax(-1)
                     / wp.abs().amax(-1).clamp_min(1e-30)).max())
-        check(ew <= EIGH_TOL[dt] and min(cta[2].tolist()) >= 0,
-              f"small_eigh_cta {what}: eigenvalues {ew:.3e}, info "
-              f"{cta[2].tolist()}")
-        st = stats["small_eigh_cta"]
-        st["max_abs_err"] = max(st["max_abs_err"], absdiff(cta[0], wp))
+        check(ew <= EIGH_TOL[dt] and min(ref[2].tolist()) >= 0,
+              f"{KEYS[old]} {what}: eigenvalues {ew:.3e}, info "
+              f"{ref[2].tolist()}")
+        st = stats[KEYS[old]]
+        st["max_abs_err"] = max(st["max_abs_err"], absdiff(ref[0], wp))
         st["max_rel_err"] = max(st["max_rel_err"], ew)
     scale = wp.abs().amax(-1).clamp_min(1e-30)
     ev = float(((w - wp).abs().amax(-1) / scale).max())
@@ -879,18 +908,27 @@ def check_small_eigh(A, stats, what):
 def phase_small_eigh(stats, probe):
     """`small_eigh` on random symmetric matrices of the Rayleigh–Ritz
     sizes (n = 3k = 30, 36) in float32 and float64 and on the probe's
-    graded matrices at n = 10 and 30, held to its plain twin and, at
-    n ≤ 32, to the one-CTA kernel's bits; timed (median of 20, CUDA
-    events) at the main path's n = 30 in float32, the one-CTA kernel and
-    the routed one in turns, beside the twin and `torch.linalg.eigh`, with
-    its bound: the larger of its bytes at 3.35 TB/s, its FLOPs at the
-    float64 peak and its dependent rounds (sweeps × (n − 1)) times the
-    `__syncthreads` the probe measured in this run."""
+    graded matrices at n = 10 and 30, held to its plain twin and to its
+    comparator's bits (the one-CTA kernel to n = 96, the global kernel
+    past it); timed (median of 20, CUDA events) at the main path's n = 30
+    in float32, the one-CTA kernel and the routed one in turns, beside the
+    twin and `torch.linalg.eigh`, with its bound: the larger of its bytes
+    at 3.35 TB/s, its FLOPs at the float64 peak and its dependent rounds
+    (sweeps × (n − 1)) times the barrier it waits on each round (the
+    `__syncthreads` the probe measured in this run, or its `cluster.sync`
+    at the kernel's cluster size). The cluster family: bit for bit against
+    the one-CTA kernel at n = 36 and 96 (the global kernel too) and
+    against the global kernel at n = 99, 150, 198 and 246, in float32 and
+    float64, against the twin in float64 past 96, its float32 eigenvalues
+    against float64 eigh; timed in turns with its comparator (cluster,
+    old, old, cluster) at n = 36, 99 and 246; the global route past n =
+    320 checked and timed at 324, rank 106's Rayleigh–Ritz size."""
     import numpy as np
     import torch
     from small_eigh_cases import bits_equal, corpus
 
-    from cora_tpu_torch.ops.small_eigh import small_eigh, small_eigh_plain
+    from cora_tpu_torch.ops.small_eigh import KEYS, MAX_N, cluster_size, \
+        route, small_eigh, small_eigh_plain
 
     rng = np.random.default_rng(11)
     for n, dt in EIGH_CASES:
@@ -927,87 +965,136 @@ def phase_small_eigh(stats, probe):
             A = torch.as_tensor(np.stack([corpus(n, s)["graded"]
                                           for s in range(4)])).to("cuda", dt)
             check_small_eigh(A, stats, "graded")
-    # the global route: the one-CTA kernel's bits where both run (forced)
+    # the cluster family and the global kernel, forced, against the
+    # one-CTA kernel where all three run
     for n in EIGH_FORCED:
         for dt in (torch.float32, torch.float64):
             M = rng.standard_normal((4, n, n))
             A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda", dt)
-            same = bits_equal(small_eigh(A, kernel="global"),
-                              small_eigh(A, kernel="cta"))
-            print(f"[kernels] small_eigh n = {n} {dt}: global and one-CTA "
-                  f"kernels bit for bit: {same}", flush=True)
-            check(same, f"small_eigh n = {n}: the global kernel left the "
-                  "one-CTA kernel's bits")
-    # ... past it, against the twin in float64 and, for float32 inputs,
-    # against float64 eigh of the same matrices; timed at the certificate
-    # path's float32 (rank 31: n = 99) and at rank 80's n = 246
+            cta = small_eigh(A, kernel="cta")
+            for k in ("cluster", "global"):
+                same = bits_equal(small_eigh(A, kernel=k), cta)
+                print(f"[kernels] small_eigh n = {n} {dt}: {KEYS[k]} and "
+                      f"small_eigh_cta bit for bit: {same}", flush=True)
+                check(same, f"small_eigh n = {n}: {KEYS[k]} left the "
+                      "one-CTA kernel's bits")
+    # past it, the routed cluster family against the global kernel (in
+    # check_small_eigh, float64, and here, float32) and against the twin in
+    # float64; float32 inputs against float64 eigh of the same matrices
     for n in EIGH_GLOBAL:
         M = rng.standard_normal((2, n, n))
         A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda")
-        sweeps = check_small_eigh(A, stats, "random")
+        check_small_eigh(A, stats, "random")
         A32 = A.float()
-        w32 = small_eigh(A32)[0]
+        r32 = small_eigh(A32)
+        same = bits_equal(r32, small_eigh(A32, kernel="global"))
+        print(f"[kernels] small_eigh n = {n} float32: small_eigh_cluster "
+              f"(C = {cluster_size(n)}) and small_eigh_global bit for bit: "
+              f"{same}, sweeps {r32[2].tolist()}", flush=True)
+        check(same, f"small_eigh n = {n} float32: the cluster family left "
+              "the global kernel's bits")
         w64 = torch.linalg.eigh(A32.double())[0]
-        e32 = float(((w32.double() - w64).abs().amax(-1)
+        e32 = float(((r32[0].double() - w64).abs().amax(-1)
                      / w64.abs().amax(-1)).max())
-        check(e32 <= EIGH_TOL["float32"], f"small_eigh_global n = {n} "
+        check(e32 <= EIGH_TOL["float32"], f"small_eigh_cluster n = {n} "
               f"float32: eigenvalues {e32:.3e} off float64 eigh")
-        if n not in (EIGH_GLOBAL[0], EIGH_GLOBAL[-1]):
-            continue
-        A1 = A32[0].contiguous()
-        ms = median_ms(lambda: small_eigh(A1), torch, reps=5)
-        plain_ms = median_ms(lambda: small_eigh_plain(A1), torch, reps=5)
-        lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch, reps=5)
-        work, terms, term = eigh_bound(n, sweeps[0], 4, probe)
-        entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=terms[term],
-                     bound_by="bytes" if term == "bytes" else "operations",
-                     bound_term=term, work=work, n=n)
-        st = stats["small_eigh_global"]
-        st.setdefault("by_n", {})[n] = entry
-        if n == EIGH_GLOBAL[0]:  # the certificate path's matrices
-            st.update(entry, group="one CTA of up to 1024 threads per "
-                      "matrix, A and V in a global workspace")
-        print(f"[kernels] small_eigh_global n = {n} float32: {ms:.4f} ms "
-              f"(plain twin {plain_ms:.4f} ms, torch.linalg.eigh "
-              f"{lib_ms:.4f} ms); float32 eigenvalues {e32:.3e} off float64"
-              f" eigh; bound {terms[term]:.4f} ms by {term} ({sweeps[0]} "
-              f"sweeps × {n + n % 2 - 1} rounds)", flush=True)
-    # the one-CTA route at n = 36 (a certificate at rank 10), timed
-    n = 36
-    M = rng.standard_normal((n, n))
-    A1 = torch.as_tensor(M + M.T).to("cuda", torch.float32)
+    # the cluster family against its comparator in turns, float32
+    for n in EIGH_TIMED:
+        M = rng.standard_normal((n, n))
+        A1 = torch.as_tensor(M + M.T).to("cuda", torch.float32)
+        old = "cta" if n <= MAX_N else "global"
+        reps = REPS if n <= MAX_N else 5
+        t = [median_ms(lambda: small_eigh(A1, kernel=k), torch, reps=reps)
+             for k in ("cluster", old, old, "cluster")]
+        ms, old_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        sweeps = small_eigh(A1)[2].item()
+        plain_ms = median_ms(lambda: small_eigh_plain(A1), torch, reps=reps)
+        lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch, reps=reps)
+        C = cluster_size(n)
+        common = dict(plain_ms=plain_ms, library_ms=lib_ms, n=n)
+        for key, k_ms, k_c in (("small_eigh_cluster", ms, C),
+                               (KEYS[old], old_ms, 1)):
+            work, terms, term = eigh_bound(n, sweeps, 4, probe, k_c)
+            entry = dict(common, ms=k_ms, bound_ms=terms[term],
+                         bound_by="bytes" if term == "bytes" else
+                         "operations", bound_term=term, work=work,
+                         turns_ms=t)
+            if key == "small_eigh_cluster":
+                entry.update(clusters=C, block_ms=old_ms,
+                             comparator=KEYS[old])
+            st = stats[key]
+            st.setdefault("by_n", {})[n] = entry
+            # the certificate path's n = 99 (rank 31) heads the cluster
+            # family's line, n = 36 the one-CTA kernel's (the global
+            # kernel's: its route's n, below)
+            if (key == "small_eigh_cluster" and n == 99) or \
+                    key == "small_eigh_cta":
+                st.update(entry)
+        st = stats["small_eigh_cluster"]
+        st["group"] = ("a cluster of C CTAs per matrix (C by n), rows of A "
+                       "by circle-method position, a look-ahead warp; then V "
+                       "from the rotation log, a warp per row")
+        stats["small_eigh_cta"]["group"] = ("one CTA per matrix, a thread "
+                                            "per 2 × 2 block")
+        stats["small_eigh_global"]["group"] = (
+            "one CTA of up to 1024 threads per matrix, A and V in a global "
+            "workspace")
+        b = st["by_n"][n]
+        print(f"[kernels] small_eigh_cluster n = {n} float32 (C = {C}): "
+              f"{ms:.4f} ms against {KEYS[old]}'s {old_ms:.4f} ms (in turns "
+              "cluster, old, old, cluster: " + ", ".join(f"{x:.4f}" for x in t)
+              + f" ms; plain twin {plain_ms:.4f} ms, torch.linalg.eigh "
+              f"{lib_ms:.4f} ms); bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_term']} ({sweeps} sweeps × {n + n % 2 - 1} rounds × "
+              f"the {'__syncthreads' if C == 1 else f'{C}-CTA cluster.sync'} "
+              "of this run)", flush=True)
+
+    # the global route past the cluster family's largest n, at the
+    # certificate path's n there (rank 106): checked, and timed (float32)
+    # beside the twin and torch.linalg.eigh; it heads the global kernel's
+    # line
+    n = EIGH_PAST
+    check(route(n, torch.float64) == "global",
+          f"small_eigh n = {n}: routed {route(n, torch.float64)}")
+    M = rng.standard_normal((1, n, n))
+    A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda")
+    check_small_eigh(A, stats, "random (the global route)")
+    A1 = A[0].float()
     sweeps = small_eigh(A1)[2].item()
-    ms = median_ms(lambda: small_eigh(A1), torch)
-    plain_ms = median_ms(lambda: small_eigh_plain(A1), torch)
-    lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch)
+    ms = median_ms(lambda: small_eigh(A1), torch, reps=3)
+    plain_ms = median_ms(lambda: small_eigh_plain(A1), torch, reps=3)
+    lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch, reps=3)
     work, terms, term = eigh_bound(n, sweeps, 4, probe)
-    stats["small_eigh_cta"].update(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=terms[term],
-        bound_by="bytes" if term == "bytes" else "operations",
-        bound_term=term, work=work, n=n,
-        group="one CTA per matrix, a thread per 2 × 2 block")
-    print(f"[kernels] small_eigh_cta n = {n} float32: {ms:.4f} ms (plain "
-          f"twin {plain_ms:.4f} ms, torch.linalg.eigh {lib_ms:.4f} ms); "
-          f"bound {terms[term]:.4f} ms by {term} ({sweeps} sweeps × "
-          f"{n - 1} rounds)", flush=True)
+    entry = dict(n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=terms[term], bound_by="bytes" if term == "bytes"
+                 else "operations", bound_term=term, work=work)
+    st = stats["small_eigh_global"]
+    st.setdefault("by_n", {})[n] = entry
+    st.update(entry)
+    print(f"[kernels] small_eigh_global n = {n} float32 (the route): "
+          f"{ms:.4f} ms (plain twin {plain_ms:.4f} ms, torch.linalg.eigh "
+          f"{lib_ms:.4f} ms); bound {terms[term]:.4f} ms by {term} "
+          f"({sweeps} sweeps × {n + n % 2 - 1} rounds × the __syncthreads "
+          "of this run)", flush=True)
 
-
-def eigh_bound(n, sweeps, itemsize, probe):
+def eigh_bound(n, sweeps, itemsize, probe, clusters=1):
     """small_eigh's work at n × n over `sweeps` sweeps and its bound
     terms (ms): the input read and w, V written once at 3.35 TB/s, the
     FLOPs at the float64 peak, and the dependent rounds (sweeps × (n − 1))
-    times the `__syncthreads` the probe measured in this run. (work,
-    terms, the largest term)."""
+    times the barrier a round waits on, measured by the probe in this run:
+    `__syncthreads` in one CTA, `cluster.sync` over `clusters` CTAs.
+    (work, terms, the largest term)."""
     npad, h = n + n % 2, (n + n % 2) // 2
     rounds = sweeps * (npad - 1)
+    barrier_us = (probe["syncthreads_us"] if clusters == 1 else
+                  probe["cluster_sync_us"][str(clusters)])
     work = dict(bytes=itemsize * (2 * n * n + n),
                 flops=rounds * (12 * h * (h + 1) + 6 * n * h + 15 * h)
                 + (sweeps + 1) * 2 * npad * npad,
                 phases=rounds)
     terms = {"bytes": work["bytes"] / 3.35e12 * 1e3,
              "flops": work["flops"] / PEAK_F64 * 1e3,
-             "barriers": rounds * probe["syncthreads_us"] * 1e-3}
+             "barriers": rounds * barrier_us * 1e-3}
     return work, terms, max(terms, key=terms.get)
 
 
@@ -1396,13 +1483,19 @@ def phase_slice(problems, reference):
           f"{json.dumps(launches)}; per solve {json.dumps(per_solve)}",
           flush=True)
     # a certificate at rank r runs LOBPCG on k = max(10, r + 2) columns: its
-    # 3k × 3k Rayleigh–Ritz matrices route to the one-CTA kernel from r = 9
+    # 3k × 3k Rayleigh–Ritz matrices route to the cluster family from r = 9
     top = max(max(res.ranks_visited) for res, *_ in results.values())
     print(f"[slice] small_eigh: one-warp kernel {launches['small_eigh']} "
-          f"launches, one-CTA kernel {launches['small_eigh_cta']} (highest "
-          f"rank {top}: n = 3k ≤ {3 * max(10, top + 2)})", flush=True)
-    check(top >= 9 or not launches["small_eigh_cta"],
-          f"the one-CTA small_eigh ran on the main path at n ≤ 32: {launches}")
+          f"launches, cluster family {launches['small_eigh_cluster']} "
+          f"(highest rank {top}: n = 3k ≤ {3 * max(10, top + 2)}), "
+          f"global kernel {launches['small_eigh_global']}, comparator "
+          f"{[launches[k] for k in EIGH_COMPARATORS]}", flush=True)
+    check(top >= 9 or not launches["small_eigh_cluster"],
+          f"the cluster small_eigh ran on the main path at n ≤ 32: {launches}")
+    check(not any(launches[k] for k in EIGH_COMPARATORS
+                  + ("small_eigh_global",)),
+          f"a small_eigh comparator or the global route (n > 320) ran on "
+          f"the main path: {launches}")
     for name in bench:
         res, wall, ate, levels = solve_once(
             problems[name], config(name, "never"), starts[name])
@@ -1428,9 +1521,10 @@ def phase_ranks(problems, reference):
     `ladder`) runs past rank 10 on the kernels, gated against the chain
     plain path's solve (`use_kernels="never"`) of the same graph from the
     same start; a failed
-    certificate at rank 10 and at rank 31 (`method="auto"` at a random
-    point), whose LOBPCG must run as replayed graphs through the one-CTA and
-    the global small_eigh; the visualize CLI's solve half, still and
+    certificate at rank 10, 31 and 106 (`method="auto"` at a random
+    point), whose LOBPCG must run as replayed graphs through the routes of
+    its 3k × 3k and k × k Rayleigh–Ritz matrices alone: the cluster
+    small_eigh, and at rank 106 (n = 324 > 320) the global kernel; the visualize CLI's solve half, still and
     `--animate`, as the CLI runs it (float64, so the canonical path), on a
     one-robot chain written as PyFG, the drawing where matplotlib imports.
     Returns the certificate path's launches per small_eigh route."""
@@ -1526,9 +1620,15 @@ def phase_ranks(problems, reference):
 
     pd = problems[name].device_data(np.float32, "cuda")
     cert_launches = {}
-    for key, r in CERT_RANKS.items():
+    for key, r in CERT_RANKS:
         Y = random_initial_guess(pd, r, torch.Generator().manual_seed(300 + r))
-        n = 3 * max(cfg.cert.lobpcg_block_size, r + 2)
+        # LOBPCG's Rayleigh–Ritz matrices: 3k × 3k (the route `key` names)
+        # and k × k, k = max(10, r + 2)
+        k = max(cfg.cert.lobpcg_block_size, r + 2)
+        routes = {m: small_eigh.KEYS[small_eigh.route(m, torch.float32)]
+                  for m in (3 * k, k)}
+        check(routes[3 * k] == key, f"rank {r}: n = {3 * k} routes to "
+              f"{routes[3 * k]}, not {key}")
         small_eigh.reset_launch_counts()
         lobpcg.reset_loop_stats()
         t0 = time.time()
@@ -1537,20 +1637,28 @@ def phase_ranks(problems, reference):
                 problems[name], pd, Y.cpu().numpy(), 1e-5, cfg.cert, None)
         torch.cuda.synchronize()
         lp = dict(lobpcg.LOOP_STATS)
-        cert_launches[key] = small_eigh.LAUNCHES[key]
+        # the routes past n = 32 (the one-warp kernel's count is the main
+        # path's)
+        for used in set(routes.values()) - {"small_eigh"}:
+            cert_launches[used] = cert_launches.get(used, 0) \
+                + small_eigh.LAUNCHES[used]
         print(f"[ranks] certificate at rank {r} (a random point): certified "
               f"{cert.is_certified} theta {cert.theta:.4e}, {cert.num_iters}"
               f" LOBPCG iterations, {time.time() - t0:.3f} s; Rayleigh–Ritz "
-              f"n = {n} → {small_eigh.route(n, torch.float32)}; LOBPCG "
-              f"{lp['captures']} captures, {lp['replays']} replays, "
-              f"{lp['eager_calls']} eager calls; small_eigh launches "
-              f"{json.dumps(small_eigh.LAUNCHES)}", flush=True)
+              + ", ".join(f"n = {m} → {v}" for m, v in routes.items())
+              + f"; LOBPCG {lp['captures']} captures, {lp['replays']} "
+              f"replays, {lp['eager_calls']} eager calls; small_eigh "
+              f"launches {json.dumps(small_eigh.LAUNCHES)}", flush=True)
         check(not cert.is_certified and cert.num_iters > 0
               and np.isfinite(cert.theta), f"rank {r} certificate: {cert}")
+        # no route but those two, and no comparator
         check(lp["replays"] > 0 and not lp["eager_calls"]
-              and cert_launches[key] > 0,
-              f"rank {r} certificate's LOBPCG not replayed through {key}: "
-              f"{lp}, {small_eigh.LAUNCHES}")
+              and small_eigh.LAUNCHES[key] > 0
+              and not any(v for k2, v in small_eigh.LAUNCHES.items()
+                          if k2 not in routes.values()),
+              f"rank {r} certificate's LOBPCG not replayed through "
+              f"{sorted(set(routes.values()))} alone: {lp}, "
+              f"{small_eigh.LAUNCHES}")
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "chain.pyfg")
@@ -2272,16 +2380,19 @@ def main():
                      library_ms=v["library_ms"], group=v["group"],
                      block_ms=v.get("block_ms"))
         for x in ("us_per_tcg_iter", "block_us_per_tcg_iter", "sweep_ms",
-                  "scratch_mb", "turns_ms", "n", "by_rank", "by_n"):
+                  "scratch_mb", "turns_ms", "n", "by_rank", "by_n",
+                  "clusters", "comparator"):
             if x in v:
                 entry[x] = v[x]
         kernels.append(entry)
     # `tcg` is checked and timed in phase 2, but the main path runs its loop
-    # inside `chunk`, not as a launch of its own: the JSON line lists the
-    # kernels the paths launch
-    listed = PATH_KERNELS + tuple(CERT_RANKS)
-    print("[kernels] tcg (not launched on the main path): " + json.dumps(
-        [k for k in kernels if k["name"] not in listed]), flush=True)
+    # inside `chunk`, not as a launch of its own, and small_eigh's one-CTA
+    # kernel is the comparator that no size routes to: the JSON line lists
+    # the kernels the paths launch
+    listed = PATH_KERNELS + tuple(dict(CERT_RANKS))
+    print("[kernels] tcg, small_eigh_cta (not launched on the paths): "
+          + json.dumps(
+              [k for k in kernels if k["name"] not in listed]), flush=True)
     print(json.dumps({"kernels": [k for k in kernels
                                   if k["name"] in listed]}))
     print(json.dumps({"ok": True, "device": {

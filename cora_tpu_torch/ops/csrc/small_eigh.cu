@@ -1,14 +1,16 @@
 // small_eigh: the full eigendecomposition of small symmetric matrices
 // for the Rayleigh–Ritz step of LOBPCG, by parallel-order (round-robin)
-// cyclic Jacobi, in three kernels that give the same bits where they
-// overlap.
+// cyclic Jacobi, in four routes that give the same bits where they
+// overlap: the one-warp kernel (n ≤ 32), the cluster family (32 < n ≤
+// CLUSTER_MAX_N = 320), the global kernel (past that), and the one-CTA
+// kernel (n ≤ 96), the first design, kept as the comparator of the others.
 //
 // Replaces `jnp.linalg.eigh` inside the JAX package's LOBPCG
 // `lax.while_loop` (cora_tpu/ops/lobpcg.py:61; not a Pallas kernel). The
 // port's loop runs as captured CUDA graphs, and `torch.linalg.eigh` checks
 // its LAPACK `info` on the host, which synchronises and breaks a capture.
-// Both kernels launch on the caller's stream, never synchronise, and leave
-// their convergence report in a device int.
+// Every kernel launches on the caller's stream, never synchronises, and
+// leaves its convergence report in a device int.
 //
 // Algorithm: a sweep is n_p − 1 rounds (n_p = n rounded up to even; the pad
 // index rotates with zeros); a round rotates the n_p/2 disjoint pairs of
@@ -31,14 +33,43 @@
 // small_eigh_cta_kernel (n ≤ 96): one CTA per matrix, a thread per 2 × 2
 //   block (i ≤ j) of A (the mirrored block written by the same thread, so A
 //   stays exactly symmetric) and one per (row, pair) of V, A and V in
-//   shared memory, two __syncthreads phases a round. The first design; it
-//   runs the matrices of 32 < n ≤ 96 and is the comparator of the other.
-// small_eigh_global_kernel (any n, routed n > 96): the one-CTA kernel's
-//   body (`jacobi_cta`, written once for both) with A, V and the round's
-//   tables in a global workspace instead of shared memory, at the same
-//   thread count, so the same bits where both run. 2·n²·8 B stays in L2
-//   (~1 MB at n = 246); each round's loads go through L1/L2, ~10 µs a
-//   round at n = 99 on the H100 (PERF.md).
+//   shared memory, two __syncthreads phases a round. The first design, now
+//   the comparator of the others (whose bits it defines).
+// small_eigh_global_kernel (any n, routed n > CLUSTER_MAX_N): the one-CTA
+//   kernel's body (`jacobi_cta`, written once for both) with A, V and the
+//   round's tables in a global workspace instead of shared memory, at the
+//   same thread count, so the same bits where both run. 2·n²·8 B stays in
+//   L2 (~1 MB at n = 246); each round's loads go through L1/L2, ~10 µs a
+//   round at n = 99 on the H100 (PERF.md). Past the cluster's shared
+//   memory it is the route; below it, the cluster family's comparator.
+// small_eigh_cluster (3 ≤ n ≤ CLUSTER_MAX_N, routed 32 < n): three kernels
+//   launched in a row, one launch count. (1) small_eigh_cluster_kernel: the
+//   rounds on A over one thread-block cluster of C CTAs (C = cluster_size,
+//   the smallest of 1, 2, 4, 8 whose shared memory holds A twice), 1024
+//   threads each. Rows of A are stored by circle-method position (slot,
+//   side a/b), CTA c holding slots [cS, cS + S): the two rows of a pair
+//   are on one CTA, and a round's shift moves each row one position
+//   along the ring (a down a slot, b up), so only the two rows at each
+//   CTA boundary cross through distributed shared memory, written by the
+//   update straight into their next position of the other buffer. A
+//   look-ahead warp per 32 slots computes the next round's pairs'
+//   entries from this round's rows and rotations (as the one-warp
+//   kernel's rotation warp does), then their rotations, and writes them
+//   into every CTA's round table, while the other warps update the rows
+//   with this round's: one barrier a round (__syncthreads at C = 1, else
+//   cluster.sync). The diagonal and each pair's own entry travel in the
+//   table, so no entry is read while it is rewritten. The rotations also
+//   go to a log in the global workspace; V is not touched. (2)
+//   small_eigh_vectors_kernel: V = J₁J₂… from the log, a warp per row of
+//   V in registers by slot (a lane per ≤ 5 slots), the log staged through
+//   shared memory VEC_ROUNDS rounds at a time. (3) small_eigh_sort_kernel:
+//   `write_sorted`. Every entry of A sees `rotate_block` / `rotate_diag`
+//   with the one-CTA kernel's operand order (a row's entry in the block
+//   of slots i > j computed as block (j, i) and transposed, as the
+//   one-warp kernel does), every entry of V `rotate_v` in the same round
+//   order, and the stop test (once a sweep, on CTA 0, reading the other
+//   CTAs' rows through distributed shared memory) replays the one-CTA
+//   kernel's sums for its thread count (`cta_order_sum`): the same bits.
 // small_eigh_warp_kernel (n ≤ 32): a lane per row of A and of V, in W = 3
 //   update warps (each taking every W-th column pair of a round) and one
 //   rotation warp that runs a round ahead: 4 warps, one per SM
@@ -64,9 +95,13 @@
 // was reached first. A matrix with a non-finite entry gives NaN
 // eigenpairs and info 0, as the JAX eigh returns NaN.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using R = double;  // the arithmetic, whatever the input type
 
@@ -714,6 +749,807 @@ __global__ void __launch_bounds__(32 * (W + 1))
 #endif
 }
 
+// ---------------------------------------------------------------------------
+// the cluster family (small_eigh_cluster)
+
+constexpr int CLUSTER_MAX_N = 320;
+constexpr int CLUSTER_MAX_C = 8;
+constexpr int CLUSTER_THREADS = 1024;
+// the sm_90 opt-in shared memory of a block, less room for the kernel's
+// static shared memory
+constexpr int CLUSTER_SMEM = 232448 - 1024;
+constexpr int VEC_THREADS = 128;  // the vectors kernel: a warp per row of V
+constexpr int VEC_ROWS = VEC_THREADS / 32;
+constexpr int VEC_ROUNDS = 32;  // rounds of the log staged at once
+constexpr int VEC_MAX_R = 5;    // slots a lane holds: h ≤ 32·5 = 160
+// the stop test's verdicts, and the status of a matrix with a non-finite
+// entry
+enum { GO = 0, DONE = 1, CAP = 2, BAD = 3 };
+constexpr int NONFINITE = -2147483647 - 1;
+static_assert(CLUSTER_MAX_N <= 64 * VEC_MAX_R, "a lane holds at most VEC_MAX_R slots");
+
+#ifdef SMALL_EIGH_SPLIT
+// the probe's build: matrix 0's clock64() cycles in the cluster family, as
+// `small_eigh_cluster_kernel` says
+__device__ long long split_clu[12];
+#endif
+
+// doubles of the cluster kernel's dynamic shared memory at n on C CTAs:
+// the rows (two buffers × two sides × S slots × np + 1), the round table
+// (two parities × seven doubles × h, rounded up to even: (c, s), t, three
+// entries, the pair as an int) and the rows' next positions (2·S 32-bit
+// addresses)
+__host__ __device__ inline int cluster_smem_doubles(int n, int C) {
+  const int np = n + (n & 1), h = np / 2, S = (h + C - 1) / C;
+  return 4 * S * (np + 1) + 2 * (7 * h + (h & 1)) + S;
+}
+
+// whether C CTAs hold n: the shared memory, and at least two slots on
+// every CTA (the look-ahead reads the rows of one of a next pair's two
+// source slots, the one on its own CTA)
+__host__ __device__ inline bool cluster_fits(int n, int C) {
+  if (n < 3 || C < 1 || C > CLUSTER_MAX_C) return false;
+  const int h = (n + (n & 1)) / 2, S = (h + C - 1) / C;
+  if (C > 1 && (S < 2 || h - (C - 1) * S < 2)) return false;
+  return (size_t)cluster_smem_doubles(n, C) * sizeof(double) <= (size_t)CLUSTER_SMEM;
+}
+
+// the smallest power of two that holds n (0: none does)
+__host__ __device__ inline int cluster_size(int n) {
+  for (int C = 1; C <= CLUSTER_MAX_C; C *= 2)
+    if (cluster_fits(n, C)) return C;
+  return 0;
+}
+
+// doubles of one matrix's global workspace: the rotation log ((c, s) per
+// slot per round, up to max_sweeps·(np − 1) rounds and the one computed
+// ahead), V (np × np), A's diagonal (np × np, the diagonal written, so that
+// `write_sorted` reads it as it reads A), two ints (info, rounds); even,
+// so that every matrix's log is 16-byte aligned
+__host__ __device__ inline size_t cluster_work_doubles(int n, int max_sweeps) {
+  const size_t np = n + (n & 1), h = np / 2, m = np - 1;
+  const size_t total = 2 * ((size_t)max_sweeps * m + 1) * h + 2 * np * np + 1;
+  return total + (total & 1);
+}
+
+// the index at position (slot i, side) in round rd: side 0 is the circle
+// method's a = rd + i, side 1 its b = rd − i (slot 0: the fixed m = np − 1)
+__device__ __forceinline__ int index_at(int rd, int i, int side, int m) {
+  if (side == 0) {
+    const int a = rd + i;
+    return a >= m ? a - m : a;
+  }
+  if (i == 0) return m;
+  const int b = rd - i;
+  return b < 0 ? b + m : b;
+}
+
+// where the index at (i, side) sits in the next round: a moves down a slot
+// (slot 0's a to slot 1's b), b up a slot (the last slot's b to its a),
+// the fixed index stays
+__device__ __forceinline__ void next_pos(int i, int side, int h, int& ni, int& ns) {
+  if (side == 0) {
+    ni = i > 0 ? i - 1 : 1;
+    ns = i > 0 ? 0 : 1;
+  } else if (i == 0) {
+    ni = 0;
+    ns = 1;
+  } else if (i < h - 1) {
+    ni = i + 1;
+    ns = 1;
+  } else {
+    ni = h - 1;
+    ns = 0;
+  }
+}
+
+// where the index at (k, side) of the next round sits in this one (the
+// inverse of next_pos)
+__device__ __forceinline__ void prev_pos(int k, int side, int h, int& pi, int& ps) {
+  if (side == 0) {
+    pi = k < h - 1 ? k + 1 : h - 1;
+    ps = k < h - 1 ? 0 : 1;
+  } else if (k >= 2) {
+    pi = k - 1;
+    ps = 1;
+  } else {
+    pi = 0;
+    ps = k == 1 ? 0 : 1;
+  }
+}
+
+// `p` (an address in this CTA's shared memory) in CTA `cta`'s
+template <class P>
+__device__ __forceinline__ P* cta_ptr(P* p, int cta, int rank) {
+  return cta == rank ? p : cg::this_cluster().map_shared_rank(p, cta);
+}
+
+// The one-CTA kernel's `block_sum` of its threads' strided sums, replayed
+// for nt of this CTA's threads (nt ≤ 1024): thread t < nt sums the terms
+// entry(e)² for e = t, t + nt, … of the np × np entries in order (OFF: an
+// exact 0 on the diagonal, which adds nothing to a sum ≥ 0), then the
+// __shfl_down tree of each warp and the tree over the warps' sums. Every
+// thread returns the total.
+template <bool OFF, class Entry>
+__device__ R cta_order_sum(const Entry& entry, int np, int nt, R* red) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  R part = R(0);
+  if (tid < nt) {
+    const int du = nt / np, dv = nt - du * np;
+    int u = tid / np, v = tid - u * np;
+    for (int e = tid; e < np * np; e += nt) {
+      const R a = entry(u, v);
+      const R x = OFF && u == v ? R(0) : a;
+      part += x * x;
+      u += du;
+      v += dv;
+      if (v >= np) {
+        v -= np;
+        ++u;
+      }
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_down_sync(FULL, part, o);
+  if (lane == 0 && warp < nw) red[warp] = part;
+  __syncthreads();
+  R x = lane < nw ? red[lane] : R(0);
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(FULL, x, o);
+  x = __shfl_sync(FULL, x, 0);
+  __syncthreads();  // red is reused by the next sum
+  return x;
+}
+
+// `rotate_block`, `rotate_v` and `rotate_diag` with their contraction
+// written out: nvcc contracts each a·b ± c·d of them in the other kernels
+// as fma(a, b, ±round(c·d)) (their SASS), but may choose the other product
+// where the code around an inlined copy differs; the cluster family states
+// it, so that its bits do not hang on that choice
+__device__ __forceinline__ void rotate_block_rn(R cr, R sr, R cc, R sc, R x00, R x01,
+                                                R x10, R x11, R& z00, R& z01, R& z10,
+                                                R& z11) {
+  const R y00 = __fma_rn(cr, x00, -__dmul_rn(sr, x10));
+  const R y01 = __fma_rn(cr, x01, -__dmul_rn(sr, x11));
+  const R y10 = __fma_rn(sr, x00, __dmul_rn(cr, x10));
+  const R y11 = __fma_rn(sr, x01, __dmul_rn(cr, x11));
+  z00 = __fma_rn(cc, y00, -__dmul_rn(sc, y01));
+  z01 = __fma_rn(sc, y00, __dmul_rn(cc, y01));
+  z10 = __fma_rn(cc, y10, -__dmul_rn(sc, y11));
+  z11 = __fma_rn(sc, y10, __dmul_rn(cc, y11));
+}
+
+__device__ __forceinline__ void rotate_v_rn(R c, R s, R vp, R vq, R& np_, R& nq_) {
+  np_ = __fma_rn(c, vp, -__dmul_rn(s, vq));
+  nq_ = __fma_rn(s, vp, __dmul_rn(c, vq));
+}
+
+__device__ __forceinline__ void rotate_diag_rn(R app, R aqq, R apq, R t, R& pp, R& qq) {
+  pp = __fma_rn(-t, apq, app);
+  qq = __fma_rn(t, apq, aqq);
+}
+
+// `row_entries` through rotate_block_rn
+__device__ __forceinline__ void row_entries_rn(bool top, bool lo, R ci, R si, R cj, R sj,
+                                               R x00, R x01, R x10, R x11, R& at_p,
+                                               R& at_q) {
+  R z00, z01, z10, z11;
+  rotate_block_rn(lo ? ci : cj, lo ? si : sj, lo ? cj : ci, lo ? sj : si, x00,
+                  lo ? x01 : x10, lo ? x10 : x01, x11, z00, z01, z10, z11);
+  at_p = top ? z00 : (lo ? z10 : z01);
+  at_q = top ? (lo ? z01 : z10) : z11;
+}
+
+// next round's entries of one pair for the look-ahead
+struct Ahead {
+  R c, s, t, app, aqq, apq;
+  int pq;
+};
+
+// The table entries of next round's slot k (this CTA's), computed from
+// this round's table `tb` and the rows of whichever of k's two source
+// slots is on this CTA (`rows_cur`: buffer cur), as the update computes
+// them: the diagonal this round leaves at each of the pair's indices (its
+// source pair's rotate_diag), the entry between them (row_entries from the
+// source slot's rows at the other's columns), then the rotation.
+__device__ __forceinline__ Ahead ahead_slot(int k, int rd, const R* tb, const R* rows_cur,
+                                            int S, int ld, int h, int m, int s0, int s1) {
+  const double2* cs = reinterpret_cast<const double2*>(tb);
+  const int* pq = reinterpret_cast<const int*>(tb + 6 * h);
+  int ia, sa, ib, sb;
+  prev_pos(k, 0, h, ia, sa);
+  prev_pos(k, 1, h, ib, sb);
+  const int ua = index_at(rd, ia, sa, m), ub = index_at(rd, ib, sb, m);
+  const int pqa = pq[ia], pqb = pq[ib];
+  const int pa = pqa & 0xffff, pb = pqb & 0xffff;
+  R pp, qq;
+  rotate_diag_rn(tb[3 * h + ia], tb[4 * h + ia], tb[5 * h + ia], tb[2 * h + ia], pp, qq);
+  const R da = ua == pa ? pp : qq;
+  rotate_diag_rn(tb[3 * h + ib], tb[4 * h + ib], tb[5 * h + ib], tb[2 * h + ib], pp, qq);
+  const R db = ub == pb ? pp : qq;
+  const bool own_a = ia >= s0 && ia < s1;
+  const int L = own_a ? ia : ib, O = own_a ? ib : ia;
+  const int uL = own_a ? ua : ub, uO = own_a ? ub : ua;
+  const int pqL = own_a ? pqa : pqb, pqO = own_a ? pqb : pqa;
+  const int pL = pqL & 0xffff, pO = pqO & 0xffff, qO = pqO >> 16;
+  const int ps = index_at(rd, L, 0, m) == pL ? 0 : 1;
+  const R* rp = rows_cur + (size_t)(ps * S + L - s0) * ld;
+  const R* rq = rows_cur + (size_t)((1 - ps) * S + L - s0) * ld;
+  const double2 cL = cs[L], cO = cs[O];
+  R at_p, at_q;
+  row_entries_rn(uL == pL, L < O, cL.x, cL.y, cO.x, cO.y, rp[pO], rp[qO], rq[pO], rq[qO], at_p,
+              at_q);
+  Ahead a;
+  a.apq = uO == pO ? at_p : at_q;
+  a.app = ua < ub ? da : db;
+  a.aqq = ua < ub ? db : da;
+  a.pq = ua < ub ? ua | (ub << 16) : ub | (ua << 16);
+  rotation(a.app, a.aqq, a.apq, a.c, a.s, a.t);
+  return a;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// a double into shared memory at a shared::cluster address (this CTA's or
+// another's in the cluster)
+__device__ __forceinline__ void st_cluster(unsigned addr, R v) {
+  asm volatile("st.shared::cluster.f64 [%0], %1;" ::"r"(addr), "d"(v) : "memory");
+}
+
+// a double into this CTA's shared memory at a shared::cta address
+__device__ __forceinline__ void st_cta(unsigned addr, R v) {
+  asm volatile("st.shared.f64 [%0], %1;" ::"r"(addr), "d"(v) : "memory");
+}
+
+// this CTA's shared::cta address `a` in CTA `cta`'s window of the cluster
+__device__ __forceinline__ unsigned map_cluster(unsigned a, int cta) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(a), "r"(cta));
+  return out;
+}
+
+// A row's update at one column slot j (lane's), MODE 0: every lane's j > i
+// (block (i, j) as is), 1: every lane's j < i (block (j, i), transposed), 2:
+// either, or j = i (the pair's own entries, 0; its diagonal travels in the
+// table)
+template <bool FAR>
+__device__ __forceinline__ void st_row(unsigned addr, R v) {
+  if (FAR)
+    st_cluster(addr, v);
+  else
+    st_cta(addr, v);
+}
+
+template <int MODE, bool FAR>
+__device__ __forceinline__ void update_lane(int i, int j, int pi, int qi, R ci, R si,
+                                            const double2* cs, const int* pq, const R* rp,
+                                            const R* rq, unsigned op, unsigned oq) {
+  const int pqj = pq[j], pj = pqj & 0xffff, qj = pqj >> 16;
+  const double2 cj = cs[j];
+  const R x00 = rp[pj], x01 = rp[qj], x10 = rq[pj], x11 = rq[qj];
+  R z00, z01, z10, z11;
+  if (MODE == 0) {
+    rotate_block_rn(ci, si, cj.x, cj.y, x00, x01, x10, x11, z00, z01, z10, z11);
+    st_row<FAR>(op + 8 * pj, z00);
+    st_row<FAR>(op + 8 * qj, z01);
+    st_row<FAR>(oq + 8 * pj, z10);
+    st_row<FAR>(oq + 8 * qj, z11);
+  } else if (MODE == 1) {
+    rotate_block_rn(cj.x, cj.y, ci, si, x00, x10, x01, x11, z00, z01, z10, z11);
+    st_row<FAR>(op + 8 * pj, z00);
+    st_row<FAR>(op + 8 * qj, z10);
+    st_row<FAR>(oq + 8 * pj, z01);
+    st_row<FAR>(oq + 8 * qj, z11);
+  } else if (j == i) {
+    st_row<FAR>(op + 8 * qi, R(0));
+    st_row<FAR>(oq + 8 * pi, R(0));
+  } else {
+    const bool lo = i < j;
+    rotate_block_rn(lo ? ci : cj.x, lo ? si : cj.y, lo ? cj.x : ci, lo ? cj.y : si, x00,
+                    lo ? x01 : x10, lo ? x10 : x01, x11, z00, z01, z10, z11);
+    st_row<FAR>(op + 8 * pj, z00);
+    st_row<FAR>(op + 8 * qj, lo ? z01 : z10);
+    st_row<FAR>(oq + 8 * pj, lo ? z10 : z01);
+    st_row<FAR>(oq + 8 * qj, z11);
+  }
+}
+
+// slot i's two rows (rp, rq; next positions op, oq) at the column slots
+// j0 … j0 + 31, a lane each: a pass wholly on one side of i takes no select
+template <bool FAR>
+__device__ __forceinline__ void update_pass(int i, int h, int j0, int lane, int pi, int qi,
+                                            R ci, R si, const double2* cs, const int* pq,
+                                            const R* rp, const R* rq, unsigned op,
+                                            unsigned oq) {
+  const int j = j0 + lane;
+  if (i < j0) {
+    if (j < h) update_lane<0, FAR>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
+  } else if (i > j0 + 31) {
+    update_lane<1, FAR>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
+  } else if (j < h) {
+    update_lane<2, FAR>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
+  }
+}
+
+// (1) the rounds on A of one matrix over a cluster of C CTAs (the grid:
+// batch × C). CTA `rank` holds slots [s0, s1) (S = ⌈h/C⌉ each): rows[buf]
+// [side][slot − s0][np + 1]; the round table tab[par], per slot: (c, s),
+// t, the diagonal at p and q and the pair's own entry that the round
+// starts from, and p | q << 16; and dst[side][slot − s0], the address
+// (buffer 0; this CTA's shared window, or another's in the cluster's at
+// the boundaries) of the position each of its rows takes next round. One
+// or two look-ahead warps compute the next round's table for the CTA's
+// slots, a lane per slot; the update warps update its rows, a column slot
+// a lane, 32 a pass, passes wholly on one side of the slot taking no
+// select. The probe's build (SMALL_EIGH_SPLIT) sums, for matrix 0 on CTA
+// 0, clock64() cycles into split_clu: [0] rounds, [1] the look-ahead
+// warp's body and [2] its wait at the round's barrier, [3] update warp 2's
+// body and [4] its wait, [5] the stop tests and [6] their count, [7] the
+// whole kernel.
+template <typename T>
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+    small_eigh_cluster_kernel(const T* __restrict__ A_in, T* __restrict__ w_out,
+                              T* __restrict__ V_out, int* __restrict__ info, int n,
+                              int max_sweeps, int C, R* __restrict__ work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ R red[32];
+  __shared__ int ctl;
+  const int np = n + (n & 1), h = np / 2, m = np - 1, ld = np + 1;
+  const int S = (h + C - 1) / C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = C == 1 ? 0 : (int)cg::this_cluster().block_rank();
+  const int b = blockIdx.x / C;
+  const int s0 = rank * S, s1 = min(h, s0 + S), Sc = s1 - s0;
+  const int nt_ref = cta_threads(n);
+  const size_t BUF = (size_t)2 * S * ld;
+  const int TAB = 7 * h + (h & 1);  // doubles of one parity's table (even)
+  R* rows = reinterpret_cast<R*>(smem_raw);
+  R* tab = rows + 2 * BUF;
+  unsigned* dst = reinterpret_cast<unsigned*>(tab + 2 * TAB);
+  const T* Ab = A_in + (size_t)b * n * n;
+  R* ws = work + (size_t)b * cluster_work_doubles(n, max_sweeps);
+  double2* rlog = reinterpret_cast<double2*>(ws);
+  R* Ad = ws + 2 * ((size_t)max_sweeps * m + 1) * h + (size_t)np * np;
+  int* status = reinterpret_cast<int*>(Ad + (size_t)np * np);
+#ifdef SMALL_EIGH_SPLIT
+  long long ck[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const long long k_start = clock64();
+  const bool probe = b == 0 && rank == 0;
+#endif
+
+  auto sync_all = [&]() {
+    if (C == 1)
+      __syncthreads();
+    else
+      cg::this_cluster().sync();
+  };
+  // slot k's entries of the table `par`: (c, s) and p | q << 16 into every
+  // CTA's, the rest into this CTA's and its neighbours' (the look-ahead
+  // reads them only for the slots next to its own)
+  auto push = [&](int par, int k, const Ahead& a) {
+    for (int d = 0; d < C; ++d) {
+      R* tb = cta_ptr(tab, d, rank) + par * TAB;
+      reinterpret_cast<double2*>(tb)[k] = make_double2(a.c, a.s);
+      reinterpret_cast<int*>(tb + 6 * h)[k] = a.pq;
+      if (d >= rank - 1 && d <= rank + 1) {
+        tb[2 * h + k] = a.t;
+        tb[3 * h + k] = a.app;
+        tb[4 * h + k] = a.aqq;
+        tb[5 * h + k] = a.apq;
+      }
+    }
+  };
+  // row u at its position of round 0 (every sweep starts there), buffer buf
+  auto row_of = [&](int u, int buf) -> const R* {
+    const int slot = u == m ? 0 : (u < h ? u : m - u), side = u == m || u >= h;
+    const int cta = slot / S;
+    return cta_ptr(rows + buf * BUF + (size_t)(side * S + slot - cta * S) * ld, cta, rank);
+  };
+
+  // the CTA's rows at their round-0 positions (the lower triangle,
+  // mirrored, as the one-CTA kernel loads it), and where each goes next
+  for (int e = tid; e < 2 * Sc * np; e += CLUSTER_THREADS) {
+    const int r = e / np, v = e - r * np;
+    const int side = r >= Sc, il = side ? r - Sc : r;
+    const int u = index_at(0, s0 + il, side, m);
+    R a = R(0);
+    if (u < n && v < n) a = R(u >= v ? Ab[u * n + v] : Ab[v * n + u]);
+    rows[(size_t)(side * S + il) * ld + v] = a;
+  }
+  for (int e = tid; e < 2 * Sc; e += CLUSTER_THREADS) {
+    const int side = e >= Sc, il = side ? e - Sc : e;
+    int ni, ns;
+    next_pos(s0 + il, side, h, ni, ns);
+    const int to = ni / S;
+    const unsigned a = smem_addr(rows + (size_t)(ns * S + ni - to * S) * ld);
+    dst[side * S + il] = to == rank ? a : map_cluster(a, to);
+  }
+  sync_all();  // every CTA has started before any writes into another's
+  // round 0's rotations of the CTA's slots, from A as loaded
+  for (int il = tid; il < Sc; il += CLUSTER_THREADS) {
+    const int k = s0 + il;
+    int p, q;
+    pair_fast(0, k, np, p, q);
+    const int ps = index_at(0, k, 0, m) == p ? 0 : 1;
+    const R* rp = rows + (size_t)(ps * S + il) * ld;
+    const R* rq = rows + (size_t)((1 - ps) * S + il) * ld;
+    Ahead a;
+    a.app = rp[p];
+    a.aqq = rq[q];
+    a.apq = rp[q];
+    a.pq = p | (q << 16);
+    rotation(a.app, a.aqq, a.apq, a.c, a.s, a.t);
+    push(0, k, a);
+    rlog[k] = make_double2(a.c, a.s);
+  }
+  sync_all();
+  // ‖A‖² and the first stop test on CTA 0, its verdict to every CTA
+  R tol2 = R(0);
+  if (rank == 0) {
+    const R norm2 = cta_order_sum<false>(
+        [&](int u, int v) {
+          return u < n && v < n ? R(u >= v ? Ab[u * n + v] : Ab[v * n + u]) : R(0);
+        },
+        np, nt_ref, red);
+    int verdict = BAD;
+    if (isfinite(norm2)) {
+      tol2 = EPS * EPS * norm2;
+      const R off2 =
+          cta_order_sum<true>([&](int u, int v) { return row_of(u, 0)[v]; }, np, nt_ref, red);
+      verdict = off2 <= tol2 ? DONE : (max_sweeps == 0 ? CAP : GO);
+    }
+    if (tid == 0)
+      for (int d = 0; d < C; ++d) *cta_ptr(&ctl, d, rank) = verdict;
+  }
+  sync_all();
+  int verdict = ctl;
+  if (verdict == BAD) {
+    if (rank == 0) {
+      const R nan = R(0) / R(0);
+      for (int e = tid; e < n * n; e += CLUSTER_THREADS) V_out[(size_t)b * n * n + e] = T(nan);
+      for (int i = tid; i < n; i += CLUSTER_THREADS) w_out[(size_t)b * n + i] = T(nan);
+      if (tid == 0) {
+        info[b] = 0;
+        status[0] = NONFINITE;
+      }
+    }
+    return;
+  }
+
+  // the look-ahead warps: 0, and 4 past 32 slots (one SM sub-partition:
+  // the two chains interleave there); warp 8 logs the round's rotations.
+  // The update warps: the NUW = 29 others, this one the wu-th (−1: none),
+  // a slot at a time, NJ passes of 32 column slots; the 24 on the other
+  // three sub-partitions first, so that the five left on the chains' take
+  // a slot only where a CTA holds more than 24
+  const int ahead2 = Sc <= 32 ? -1 : 4;
+  const int NJ = (h + 31) / 32;
+  constexpr int NUW = 29;
+  const int wu = (warp & 3) ? warp - 1 - (warp >> 2) : (warp >= 12 ? 21 + (warp >> 2) : -1);
+  const int BUFB = (int)(BUF * sizeof(R));  // a buffer, in bytes
+  int sweeps = 0, cur = 0, par = 0, g = 0;
+  while (verdict == GO) {
+    for (int rd = 0; rd < m; ++rd, ++g) {
+      const int nxt = cur ^ 1;
+      const R* tb = tab + par * TAB;
+      const double2* cs = reinterpret_cast<const double2*>(tb);
+      const int* pq = reinterpret_cast<const int*>(tb + 6 * h);
+      const R* rows_cur = rows + cur * BUF;
+#ifdef SMALL_EIGH_SPLIT
+      const long long t0 = clock64();
+#endif
+      if (warp == 0 || warp == ahead2) {
+        // next round's pair of slot s0 + il, a lane per slot
+        const int il = (warp == 0 ? 0 : 32) + lane;
+        if (il < Sc) {
+          const Ahead a = ahead_slot(s0 + il, rd, tb, rows_cur, S, ld, h, m, s0, s1);
+          push(par ^ 1, s0 + il, a);
+        }
+      } else if (wu >= 0) {
+        // the update warps: slot s0 + il's rows, il = wu, wu + NUW, …
+        for (int il = wu; il < Sc; il += NUW) {
+          const int i = s0 + il;
+          const int pqi = pq[i], pi = pqi & 0xffff, qi = pqi >> 16;
+          const int ps = index_at(rd, i, 0, m) == pi ? 0 : 1;
+          const R* rp = rows_cur + (size_t)(ps * S + il) * ld;
+          const R* rq = rows_cur + (size_t)((1 - ps) * S + il) * ld;
+          const unsigned op = dst[ps * S + il] + nxt * BUFB;
+          const unsigned oq = dst[(1 - ps) * S + il] + nxt * BUFB;
+          const double2 ci = cs[i];
+          // a row crosses to a neighbour only from the CTA's first or last
+          // slot
+          for (int j0 = 0; j0 < NJ * 32; j0 += 32) {
+            if (C > 1 && (il == 0 || il == Sc - 1))
+              update_pass<true>(i, h, j0, lane, pi, qi, ci.x, ci.y, cs, pq, rp, rq, op, oq);
+            else
+              update_pass<false>(i, h, j0, lane, pi, qi, ci.x, ci.y, cs, pq, rp, rq, op, oq);
+          }
+        }
+      } else if (warp == 8) {
+        // this round's rotations into the log, early in the round, so that
+        // no global store is still in flight at the cluster barrier of the
+        // look-ahead warp
+        for (int il = lane; il < Sc; il += 32) rlog[(size_t)g * h + s0 + il] = cs[s0 + il];
+      }
+#ifdef SMALL_EIGH_SPLIT
+      const long long t1 = clock64();
+#endif
+      sync_all();
+#ifdef SMALL_EIGH_SPLIT
+      if (probe && lane == 0 && (warp == 0 || warp == 2)) {
+        const long long t2 = clock64();
+        ck[warp == 0 ? 1 : 3] += t1 - t0;
+        ck[warp == 0 ? 2 : 4] += t2 - t1;
+        ck[0] += warp == 0;
+      }
+#endif
+      cur = nxt;
+      par ^= 1;
+    }
+    ++sweeps;
+#ifdef SMALL_EIGH_SPLIT
+    const long long s_0 = clock64();
+#endif
+    if (rank == 0) {
+      const R off2 =
+          cta_order_sum<true>([&](int u, int v) { return row_of(u, cur)[v]; }, np, nt_ref, red);
+      const int v = off2 <= tol2 ? DONE : (sweeps == max_sweeps ? CAP : GO);
+      if (tid == 0)
+        for (int d = 0; d < C; ++d) *cta_ptr(&ctl, d, rank) = v;
+    }
+    sync_all();
+    verdict = ctl;
+#ifdef SMALL_EIGH_SPLIT
+    ck[5] += clock64() - s_0;
+    ck[6] += 1;
+#endif
+  }
+  // the diagonal (the table of the next round 0) at each of the CTA's pairs
+  const R* tb = tab + par * TAB;
+  const int* pq = reinterpret_cast<const int*>(tb + 6 * h);
+  for (int il = tid; il < Sc; il += CLUSTER_THREADS) {
+    const int p = pq[s0 + il] & 0xffff, q = pq[s0 + il] >> 16;
+    Ad[(size_t)p * np + p] = tb[3 * h + s0 + il];
+    Ad[(size_t)q * np + q] = tb[4 * h + s0 + il];
+  }
+  if (rank == 0 && tid == 0) {
+    status[0] = verdict == DONE ? sweeps : -1;
+    status[1] = sweeps * m;
+  }
+#ifdef SMALL_EIGH_SPLIT
+  if (probe && tid == 0) {
+    ck[7] = clock64() - k_start;
+    for (int k = 0; k < 8; ++k)
+      if (k != 3 && k != 4) split_clu[k] = ck[k];
+  }
+  if (probe && tid == 64) {
+    split_clu[3] = ck[3];
+    split_clu[4] = ck[4];
+  }
+#endif
+}
+
+// (2) V from the rotation log: a warp per row k of V (the grid: batch ×
+// ⌈n / VEC_ROWS⌉ CTAs), lane l holding the row's entries at the slots
+// j = RR·l … RR·l + RR − 1 by side, va (the index a_j) and vb (b_j), from
+// V = I. A round applies `rotate_v` to (V[k][p], V[k][q]) of each slot
+// (a is the slot's q exactly when 1 ≤ j ≤ min(rd, m − 1 − rd)), then moves
+// every entry with its index: a down a slot, b up a slot, two shuffles.
+// After the rounds (whole sweeps), every index is back at its round-0
+// position, where V is written out in index order. The log comes through
+// shared memory VEC_ROUNDS rounds at a time, the next chunk copied
+// (cp.async) while this one is applied. The probe's build sums, for matrix
+// 0's first CTA, [8] the kernel's cycles and [9] its waits for the log.
+template <typename T, int RR>
+__global__ void __launch_bounds__(VEC_THREADS)
+    small_eigh_vectors_kernel(int n, int max_sweeps, R* __restrict__ work, int blocks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double2* stage = reinterpret_cast<double2*>(smem_raw);  // [2][VEC_ROUNDS][h]
+  const int np = n + (n & 1), h = np / 2, m = np - 1;
+  const int b = blockIdx.x / blocks, blk = blockIdx.x - b * blocks;
+  R* ws = work + (size_t)b * cluster_work_doubles(n, max_sweeps);
+  const double2* rlog = reinterpret_cast<const double2*>(ws);
+  R* Vg = ws + 2 * ((size_t)max_sweeps * m + 1) * h;
+  const int* status = reinterpret_cast<const int*>(Vg + 2 * (size_t)np * np);
+  if (status[0] == NONFINITE) return;
+  const int rounds = status[1];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k = blk * VEC_ROWS + (tid >> 5);
+  const bool live = k < n;
+#ifdef SMALL_EIGH_SPLIT
+  const long long k_start = clock64();
+  long long stage_clk = 0;
+#endif
+  R va[RR], vb[RR];
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    const int j = lane * RR + r;
+    va[r] = j < h && k == j ? R(1) : R(0);
+    vb[r] = j < h && k == (j == 0 ? m : m - j) ? R(1) : R(0);
+  }
+  const int chunk = VEC_ROUNDS * h;
+  auto fetch = [&](int g0, int buf) {
+    const int cnt = min(VEC_ROUNDS, rounds - g0);
+    for (int e = tid; e < cnt * h; e += VEC_THREADS)
+      __pipeline_memcpy_async(stage + buf * chunk + e, rlog + (size_t)g0 * h + e,
+                              sizeof(double2));
+    __pipeline_commit();
+  };
+  if (rounds > 0) fetch(0, 0);
+  int rd = 0;
+  for (int g0 = 0, buf = 0; g0 < rounds; g0 += VEC_ROUNDS, buf ^= 1) {
+    const int cnt = min(VEC_ROUNDS, rounds - g0);
+    const bool more = g0 + VEC_ROUNDS < rounds;
+    if (more) fetch(g0 + VEC_ROUNDS, buf ^ 1);
+#ifdef SMALL_EIGH_SPLIT
+    const long long s_0 = clock64();
+#endif
+    if (more)
+      __pipeline_wait_prior(1);
+    else
+      __pipeline_wait_prior(0);
+    __syncthreads();
+#ifdef SMALL_EIGH_SPLIT
+    stage_clk += clock64() - s_0;
+#endif
+    // each round's (c, s) loaded a round ahead, off the rotations' chain
+    double2 xs[RR];
+#pragma unroll
+    for (int r = 0; r < RR; ++r) xs[r] = stage[buf * chunk + min(lane * RR + r, h - 1)];
+    for (int q = 0; live && q < cnt; ++q) {
+      double2 nx[RR];
+      const double2* cs = stage + buf * chunk + min(q + 1, cnt - 1) * h;
+#pragma unroll
+      for (int r = 0; r < RR; ++r) nx[r] = cs[min(lane * RR + r, h - 1)];
+      const int top = min(rd, m - 1 - rd);
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        const int j = lane * RR + r;
+        const double2 x = xs[r];
+        const bool aq = j >= 1 && j <= top;  // the slot's a is its q
+        const R vp = aq ? vb[r] : va[r], vq = aq ? va[r] : vb[r];
+        R np_, nq_;
+        rotate_v_rn(x.x, x.y, vp, vq, np_, nq_);
+        va[r] = aq ? nq_ : np_;
+        vb[r] = aq ? np_ : nq_;
+      }
+      const R a0 = __shfl_sync(FULL, va[0], 0);
+      const R right = __shfl_down_sync(FULL, va[0], 1);
+      const R left = __shfl_up_sync(FULL, vb[RR - 1], 1);
+      R na[RR], nb[RR];
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        const int j = lane * RR + r;
+        na[r] = j == h - 1 ? vb[r] : (r + 1 < RR ? va[r + 1] : right);
+        nb[r] = j == 0 ? vb[r] : (j == 1 ? a0 : (r > 0 ? vb[r - 1] : left));
+      }
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        va[r] = na[r];
+        vb[r] = nb[r];
+        xs[r] = nx[r];
+      }
+      rd = rd + 1 == m ? 0 : rd + 1;
+    }
+    __syncthreads();  // the chunk is read before the next fetch overwrites it
+  }
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      const int j = lane * RR + r;
+      if (j < h) {
+        Vg[(size_t)k * np + j] = va[r];
+        Vg[(size_t)k * np + (j == 0 ? m : m - j)] = vb[r];
+      }
+    }
+  }
+#ifdef SMALL_EIGH_SPLIT
+  if (b == 0 && blk == 0 && tid == 0) {
+    split_clu[8] = clock64() - k_start;
+    split_clu[9] = stage_clk;
+  }
+#endif
+}
+
+// (3) the eigenvalues ranked and the eigenvectors signed (`write_sorted`),
+// a CTA per matrix; the probe's build stamps [10] the kernel's cycles
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    small_eigh_sort_kernel(T* __restrict__ w_out, T* __restrict__ V_out,
+                           int* __restrict__ info, int n, int max_sweeps,
+                           R* __restrict__ work) {
+  __shared__ R diag[CLUSTER_MAX_N];
+  __shared__ int perm[CLUSTER_MAX_N];
+#ifdef SMALL_EIGH_SPLIT
+  const long long k_start = clock64();
+#endif
+  const int np = n + (n & 1), h = np / 2, m = np - 1, b = blockIdx.x;
+  const R* ws = work + (size_t)b * cluster_work_doubles(n, max_sweeps);
+  const R* Vg = ws + 2 * ((size_t)max_sweeps * m + 1) * h;
+  const R* Ad = Vg + (size_t)np * np;
+  const int* status = reinterpret_cast<const int*>(Ad + (size_t)np * np);
+  if (status[0] == NONFINITE) return;
+  write_sorted(Ad, Vg, np, n, diag, perm, w_out + (size_t)b * n,
+               V_out + (size_t)b * n * n, threadIdx.x, blockDim.x);
+  if (threadIdx.x == 0) info[b] = status[0];
+#ifdef SMALL_EIGH_SPLIT
+  if (b == 0 && threadIdx.x == 0) split_clu[10] = clock64() - k_start;
+#endif
+}
+
+template <typename T, int RR>
+int launch_vectors(int batch, int n, int max_sweeps, R* work, cudaStream_t st) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    // the largest staging any n of this RR needs; set once, outside any
+    // capture
+    const cudaError_t e = cudaFuncSetAttribute(
+        small_eigh_vectors_kernel<T, RR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(2 * VEC_ROUNDS * 32 * RR * sizeof(double2)));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int h = (n + (n & 1)) / 2, blocks = (n + VEC_ROWS - 1) / VEC_ROWS;
+  small_eigh_vectors_kernel<T, RR>
+      <<<batch * blocks, VEC_THREADS, 2 * VEC_ROUNDS * h * sizeof(double2), st>>>(
+          n, max_sweeps, work, blocks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cluster(const void* A, void* w, void* V, void* info, int batch, int n,
+                   int max_sweeps, void* work, void* stream) {
+  const int C = cluster_size(n);
+  if (n < 3 || n > CLUSTER_MAX_N || batch < 1 || max_sweeps < 0 || C == 0)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        small_eigh_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        CLUSTER_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)cluster_smem_doubles(n, C) * sizeof(double);
+  cudaError_t e;
+  if (C == 1) {
+    small_eigh_cluster_kernel<T><<<batch, CLUSTER_THREADS, smem, st>>>(
+        (const T*)A, (T*)w, (T*)V, (int*)info, n, max_sweeps, 1, (R*)work);
+    e = cudaGetLastError();
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(batch * C, 1, 1);
+    cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, small_eigh_cluster_kernel<T>, (const T*)A, (T*)w, (T*)V,
+                           (int*)info, n, max_sweeps, C, (R*)work);
+    if (e == cudaSuccess) e = cudaGetLastError();
+  }
+  if (e != cudaSuccess) return (int)e;
+  int err;
+  switch ((n + (n & 1) + 63) / 64) {  // ⌈h / 32⌉ slots a lane
+    case 1: err = launch_vectors<T, 1>(batch, n, max_sweeps, (R*)work, st); break;
+    case 2: err = launch_vectors<T, 2>(batch, n, max_sweeps, (R*)work, st); break;
+    case 3: err = launch_vectors<T, 3>(batch, n, max_sweeps, (R*)work, st); break;
+    case 4: err = launch_vectors<T, 4>(batch, n, max_sweeps, (R*)work, st); break;
+    case 5: err = launch_vectors<T, 5>(batch, n, max_sweeps, (R*)work, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  small_eigh_sort_kernel<T><<<batch, 1024, 0, st>>>((T*)w, (T*)V, (int*)info, n, max_sweeps,
+                                                     (R*)work);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_cta(const void* A, void* w, void* V, void* info, int batch, int n,
                int max_sweeps, void* stream) {
@@ -793,6 +1629,28 @@ long long cora_small_eigh_global_work(int n) {
   return (long long)global_work_doubles(n);
 }
 
+int cora_small_eigh_cluster_f32(const void* A, void* w, void* V, void* info,
+                                int batch, int n, int max_sweeps, void* work,
+                                void* stream) {
+  return launch_cluster<float>(A, w, V, info, batch, n, max_sweeps, work, stream);
+}
+
+int cora_small_eigh_cluster_f64(const void* A, void* w, void* V, void* info,
+                                int batch, int n, int max_sweeps, void* work,
+                                void* stream) {
+  return launch_cluster<double>(A, w, V, info, batch, n, max_sweeps, work, stream);
+}
+
+// doubles of the cluster family's workspace per matrix of size n
+long long cora_small_eigh_cluster_work(int n, int max_sweeps) {
+  return (long long)cluster_work_doubles(n, max_sweeps);
+}
+
+// the cluster size the family takes at n (0: past CLUSTER_MAX_N)
+int cora_small_eigh_cluster_size(int n) { return cluster_size(n); }
+
+int cora_small_eigh_cluster_max_n() { return CLUSTER_MAX_N; }
+
 int cora_small_eigh_max_n() { return MAX_N; }
 
 int cora_small_eigh_warp_max_n() { return WARP_N; }
@@ -802,6 +1660,12 @@ int cora_small_eigh_warp_max_n() { return WARP_N; }
 // the host's out[8]
 int cora_small_eigh_split_clocks(void* out) {
   return (int)cudaMemcpyFromSymbol(out, split_clk, sizeof(split_clk));
+}
+
+// the split build's cycles of the last cluster-family call (split_clu) into
+// the host's out[12]
+int cora_small_eigh_cluster_split_clocks(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, split_clu, sizeof(split_clu));
 }
 #endif
 

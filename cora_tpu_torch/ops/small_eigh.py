@@ -9,20 +9,24 @@ card a kernel of `csrc/small_eigh.cu` runs instead (parallel-order
 Jacobi; the source says what bounds it), for any n in float32 and float64,
 computing in float64 for both (a float32 matrix's eigenpairs come out
 rounded from float64 ones: LOBPCG keeps the smallest pairs of graded
-matrices, where float32 rotations would lose them). `route` picks the
-kernel: n ≤ `WARP_MAX_N` = 32 (every matrix of the main path: 3k = 30 and
-k = 10) goes to the one-warp kernel (`small_eigh`: a lane per row of A,
-three warps updating the rows and one computing the next round's
-rotations), 32 < n ≤ `MAX_N` = 96 to the one-CTA kernel
-(`small_eigh_cta`: a thread per 2 × 2 block, A and V in shared memory),
-which gives the same bits where both run and is the other's comparator,
-and n > 96 (a certificate at rank ≥ 31: k = r + 2, n = 3k) to the global
-kernel (`small_eigh_global`: the one-CTA kernel's arithmetic, written
-once for both, with A and V in a global workspace that stays in L2), the
-same bits as the one-CTA kernel where both run. A kernel launches on
-the current stream, never synchronises, and leaves a convergence report
-per matrix in a device int (`info`: sweeps taken, −1 at the sweep cap),
-which the caller reads with its other results.
+matrices, where float32 rotations would lose them). `route` picks one of
+four routes, all giving the same bits where they overlap:
+  * "warp", n ≤ `WARP_MAX_N` = 32 (every matrix of the main path: 3k = 30
+    and k = 10; key `small_eigh`): one warp per row, three warps updating
+    the rows and one computing the next round's rotations;
+  * "cluster", 32 < n ≤ `CLUSTER_MAX_N` = 320 (a certificate at rank 9 to
+    104: k = r + 2, n = 3k; key `small_eigh_cluster`): A's rows by
+    circle-method position over a thread-block cluster of
+    `cluster_size(n)` CTAs, a look-ahead warp per 32 pairs, the rotations
+    logged; then V from the log and the sort, three kernels per call;
+  * "global", n > 320 (key `small_eigh_global`): the one-CTA kernel's
+    arithmetic with A and V in a global workspace that stays in L2;
+  * "cta", n ≤ `MAX_N` = 96 (key `small_eigh_cta`): one CTA, a thread per
+    2 × 2 block, A and V in shared memory: the first design, routed to by
+    no size now, the comparator whose bits the others give.
+A call launches on the current stream, never synchronises, and leaves a
+convergence report per matrix in a device int (`info`: sweeps taken, −1
+at the sweep cap), which the caller reads with its other results.
 
 Both versions return the eigenvalues in ascending order and fix each
 eigenvector's sign so that its entry of largest magnitude (the first on
@@ -47,6 +51,14 @@ from cora_tpu_torch.utils import graphs as loops
 MAX_N = 96
 # the one-warp kernel's largest n
 WARP_MAX_N = 32
+# the cluster family's n: its smallest (a look-ahead needs two pairs) and
+# its largest (A twice in the shared memory of at most CLUSTER_MAX_C CTAs)
+CLUSTER_MIN_N = 3
+CLUSTER_MAX_N = 320
+CLUSTER_MAX_C = 8
+# the sm_90 opt-in shared memory of a block, less room for the cluster
+# kernel's static shared memory (small_eigh.cu CLUSTER_SMEM)
+CLUSTER_SMEM = 232448 - 1024
 # Jacobi sweeps before a kernel reports "not converged" (they take 7-9 at
 # n ≤ 96 on the card, PERF.md §6)
 MAX_SWEEPS = 30
@@ -56,10 +68,11 @@ NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches of each kernel; the wrapper adds one where it launches (inside a
 # captured graph: each replay, `utils.graphs.COUNTERS`)
-LAUNCHES = {"small_eigh": 0, "small_eigh_cta": 0, "small_eigh_global": 0}
+LAUNCHES = {"small_eigh": 0, "small_eigh_cluster": 0, "small_eigh_cta": 0,
+            "small_eigh_global": 0}
 # route → launch key
-KEYS = {"warp": "small_eigh", "cta": "small_eigh_cta",
-        "global": "small_eigh_global"}
+KEYS = {"warp": "small_eigh", "cluster": "small_eigh_cluster",
+        "cta": "small_eigh_cta", "global": "small_eigh_global"}
 loops.COUNTERS.append(LAUNCHES)
 BUILD_INFO: dict = {}
 
@@ -96,33 +109,79 @@ def load_library():
     for fn in (lib.cora_small_eigh_global_f32, lib.cora_small_eigh_global_f64):
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
         fn.restype = ci
+    for fn in (lib.cora_small_eigh_cluster_f32,
+               lib.cora_small_eigh_cluster_f64):
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
+        fn.restype = ci
     lib.cora_small_eigh_global_work.argtypes = [ci]
     lib.cora_small_eigh_global_work.restype = ctypes.c_longlong
-    lib.cora_small_eigh_max_n.restype = ci
-    lib.cora_small_eigh_warp_max_n.restype = ci
-    if (lib.cora_small_eigh_max_n(), lib.cora_small_eigh_warp_max_n()) \
-            != (MAX_N, WARP_MAX_N):
+    lib.cora_small_eigh_cluster_work.argtypes = [ci, ci]
+    lib.cora_small_eigh_cluster_work.restype = ctypes.c_longlong
+    lib.cora_small_eigh_cluster_size.argtypes = [ci]
+    for fn in (lib.cora_small_eigh_max_n, lib.cora_small_eigh_warp_max_n,
+               lib.cora_small_eigh_cluster_max_n,
+               lib.cora_small_eigh_cluster_size):
+        fn.restype = ci
+    if (lib.cora_small_eigh_max_n(), lib.cora_small_eigh_warp_max_n(),
+            lib.cora_small_eigh_cluster_max_n()) \
+            != (MAX_N, WARP_MAX_N, CLUSTER_MAX_N):
         raise KernelBuildError(f"{so} was built for another MAX_N")
+    if any(lib.cora_small_eigh_cluster_size(n) != cluster_size(n)
+           for n in range(1, CLUSTER_MAX_N + 2)):
+        raise KernelBuildError(f"{so} sizes its clusters otherwise")
     BUILD_INFO.update(path=str(so), seconds=time.time() - t0, log=log)
     _LIB = lib
     return lib
 
 
+def cluster_smem_bytes(n: int, clusters: int) -> int:
+    """The cluster kernel's dynamic shared memory per CTA at n on
+    `clusters` CTAs (small_eigh.cu `cluster_smem_doubles`): A's rows twice
+    (two sides × ⌈h/C⌉ slots × (np + 1) doubles), the round table (2 × 7h
+    doubles, rounded up to even) and the rows' next positions (2·⌈h/C⌉ 32-bit addresses),
+    h = np / 2."""
+    np_ = n + n % 2
+    h = np_ // 2
+    slots = -(-h // clusters)
+    return 8 * (4 * slots * (np_ + 1) + 2 * (7 * h + h % 2) + slots)
+
+
+def cluster_fits(n: int, clusters: int) -> bool:
+    """Whether `clusters` CTAs hold an n × n matrix: the shared memory,
+    and at least two pairs on every CTA."""
+    if n < CLUSTER_MIN_N or not 1 <= clusters <= CLUSTER_MAX_C:
+        return False
+    h = (n + n % 2) // 2
+    slots = -(-h // clusters)
+    if clusters > 1 and (slots < 2 or h - (clusters - 1) * slots < 2):
+        return False
+    return cluster_smem_bytes(n, clusters) <= CLUSTER_SMEM
+
+
+def cluster_size(n: int) -> int:
+    """The CTAs of the cluster kernel at n: the smallest of 1, 2, 4, 8
+    that holds it (0: none does, past `CLUSTER_MAX_N`)."""
+    return next((c for c in (1, 2, 4, 8) if cluster_fits(n, c)), 0)
+
+
 def route(n: int, dtype, kernel: str | None = None) -> str:
     """The kernel an n × n matrix of `dtype` runs on the card: "warp" for
-    n ≤ `WARP_MAX_N`, "cta" for n ≤ `MAX_N`, else "global"; `kernel`
-    forces one (the probe's and the smoke test's comparisons). Raises for
-    a size or a dtype no kernel takes."""
+    n ≤ `WARP_MAX_N`, "cluster" for n ≤ `CLUSTER_MAX_N`, else "global";
+    `kernel` forces one (the comparisons of the probe and the smoke test;
+    "cta" only so), checked against its sizes. Raises for a size or a
+    dtype no kernel takes."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"small_eigh: dtype {dtype}")
-    if kernel not in (None, "warp", "cta", "global"):
+    if kernel not in (None, "warp", "cluster", "cta", "global"):
         raise ValueError(f"small_eigh: no kernel {kernel!r}")
-    most = {"warp": WARP_MAX_N, "cta": MAX_N}.get(kernel)
-    if n < 1 or (most is not None and n > most):
+    least, most = {"warp": (1, WARP_MAX_N), "cta": (1, MAX_N),
+                   "cluster": (CLUSTER_MIN_N, CLUSTER_MAX_N)}.get(
+                       kernel, (1, None))
+    if n < least or (most is not None and n > most):
         raise ValueError(f"small_eigh {kernel} takes n × n matrices with "
-                         f"1 ≤ n ≤ {most}, got n = {n}")
+                         f"{least} ≤ n ≤ {most}, got n = {n}")
     return kernel or ("warp" if n <= WARP_MAX_N else
-                      "cta" if n <= MAX_N else "global")
+                      "cluster" if n <= CLUSTER_MAX_N else "global")
 
 
 def small_eigh_plain(A: torch.Tensor):
@@ -142,8 +201,9 @@ def small_eigh(A: torch.Tensor, kernel: str | None = None):
     """The eigendecomposition of the symmetric (n, n) or (B, n, n) `A`
     (its lower triangle is read): (w ascending, V with the eigenvectors as
     columns, info per matrix). On the CPU the plain twin; on the card the
-    kernel `route` picks (or `kernel`), which raises for another dtype or
-    a failed launch."""
+    kernel `route` picks (or `kernel`; the cluster kernel on
+    `cluster_size(n)` CTAs), which raises for another dtype or a failed
+    launch."""
     if A.device.type == "cpu":
         return small_eigh_plain(A)
     from cora_tpu_torch.ops.tnt_kernels import KernelLaunchError
@@ -166,6 +226,11 @@ def small_eigh(A: torch.Tensor, kernel: str | None = None):
     if which == "global":
         work = torch.empty(batch * lib.cora_small_eigh_global_work(n),
                            dtype=torch.float64, device=A.device)
+        args.append(work.data_ptr())
+    elif which == "cluster":
+        work = torch.empty(
+            batch * lib.cora_small_eigh_cluster_work(n, MAX_SWEEPS),
+            dtype=torch.float64, device=A.device)
         args.append(work.data_ptr())
     err = fn(*args, torch.cuda.current_stream(A.device).cuda_stream)
     key = KEYS[which]

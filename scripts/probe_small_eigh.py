@@ -2,7 +2,7 @@
 """The `small_eigh` kernels alone on one NVIDIA GPU: build, bits and times.
 
     python3 scripts/probe_small_eigh.py [--split] [--parent FILE] [--sass DIR]
-                                        [--out FILE]
+                                        [--out FILE] [--quick] [--define X]
 
 Builds only `cora_tpu_torch/ops/csrc/small_eigh.cu` (seconds): the
 package's library, whose one-warp kernel has 3 update warps, and beside it
@@ -13,29 +13,47 @@ parallel). Prints nvcc's `-Xptxas -v` lines of the package's kernels, then:
       near-degenerate pair at the bottom, a repeated-eigenvalue and a
       zero-block matrix, one with a NaN) at n = 10, 12, 30, 31, 32, 36, 64,
       96 in float32 and float64, batch 1 and 4, the routed `small_eigh`
+      and the cluster family (`small_eigh_cluster`, forced at n ≤ 32)
       against the one-CTA kernel (`small_eigh_cta`), and at n ≤ 32 the
-      one-warp kernel of every update-warp count: `torch.equal` on the
-      bits of w, V and info, counted per case; the eigenvalues' error
+      one-warp kernel of every update-warp count; at n = 97, 99, 150, 198,
+      246 and 320 the routed cluster family against the global kernel
+      (`small_eigh_global`), so that each cluster size the route picks (1,
+      2, 4, 8 CTAs) is checked at an n it is picked for: `torch.equal` on
+      the bits of w, V and info, counted per case; the eigenvalues' error
       against `torch.linalg.eigh` in float64;
   (b) times: median of 20 single calls (CUDA events around each, as
       `chip_smoke.py` times) of the one-CTA kernel, the one-warp kernel of
       each update-warp count (`warp<w>_ms`) and `torch.linalg.eigh`, in
       turns (one-CTA, warp, warp, one-CTA), at n = 10, 30, 36 in both
       dtypes, with the sweeps taken; and each kernel's device ms per call
-      over 50 calls back to back (`loop_ms`);
+      over 50 calls back to back (`loop_ms`); the cluster family against
+      its comparator in turns (cluster, old, old, cluster; the one-CTA
+      kernel at n = 36, the global one at n = 99, 150, 198 and 246; median
+      of 5 past n = 96) in float32, beside `torch.linalg.eigh`, with its
+      cluster size;
   (c) with `--split`: builds with `-DSMALL_EIGH_SPLIT` (never set by the
       package's build), whose one-warp kernel stamps `clock64()` in each
       round: the cycles per round of the rotation warp (the next round's
       entries and rotations), of update warp 0 and of its wait at the
       round's barrier, and per stop test, at n = 10 and 30 for each
-      update-warp count.
-With `--parent FILE`, another version's `small_eigh.cu` (the one-CTA
+      update-warp count; and whose cluster family stamps, at n = 99, 198
+      and 246: per round the look-ahead warp's body (the next round's entries
+      and rotations, and their stores into every CTA's table) and its wait
+      at the round's barrier, the first update warp's body and its wait;
+      per sweep the stop test; the A kernel's whole run, and the V kernel's
+      (the time V lags behind A: it runs after it) and its staging of the
+      log, and the sort kernel's.
+`--quick` runs (a) only, on fewer cases, each call of a kernel new to the
+card waited on with a timeout (a hang shows as such): the first call's
+check. `--define X` (repeatable) builds the source with `-DX` too, holds
+that build's cluster family to the comparators in (a) and times it in
+turns with the package's in (b). With `--parent FILE`, another version's `small_eigh.cu` (the one-CTA
 kernel's C interface before its rename, `cora_small_eigh_f32/f64`) is
 built too and held to both kernels of this tree bit for bit on the same
 corpus. With `--sass DIR`, `cuobjdump -sass` of the package's library goes
 to DIR/small_eigh.sass. Prints the card's name and power limit first and,
 last, one JSON object of all the numbers. Exits non-zero without a CUDA
-device or when a result differs from the one-CTA kernel's.
+device or when a result differs from its comparator's.
 """
 
 import argparse
@@ -54,8 +72,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 from small_eigh_cases import bits_equal, corpus, ptxas_lines  # noqa: E402
 
 SIZES = (10, 12, 30, 31, 32, 36, 64, 96)
+# past the one-CTA kernel: the cluster family against the global kernel,
+# routed to 1 CTA (97, 99), 2 (150), 4 (198) and 8 (246, 320)
+GLOBAL_SIZES = (97, 99, 150, 198, 246, 320)
 TIMED = (10, 30, 36)
+# the cluster family timed against its comparator (float32), at 1, 1, 2,
+# 4 and 8 CTAs
+CLUSTER_TIMED = (36, 99, 150, 198, 246)
 SPLIT = (10, 30)
+CLUSTER_SPLIT = (99, 198, 246)
+HANG_S = 60  # a first call of a kernel not done by then has hung
 WIDTHS = (1, 2, 3, 4)  # update warps of the one-warp kernel; the package: 3
 REPS = 20
 
@@ -67,9 +93,9 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, torch):
+def median_ms(fn, torch, reps=REPS):
     times = []
-    for _ in range(REPS + 2):
+    for _ in range(reps + 2):
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
@@ -130,23 +156,72 @@ def run_warp(lib, A, torch, se):
     return w.reshape(*lead, n), V.reshape(A.shape), info.reshape(lead)
 
 
-def check_bits(torch, se, libs):
-    """(a): per (n, dtype, batch, case), whether the routed result and
-    every update-warp count's equal the one-CTA kernel's bit for bit; and
-    the eigenvalues' error against float64 eigh."""
+def waited(torch, fn):
+    """fn()'s result, its kernels waited on with a timeout: an event
+    polled, so that a hang raises instead of blocking."""
+    out = fn()
+    ev = torch.cuda.Event()
+    ev.record()
+    t0 = time.time()
+    while not ev.query():
+        if time.time() - t0 > HANG_S:
+            raise SystemExit(f"probe_small_eigh: a kernel ran past {HANG_S} s")
+        time.sleep(0.01)
+    return out
+
+
+def run_cluster(lib, A, torch, se):
+    """(w, V, info) of `lib`'s cluster family on A (n, n), as `small_eigh`
+    allocates and launches it."""
+    n = A.shape[-1]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = lib.cora_small_eigh_cluster_f32 if A.dtype == torch.float32 \
+        else lib.cora_small_eigh_cluster_f64
+    fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
+    lib.cora_small_eigh_cluster_work.argtypes = [ci, ci]
+    lib.cora_small_eigh_cluster_work.restype = ctypes.c_longlong
+    w = torch.empty(n, dtype=A.dtype, device=A.device)
+    V = torch.empty_like(A)
+    info = torch.empty(1, dtype=torch.int32, device=A.device)
+    work = torch.empty(lib.cora_small_eigh_cluster_work(n, se.MAX_SWEEPS),
+                       dtype=torch.float64, device=A.device)
+    err = fn(A.data_ptr(), w.data_ptr(), V.data_ptr(), info.data_ptr(), 1, n,
+             se.MAX_SWEEPS, work.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"cluster kernel failed: CUDA error {err}")
+    return w, V, info.reshape(())
+
+
+variant_libs = {}  # --define builds, their cluster family checked in (a)
+variant_same = {}
+
+
+def check_bits(torch, se, libs, quick=False):
+    """(a): per (n, dtype, batch, case), whether the routed result, the
+    cluster family's and every update-warp count's equal the one-CTA
+    kernel's (n ≤ 96) or the global kernel's (n > 96) bit for bit; and the
+    eigenvalues' error against float64 eigh."""
     rows, failed = [], []
-    for n in SIZES:
+    for n in SIZES + GLOBAL_SIZES:
         mats = [corpus(n, s) for s in range(4)]
+        old = "cta" if n <= se.MAX_N else "global"
         for dt in (torch.float32, torch.float64):
-            for batch in (1, 4):
+            for batch in ((1,) if quick else (1, 4)):
                 for name in mats[0]:
+                    if quick and name not in ("random", "nonfinite"):
+                        continue
                     A = torch.as_tensor(np.stack([m[name] for m in mats[:batch]])
                                         if batch > 1 else mats[0][name]
                                         ).to("cuda", dt)
-                    routed = se.small_eigh(A)
-                    cta = se.small_eigh(A, kernel="cta")
+                    routed = waited(torch, lambda: se.small_eigh(A))
+                    cta = se.small_eigh(A, kernel=old)
                     same = bits_equal(routed, cta)
-                    if n <= se.WARP_MAX_N:
+                    if 3 <= n <= se.WARP_MAX_N:
+                        same = same and bits_equal(waited(
+                            torch, lambda: se.small_eigh(
+                                A, kernel="cluster")), cta)
+                    if n <= se.WARP_MAX_N and not quick:
                         same = same and all(bits_equal(
                             run_warp(libs[w], A, torch, se), cta)
                             for w in WIDTHS)
@@ -157,11 +232,20 @@ def check_bits(torch, se, libs):
                                      / w64.abs().amax(-1)).max())
                     rows.append(dict(n=n, dtype=str(dt)[6:], batch=batch,
                                      case=name, route=se.route(n, dt),
-                                     same=same,
+                                     against=old, same=same,
+                                     clusters=se.cluster_size(n),
                                      sweeps=routed[2].reshape(-1).tolist(),
                                      eig_err=err))
                     if not same:
                         failed.append((n, str(dt)[6:], batch, name))
+                        print(f"[bits] differ n={n} {dt} {name}: " + ", ".join(
+                            f"{lab} {float((x.double() - y.double()).abs().nan_to_num(0).max()):.3e}"
+                            for lab, x, y in zip(("w", "V", "info"), routed, cta)),
+                            flush=True)
+                    for d, lib in variant_libs.items():
+                        if n >= 3 and n <= se.CLUSTER_MAX_N and batch == 1:
+                            ok = bits_equal(run_cluster(lib, A, torch, se), cta)
+                            variant_same.setdefault(d, []).append(ok)
     return rows, failed
 
 
@@ -196,6 +280,77 @@ def time_kernels(torch, se, libs):
             print(f"[times] n={n} {row['dtype']}: " + json.dumps(
                 {k: v for k, v in row.items() if k not in ("n", "dtype")}),
                 flush=True)
+    return out
+
+
+def time_cluster(torch, se):
+    """(b): the cluster family against its comparator in turns (cluster,
+    old, old, cluster), float32, beside torch.linalg.eigh."""
+    out = []
+    rng = np.random.default_rng(11)
+    for n in CLUSTER_TIMED:
+        M = rng.standard_normal((n, n))
+        A = torch.as_tensor(M + M.T).to("cuda", torch.float32)
+        old = "cta" if n <= se.MAX_N else "global"
+        reps = REPS if n <= se.MAX_N else 5
+        run = {k: (lambda k=k: se.small_eigh(A, kernel=k))
+               for k in ("cluster", old)}
+        t = [median_ms(run[k], torch, reps)
+             for k in ("cluster", old, old, "cluster")]
+        row = dict(n=n, dtype="float32", clusters=se.cluster_size(n),
+                   sweeps=int(se.small_eigh(A)[2]), against=old,
+                   turns_ms=t, cluster_ms=(t[0] + t[3]) / 2,
+                   old_ms=(t[1] + t[2]) / 2,
+                   eigh_ms=median_ms(lambda: torch.linalg.eigh(A), torch,
+                                     reps))
+        for d, lib in variant_libs.items():  # --define builds, in turns
+            t2 = [median_ms(f, torch, reps) for f in (
+                run["cluster"], lambda: run_cluster(lib, A, torch, se),
+                lambda: run_cluster(lib, A, torch, se), run["cluster"])]
+            row[f"vs_{d}_turns_ms"] = t2
+        out.append(row)
+        print(f"[times] cluster n={n}: {json.dumps(row)}", flush=True)
+    return out
+
+
+def cluster_split(torch, se, lib):
+    """(c): the cluster family's clock64() stamps (matrix 0, CTA 0), per
+    round, per stop test and per kernel, from the -DSMALL_EIGH_SPLIT
+    build."""
+    out = []
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.cora_small_eigh_cluster_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                                vp, vp]
+    lib.cora_small_eigh_cluster_work.argtypes = [ci, ci]
+    lib.cora_small_eigh_cluster_work.restype = ctypes.c_longlong
+    for n in CLUSTER_SPLIT:
+        A = torch.as_tensor(corpus(n)["random"]).to("cuda", torch.float32)
+        w = torch.empty(n, dtype=A.dtype, device="cuda")
+        V = torch.empty_like(A)
+        info = torch.empty(1, dtype=torch.int32, device="cuda")
+        work = torch.empty(lib.cora_small_eigh_cluster_work(n, se.MAX_SWEEPS),
+                           dtype=torch.float64, device="cuda")
+        err = lib.cora_small_eigh_cluster_f32(
+            A.data_ptr(), w.data_ptr(), V.data_ptr(), info.data_ptr(), 1, n,
+            se.MAX_SWEEPS, work.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"split cluster kernel: CUDA error {err}")
+        torch.cuda.synchronize()
+        clk = (ctypes.c_longlong * 12)()
+        err = lib.cora_small_eigh_cluster_split_clocks(clk)
+        if err:
+            raise RuntimeError(f"split clocks: CUDA error {err}")
+        c = list(clk)
+        rounds = max(c[0], 1)
+        row = dict(n=n, clusters=se.cluster_size(n), rounds=c[0],
+                   sweeps=int(info), lookahead=c[1] / rounds,
+                   lookahead_wait=c[2] / rounds, update=c[3] / rounds,
+                   update_wait=c[4] / rounds,
+                   stop_test=c[5] / max(c[6], 1), a_kernel=c[7],
+                   v_kernel=c[8], v_staging=c[9], sort_kernel=c[10])
+        out.append(row)
+        print(f"[split] cluster {json.dumps(row)}", flush=True)
     return out
 
 
@@ -279,6 +434,8 @@ def main():
     ap.add_argument("--parent")
     ap.add_argument("--sass")
     ap.add_argument("--out")
+    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--define", action="append", default=[])
     args = ap.parse_args()
     import torch
 
@@ -290,8 +447,11 @@ def main():
     from cora_tpu_torch.ops import small_eigh as se
 
     t0 = time.time()
-    variants = {("width", w): [f"SMALL_EIGH_UPDATE_WARPS={w}"]
-                for w in WIDTHS if w != 3}
+    variants = {} if args.quick else {
+        ("width", w): [f"SMALL_EIGH_UPDATE_WARPS={w}"]
+        for w in WIDTHS if w != 3}
+    for d in args.define:
+        variants[("define", d)] = [d]
     if args.split:
         variants.update({("split", w): ["SMALL_EIGH_SPLIT",
                                         f"SMALL_EIGH_UPDATE_WARPS={w}"]
@@ -300,14 +460,18 @@ def main():
         package = pool.submit(se.load_library)
         built = {k: pool.submit(build, se, d) for k, d in variants.items()}
         built = {k: f.result() for k, f in built.items()}
-        libs = {w: built[("width", w)] for w in WIDTHS if w != 3}
+        libs = {w: built[("width", w)] for w in WIDTHS
+                if ("width", w) in built}
         libs[3] = package.result()
+        variant_libs.update({k[1]: v for k, v in built.items()
+                             if k[0] == "define"})
     print(f"[build] small_eigh.cu, {len(variants) + 1} builds in "
           f"{time.time() - t0:.1f} s ({se.BUILD_INFO['path']})", flush=True)
     for name, line in ptxas_lines(se.BUILD_INFO["log"]):
         print(f"[ptxas] {name}: {line}", flush=True)
-    rows, failed = check_bits(torch, se, libs)
-    print("[bits] routed and every update-warp count against one-CTA, "
+    rows, failed = check_bits(torch, se, libs, args.quick)
+    print("[bits] routed, the cluster family and every "
+          "update-warp count against one-CTA (n ≤ 96) or global (n > 96), "
           f"equal: {sum(r['same'] for r in rows)} of {len(rows)}", flush=True)
     for r in rows:
         print(f"[bits] {json.dumps(r)}", flush=True)
@@ -324,10 +488,20 @@ def main():
         with open(os.path.join(args.sass, "small_eigh.sass"), "w") as fh:
             subprocess.run([dump, "-sass", se.BUILD_INFO["path"]], stdout=fh,
                            stderr=subprocess.STDOUT, timeout=120)
+    for d, oks in variant_same.items():
+        print(f"[bits] -D{d}: cluster family equal {sum(oks)} of {len(oks)}",
+              flush=True)
+    if args.quick:
+        print(json.dumps({k: v for k, v in res.items() if k != "bits"}))
+        if failed:
+            raise SystemExit(f"probe_small_eigh: results differ: {failed}")
+        return
     res["times"] = time_kernels(torch, se, libs)
+    res["cluster_times"] = time_cluster(torch, se)
     if args.split:
         res["split"] = round_split(torch, se, {w: built[("split", w)]
                                                for w in WIDTHS})
+        res["cluster_split"] = cluster_split(torch, se, built[("split", 3)])
     if args.out:
         with open(args.out, "w") as fh:
             fh.write(json.dumps(res))

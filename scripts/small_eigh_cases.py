@@ -60,7 +60,7 @@ def ptxas_lines(log):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            m = re.search(r"(small_eigh_(?:warp|cta|global)_kernel)I([fd])", name)
+            m = re.search(r"(small_eigh_(?:warp|cta|global|cluster|vectors|sort)_kernel)I([fd])", name)
             if m:
                 name = (f"{m.group(1)}<"
                         f"{'float' if m.group(2) == 'f' else 'double'}>")

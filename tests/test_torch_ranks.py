@@ -7,8 +7,8 @@ graph that is rank 80, on the single_drone-shaped graph rank 150. The
 port's kernels keep their rank-sized buffers in dynamic shared memory
 sized at launch, so their bound is `chain.rank_bound` (one block's shared
 memory), and the certificate's Rayleigh–Ritz matrices (n = 3k, k = r + 2)
-past the one-CTA `small_eigh` kernel's n ≤ 96 go to its global-memory
-route. Here:
+past the one-warp `small_eigh` kernel's n ≤ 32 go to its cluster family
+(n ≤ 320) and past that to its global-memory route. Here:
   * `PlainTNT` (the kernels' plain versions) at rank 12 (d = 2) and 11
     (d = 3) against the JAX package's interpret-mode `PallasTNT`, with the
     tests and tolerances of `test_torch_kernels_plain.py`;
@@ -22,8 +22,10 @@ route. Here:
     at rank 4, more, smaller groups where shared memory is short;
   * the global route's order of operations (the one-CTA kernel's, at
     1024 threads), emulated in numpy, against `numpy.linalg.eigh` past
-    n = 96; that the CUDA global kernel gives the one-CTA kernel's bits
-    shows only on the card (`chip_smoke.py` phase 2, n = 36 and 96);
+    n = 96; that the CUDA global kernel gives the one-CTA kernel's bits,
+    and the cluster family the global kernel's, shows only on the card
+    (`chip_smoke.py` phase 2); the cluster family's emulation is in
+    `test_torch_small_eigh.py`;
   * the routing rule: a `max_rank` beyond the bound runs the canonical
     path, and raises up front under `use_kernels="always"`.
 The CUDA kernels themselves run at these ranks only on the card
@@ -232,10 +234,12 @@ def test_rank_bound_covers_the_jax_guard(g):
     guard, jpd = _jax_guard_rank(g)
     assert guard >= 80  # rank 80 plaza2-shaped, 150 single_drone-shaped
     assert chain.rank_bound(g["n_landmarks"], jpd.size) >= guard
-    # the certificate at that rank: k = r + 2, Rayleigh–Ritz n = 3k
+    # the certificate at that rank: k = r + 2, Rayleigh–Ritz n = 3k, the
+    # cluster family's to n = 320, the global kernel's past it
     n = 3 * (guard + 2)
     for dt in (torch.float32, torch.float64):
-        assert se.route(n, dt) == "global"
+        assert se.route(n, dt) == ("cluster" if n <= se.CLUSTER_MAX_N
+                                   else "global")
 
 
 def test_rank_bound_is_shared_memory():
@@ -302,7 +306,9 @@ def test_global_route_emulation_matches_numpy(n):
 @pytest.mark.parametrize("n", [1, 97, 246, 456])
 def test_route_global_by_size(n):
     assert se.route(n, torch.float64, kernel="global") == "global"
-    assert se.route(n, torch.float32) == ("warp" if n == 1 else "global")
+    assert se.route(n, torch.float32) == (
+        "warp" if n == 1 else "cluster" if n <= se.CLUSTER_MAX_N else
+        "global")
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,31 @@
-"""`small_eigh`'s two parallel-order Jacobi kernels, emulated in float64
-numpy on the CPU.
+"""`small_eigh`'s parallel-order Jacobi kernels, emulated in float64 numpy
+on the CPU.
 
-`cora_tpu_torch/ops/csrc/small_eigh.cu` holds two kernels that must give
-the same bits: the one-CTA kernel (`small_eigh_cta`: a thread per 2 × 2
-block (i ≤ j) of a round, the mirrored block written by the same thread)
-and the one-warp kernel the wrapper routes n ≤ 32 to (a lane per row of
-A, each lane computing the entries of its own row). The emulations below
-follow each kernel's order of operations: (a) block by block, (b) row by
-row, where a row's entry in a block (j, i) with slot j < i is computed as
-the one-CTA kernel's thread for (j, i) computes it (rows with Jⱼ first,
-then columns with Jᵢ) and transposed. Both take the stop test's sums in
-the one-CTA kernel's order for its thread count (a strided sum per
-thread, a `__shfl_down` tree per warp, a tree over the warps), (b) by
-replaying it virtual warp by virtual warp, as the one-warp kernel does.
-They must agree bit for bit on A, V and the sweeps, and with
-`numpy.linalg.eigh` to the tolerances of `test_torch_cert_loop.py`. The
-wrapper's routing and `pair_of`'s round-robin schedule are checked too.
-Everything here runs on the CPU and checks the emulations and the
-wrapper's routing, not the CUDA source: the kernels themselves are held
-to each other, bit for bit, only on the card, by
+`cora_tpu_torch/ops/csrc/small_eigh.cu` holds kernels that must give the
+same bits: the one-CTA kernel (`small_eigh_cta`: a thread per 2 × 2 block
+(i ≤ j) of a round, the mirrored block written by the same thread), the
+one-warp kernel the wrapper routes n ≤ 32 to (a lane per row of A, each
+lane computing the entries of its own row), and the cluster family the
+wrapper routes 32 < n ≤ 320 to (A's rows by circle-method position over C
+CTAs, each round's next pairs computed a round ahead from this round's
+rows and table, the rows written straight into their next positions,
+across a CTA boundary where the shift takes them there; V afterwards from
+the log of rotations, by slot). The emulations below follow each kernel's
+order of operations: (a) block by block, (b) row by row, where a row's
+entry in a block (j, i) with slot j < i is computed as the one-CTA
+kernel's thread for (j, i) computes it (rows with Jⱼ first, then columns
+with Jᵢ) and transposed, (c) the cluster family's positions, tables and
+shift (`Cluster`). The stop test's sums are taken in the one-CTA kernel's
+order for its thread count (a strided sum per thread, a `__shfl_down` tree
+per warp, a tree over the warps), (b) replaying it virtual warp by
+virtual warp, as the one-warp kernel does, (c) with the terms read from
+the rows by position, up to ~60 a thread past n = 45, as the cluster
+family's CTA 0 does. They must agree bit for bit on A, V and the sweeps,
+and with `numpy.linalg.eigh` to the tolerances of `test_torch_cert_loop.py`.
+The wrapper's routing and cluster sizes and `pair_of`'s round-robin
+schedule are checked too. Everything here runs on the CPU and checks the
+emulations and the wrapper's routing, not the CUDA source: the kernels
+themselves are held to each other, bit for bit, only on the card, by
 `scripts/probe_small_eigh.py` and `chip_smoke.py` phase 2.
 """
 
@@ -306,21 +313,22 @@ def test_stop_sum_replay_matches_cta_order():
 @pytest.mark.parametrize("n", [1, 2, 10, 30, 31, 32, 33, 36, 64, 95, 96])
 def test_route_by_size(n):
     for dt in (torch.float32, torch.float64):
-        assert se.route(n, dt) == ("warp" if n <= se.WARP_MAX_N else "cta")
+        assert se.route(n, dt) == ("warp" if n <= se.WARP_MAX_N else
+                                   "cluster")
 
 
 @pytest.mark.parametrize("n", [0, 97, 128])
 def test_route_refuses_sizes(n):
     """No kernel takes n = 0; past MAX_N the one-CTA kernel refuses (its A
-    and V would overflow its shared memory) and the route is the global
-    kernel's."""
+    and V would overflow its shared memory) and the route is the cluster
+    family's."""
     with pytest.raises(ValueError):
         se.route(n, torch.float32, kernel="cta")
     if n == 0:
         with pytest.raises(ValueError):
             se.route(n, torch.float32)
     else:
-        assert se.route(n, torch.float32) == "global"
+        assert se.route(n, torch.float32) == "cluster"
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
@@ -336,3 +344,328 @@ def test_forced_kernel_checks_its_size():
     assert se.route(30, torch.float32, kernel="cta") == "cta"
     with pytest.raises(ValueError):
         se.route(30, torch.float32, kernel="lapack")
+
+
+# ---------------------------------------------------------------------------
+# (c) the cluster family
+
+
+def index_at(rd, i, side, m):
+    """The index at position (slot i, side) of round rd: side 0 the circle
+    method's a = rd + i, side 1 its b = rd − i (slot 0: the fixed m)."""
+    i, side = np.asarray(i), np.asarray(side)
+    a = (rd + i) % m
+    b = np.where(i == 0, m, (rd - i) % m)
+    return np.where(side == 0, a, b)
+
+
+def next_pos(i, side, h):
+    """Where the index at (i, side) sits next round: a down a slot (slot
+    0's a to slot 1's b), b up a slot (the last slot's b to its a)."""
+    i, side = np.asarray(i), np.asarray(side)
+    ni = np.where(side == 0, np.where(i > 0, i - 1, 1),
+                  np.where(i == 0, 0, np.where(i < h - 1, i + 1, h - 1)))
+    ns = np.where(side == 0, np.where(i > 0, 0, 1),
+                  np.where((i > 0) & (i == h - 1), 0, 1))
+    return ni, ns
+
+
+def prev_pos(k, side, h):
+    """Where the index at (k, side) of the next round sits in this one."""
+    k = np.asarray(k)
+    if side == 0:
+        return np.where(k < h - 1, k + 1, h - 1), np.where(k < h - 1, 0, 1)
+    return (np.where(k >= 2, k - 1, 0),
+            np.where(k >= 2, 1, np.where(k == 1, 0, 1)))
+
+
+def rotate_diag(app, aqq, apq, t):
+    return app - t * apq, aqq + t * apq
+
+
+def row_entries(top, lo, ci, si, cj, sj, x00, x01, x10, x11):
+    """The one-warp kernel's `row_entries`: row u's entries (at p_j, at
+    q_j) of the block of its slot i and slot j."""
+    z00, z01, z10, z11 = block(np.where(lo, ci, cj), np.where(lo, si, sj),
+                               np.where(lo, cj, ci), np.where(lo, sj, si),
+                               x00, np.where(lo, x01, x10),
+                               np.where(lo, x10, x01), x11)
+    return (np.where(top, z00, np.where(lo, z10, z01)),
+            np.where(top, np.where(lo, z01, z10), z11))
+
+
+class Cluster:
+    """The cluster kernel's rounds on A over C CTAs: rows[cta][buf][side]
+    [slot − cta·S] by circle-method position, the round's table per slot
+    (c, s, t, the diagonal at p and q, the pair's entry, p, q), the log of
+    (c, s) per round. A row's diagonal entry is never written after the
+    load (NaN here: a read of it would show), its table entry carries it."""
+
+    def __init__(self, M, C):
+        A, _, self.n, self.npad = start(M)
+        self.m, self.h = self.npad - 1, self.npad // 2
+        self.C, self.S = C, -(-self.h // C)
+        self.rows = np.zeros((C, 2, 2, self.S, self.npad))
+        slots = np.arange(self.h)
+        for side in (0, 1):
+            u = index_at(0, slots, side, self.m)
+            self.rows[slots // self.S, 0, side, slots % self.S] = A[u]
+        P, Q = pairs(0, self.npad)
+        c, s, t = rotations(A[P, P], A[Q, Q], A[P, Q])
+        self.tab = dict(c=c, s=s, t=t, dp=A[P, P], dq=A[Q, Q], apq=A[P, Q],
+                        p=P, q=Q)
+        self.log = [(c, s)]
+        self.cur = 0
+
+    def cta(self, slot):
+        return np.asarray(slot) // self.S
+
+    def row(self, buf, slot, side):
+        slot = np.asarray(slot)
+        return self.rows[slot // self.S, buf, side, slot % self.S]
+
+    def p_side(self, rd, slot):
+        """The side of each slot's p in round rd."""
+        return np.where(index_at(rd, slot, 0, self.m) == self.tab["p"][slot],
+                        0, 1)
+
+    def round(self, rd):
+        h, m, tb = self.h, self.m, self.tab
+        k = np.arange(h)
+        # the look-ahead: next round's table from this round's rows
+        ia, sa = prev_pos(k, 0, h)
+        ib, sb = prev_pos(k, 1, h)
+        ua, ub = index_at(rd, ia, sa, m), index_at(rd, ib, sb, m)
+        pp, qq = rotate_diag(tb["dp"][ia], tb["dq"][ia], tb["apq"][ia],
+                             tb["t"][ia])
+        da = np.where(ua == tb["p"][ia], pp, qq)
+        pp, qq = rotate_diag(tb["dp"][ib], tb["dq"][ib], tb["apq"][ib],
+                             tb["t"][ib])
+        db = np.where(ub == tb["p"][ib], pp, qq)
+        own_a = self.cta(ia) == self.cta(k)
+        L, O = np.where(own_a, ia, ib), np.where(own_a, ib, ia)
+        uL, uO = np.where(own_a, ua, ub), np.where(own_a, ub, ua)
+        assert (self.cta(L) == self.cta(k)).all()  # rows on k's own CTA
+        pL, pO, qO = tb["p"][L], tb["p"][O], tb["q"][O]
+        ps = self.p_side(rd, L)
+        rp, rq = self.row(self.cur, L, ps), self.row(self.cur, L, 1 - ps)
+        at_p, at_q = row_entries(
+            uL == pL, L < O, tb["c"][L], tb["s"][L], tb["c"][O], tb["s"][O],
+            rp[k, pO], rp[k, qO], rq[k, pO], rq[k, qO])
+        apq = np.where(uO == pO, at_p, at_q)
+        app, aqq = np.where(ua < ub, da, db), np.where(ua < ub, db, da)
+        c, s, t = rotations(app, aqq, apq)
+        nxt = dict(c=c, s=s, t=t, dp=app, dq=aqq, apq=apq,
+                   p=np.minimum(ua, ub), q=np.maximum(ua, ub))
+        # the update: each slot's rows at every column slot, into their
+        # next positions (another CTA's at a boundary)
+        i = np.arange(h)[:, None]
+        j = np.arange(h)[None, :]
+        ps = self.p_side(rd, np.arange(h))
+        rp = self.row(self.cur, np.arange(h), ps)
+        rq = self.row(self.cur, np.arange(h), 1 - ps)
+        P, Q = tb["p"], tb["q"]
+        x00, x01 = rp[i, P[j]], rp[i, Q[j]]
+        x10, x11 = rq[i, P[j]], rq[i, Q[j]]
+        lo = i < j
+        z00, z01, z10, z11 = block(
+            np.where(lo, tb["c"][i], tb["c"][j]),
+            np.where(lo, tb["s"][i], tb["s"][j]),
+            np.where(lo, tb["c"][j], tb["c"][i]),
+            np.where(lo, tb["s"][j], tb["s"][i]),
+            x00, np.where(lo, x01, x10), np.where(lo, x10, x01), x11)
+        op = np.full((h, self.npad), np.nan)
+        oq = np.full((h, self.npad), np.nan)
+        off = i != j
+        ii = np.broadcast_to(i, off.shape)
+        Pj, Qj = np.broadcast_to(P[j], off.shape), np.broadcast_to(Q[j],
+                                                                  off.shape)
+        op[ii[off], Pj[off]] = z00[off]
+        op[ii[off], Qj[off]] = np.where(lo, z01, z10)[off]
+        oq[ii[off], Pj[off]] = np.where(lo, z10, z01)[off]
+        oq[ii[off], Qj[off]] = z11[off]
+        op[np.arange(h), Q] = 0.0
+        oq[np.arange(h), P] = 0.0
+        nbuf = self.cur ^ 1
+        for side, out in ((ps, op), (1 - ps, oq)):
+            ni, ns = next_pos(np.arange(h), side, h)
+            self.rows[ni // self.S, nbuf, ns, ni % self.S] = out
+        self.crossed = int(sum(
+            (self.cta(next_pos(np.arange(h), sd, h)[0])
+             != self.cta(np.arange(h))).sum() for sd in (0, 1)))
+        self.cur, self.tab = nbuf, nxt
+        self.log.append((c, s))
+
+    def natural(self, rd):
+        """A in index order at the start of round rd (its table's)."""
+        A = np.empty((self.npad, self.npad))
+        slots = np.arange(self.h)
+        for side in (0, 1):
+            A[index_at(rd, slots, side, self.m)] = self.row(self.cur, slots,
+                                                             side)
+        A[self.tab["p"], self.tab["p"]] = self.tab["dp"]
+        A[self.tab["q"], self.tab["q"]] = self.tab["dq"]
+        return A
+
+    def stop_sum(self, nt, off=True):
+        """CTA 0's replay of the one-CTA kernel's sum for nt threads: thread
+        t's terms e = t, t + nt, … in order, each read from its row at the
+        row's round-0 position (the diagonal an exact 0: never read), then
+        the warp trees and the tree over the warps."""
+        npad, m, h = self.npad, self.m, self.h
+        parts = np.zeros(nt)
+        du, dv = divmod(nt, npad)
+        for t in range(nt):
+            u, v = divmod(t, npad)
+            for _ in range(t, npad * npad, nt):
+                slot = 0 if u == m else (u if u < h else m - u)
+                side = int(u == m or u >= h)
+                x = 0.0 if (off and u == v) else self.row(self.cur, slot,
+                                                           side)[v]
+                parts[t] = parts[t] + x * x
+                u, v = u + du, v + dv
+                if v >= npad:
+                    u, v = u + 1, v - npad
+        red = np.zeros(32)
+        red[:nt // 32] = warp_tree(parts.reshape(-1, 32))
+        return warp_tree(red)
+
+
+def vectors_from_log(log, n, npad, rounds):
+    """The vectors kernel: V's rows by slot, va (the index a_j) and vb
+    (b_j), from V = I; a round's `rotate_v` on (V[k][p], V[k][q]) of each
+    slot (a is q exactly when 1 ≤ j ≤ min(rd, m − 1 − rd)), then every
+    entry moved with its index. V in index order after `rounds` rounds."""
+    m, h = npad - 1, npad // 2
+    j = np.arange(h)
+    k = np.arange(n)[:, None]
+    va = (k == j[None, :]).astype(float)
+    vb = (k == np.where(j == 0, m, m - j)[None, :]).astype(float)
+    for g in range(rounds):
+        rd = g % m
+        c, s = log[g]
+        aq = (j >= 1) & (j <= min(rd, m - 1 - rd))
+        vp, vq = np.where(aq, vb, va), np.where(aq, va, vb)
+        np_, nq_ = c * vp - s * vq, s * vp + c * vq
+        va, vb = np.where(aq, nq_, np_), np.where(aq, np_, nq_)
+        na = np.concatenate([va[:, 1:], vb[:, h - 1:]], axis=1)
+        nb = np.concatenate([vb[:, :1], va[:, :1], vb[:, 1:h - 1]], axis=1)
+        va, vb = na, nb
+    rd = rounds % m
+    V = np.zeros((npad, npad))
+    V[:n, index_at(rd, j, 0, m)] = va
+    V[:n, index_at(rd, j, 1, m)] = vb
+    return V
+
+
+# around the one-CTA kernel's 96, a certificate at rank 31 (99), 48, 64
+# and 80 (150, 198, 246: routed to 2, 4 and 8 CTAs), and the odd 35 (a pad
+# index)
+CLUSTER_SIZES = (33, 35, 36, 96, 97, 99, 150, 198, 246)
+
+
+def cluster_sizes(n):
+    """The kernel's cluster size at n and every other that holds it."""
+    return [c for c in (1, 2, 4, 8) if se.cluster_fits(n, c)]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", CLUSTER_SIZES)
+def test_cluster_rounds_reproduce_blocks_bit_for_bit(n, dtype):
+    """A sweep and a round of the cluster family, at the kernel's cluster
+    size and the largest that holds n, against the one-CTA kernel's
+    blocks, round by round: A (the rows by position, the diagonal from the
+    table) and, from the log, V."""
+    M = corpus(n)["random"].astype(dtype).astype(np.float64)
+    A0, V0, _, npad = start(M)
+    rounds = npad  # a whole sweep and one round of the next
+    for C in sorted({se.cluster_size(n), cluster_sizes(n)[-1]}):
+        emu = Cluster(M, C)
+        A, V = A0.copy(), V0.copy()
+        crossed = 0
+        for g in range(rounds):
+            rd = g % (npad - 1)
+            A = round_blocks(A, V, n, rd)
+            emu.round(rd)
+            crossed += emu.crossed
+            assert same_bits(emu.natural((rd + 1) % (npad - 1)), A), (C, g)
+        assert crossed == 2 * (C - 1) * rounds  # two rows each boundary
+        Vc = vectors_from_log(emu.log, n, npad, rounds)
+        assert same_bits(Vc[:n], V[:n]), C
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [33, 99])
+def test_cluster_runs_to_the_blocks_result(n, dtype):
+    """The cluster family to convergence (stop tests by its replay) against
+    `jacobi` by blocks: the same sweeps, A and V bit for bit."""
+    M = corpus(n)["graded"].astype(dtype).astype(np.float64)
+    A, V, info = jacobi(M, rows=False)
+    emu = Cluster(M, se.cluster_size(n))
+    npad = emu.npad
+    nt = cta_threads(n)
+    norm2 = cta_sum((start(M)[0] ** 2).ravel(), nt)
+    sweeps = 0
+    while emu.stop_sum(nt) > EPS * EPS * norm2:
+        for rd in range(npad - 1):
+            emu.round(rd)
+        sweeps += 1
+    assert sweeps == info
+    assert same_bits(emu.natural(0), A)
+    Vc = vectors_from_log(emu.log, n, npad, sweeps * (npad - 1))
+    assert same_bits(Vc[:n], V[:n])
+
+
+@pytest.mark.parametrize("n", [33, 36, 97, 99, 150, 198, 246])
+def test_cluster_stop_sum_replays_cta_order(n):
+    """The stop test as the cluster family's CTA 0 takes it, over 1024
+    threads with many terms each past n = 45, reading rows by position:
+    the one-CTA kernel's sum of the same entries, bit for bit."""
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((n, n))
+    emu = Cluster(M + M.T, cluster_sizes(n)[-1])
+    nt = cta_threads(n)
+    npad = emu.npad
+    A = emu.natural(0)
+    off = ~np.eye(npad, dtype=bool)
+    assert emu.stop_sum(nt) == cta_sum(np.where(off, A * A, 0.0).ravel(), nt)
+    assert emu.stop_sum(nt, off=False) == cta_sum((A * A).ravel(), nt)
+    if n > 45:
+        assert nt == 1024 and npad * npad > 2 * nt
+
+
+@pytest.mark.parametrize("n", [32, 33, 116, 117, 164, 165, 232, 233, 246,
+                               320, 321, 456])
+def test_route_cluster_and_global_by_size(n):
+    """32 < n ≤ CLUSTER_MAX_N to the cluster family, past it to the global
+    kernel; the cluster size is the smallest power of two whose shared
+    memory holds A twice (and two pairs a CTA)."""
+    want = ("warp" if n <= se.WARP_MAX_N else
+            "cluster" if n <= se.CLUSTER_MAX_N else "global")
+    for dt in (torch.float32, torch.float64):
+        assert se.route(n, dt) == want
+    C = se.cluster_size(n)
+    if n > se.CLUSTER_MAX_N:
+        assert C == 0 and not any(se.cluster_fits(n, c) for c in range(1, 9))
+        return
+    assert C in (1, 2, 4, 8)
+    assert se.cluster_smem_bytes(n, C) <= se.CLUSTER_SMEM
+    assert C == 1 or not se.cluster_fits(n, C // 2)
+
+
+def test_cluster_sizes_at_the_boundaries():
+    assert [se.cluster_size(n) for n in (33, 99, 116, 117, 150, 164, 165,
+                                         232, 233, 246, 320, 321)] \
+        == [1, 1, 1, 2, 2, 2, 4, 4, 8, 8, 8, 0]
+    assert se.CLUSTER_MAX_N == max(n for n in range(1, 600)
+                                   if se.cluster_size(n))
+
+
+@pytest.mark.parametrize("n", [2, 321, 456])
+def test_forced_cluster_checks_its_size(n):
+    with pytest.raises(ValueError):
+        se.route(n, torch.float64, kernel="cluster")
+    assert se.route(3, torch.float64, kernel="cluster") == "cluster"
+    assert se.route(320, torch.float32, kernel="cluster") == "cluster"
