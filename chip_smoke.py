@@ -10,8 +10,11 @@ raises and the script exits non-zero:
      CUDA versions, the build of the CUDA kernels from `ops/csrc/`
      (`tnt_kernels.cu` and `small_eigh.cu`) and, in parallel, of
      `scripts/probe_cluster_sync.cu`; the probe's barrier
-     costs (`__syncthreads`, `cluster.sync()` at 2-16 CTAs, `grid.sync()`)
-     and L2 read rates, and the cluster size C of the kernels;
+     costs (`__syncthreads`, `cluster.sync()` at 2-16 CTAs, at 16 CTAs of
+     small_eigh's shared memory too, `grid.sync()` and the counter barrier
+     of `small_eigh_grid` at its CTA counts, each also captured in a CUDA
+     graph and replayed) and L2 read rates, and the cluster size C of the
+     kernels;
   2. kernels — each of `step`, `tcg`, `chunk` and `ladder` against its
      plain PyTorch version on the card, on the plaza2-shaped graph (2D,
      ranks 4 and 6) and the single_drone-shaped graph (3D, rank 5), with
@@ -35,9 +38,11 @@ raises and the script exits non-zero:
      K's and its scalars to the cluster `step`'s, and each kernel and its
      plain version timed (median of 3) beside its bound.
      `small_eigh` (LOBPCG's Rayleigh–Ritz eigensolver: the one-warp
-     kernel for n ≤ 32, the cluster family `small_eigh_cluster` to 320,
+     kernel for n ≤ 32, the cluster family `small_eigh_cluster` to 448 on
+     1-16 CTAs, the grid `small_eigh_grid` to 1056 on co-resident CTAs,
      the global kernel `small_eigh_global` above; the one-CTA kernel
-     `small_eigh_cta`, n ≤ 96, their comparator) against
+     `small_eigh_cta`, n ≤ 96, and the global kernel past it, their
+     comparators) against
      its plain twin on random symmetric 30 × 30 and 36 × 36 matrices in
      float32 and float64 and on the graded matrices of
      `scripts/small_eigh_cases.py` at n = 10 and 30 (eigenvalues to 1e-5 /
@@ -49,13 +54,16 @@ raises and the script exits non-zero:
      one-CTA) beside the twin and `torch.linalg.eigh`; the cluster family
      and the global kernel bit for bit against the one-CTA kernel at n =
      36 and 96 (forced), the cluster family against the global kernel at
-     n = 99, 150, 198 and 246 (1, 2, 4 and 8 CTAs) in float32 and float64
-     and against the twin in float64 (1e-12), its float32 eigenvalues
-     against float64 eigh; the cluster family timed in turns with its
-     comparator (cluster, old, old, cluster) at n = 36 (the one-CTA
-     kernel), 99 and 246 (the global kernel), each beside its bound, with
-     its cluster size; the global route past 320 at n = 324 (rank 106)
-     against the twin, timed beside it and `torch.linalg.eigh`;
+     n = 99, 150, 198, 246 (1, 2, 4 and 8 CTAs), 321, 384 and 448 (16
+     CTAs), and the grid at 449 (a batch of two), 516, 768 and 1056, in
+     float32 and float64 and against the twin in float64 (1e-12), their
+     float32 eigenvalues against float64 eigh; the cluster family and the
+     grid timed in turns with their comparator (new, old, old, new) at n =
+     36 (the one-CTA kernel), 99, 246, 324, 448 and 516 (the global
+     kernel; median of 3 past 320), each beside its bound, with its CTA
+     count, and at 1056 one timed call of each; the global route past
+     1056 at n = 1062 (rank 352) against the twin, one timed call beside
+     it and `torch.linalg.eigh`;
   3. slice — `solve_cora` on both graphs with bench.py's configuration and
      the kernels, from the numpy-seeded start, and on the plaza2-shaped
      graph from rank d (the run that takes a saddle escape), each gated
@@ -81,11 +89,14 @@ raises and the script exits non-zero:
      kernels, from the fixture's numpy start at that rank, gated as phase
      3 against the fixture's plaza2-shaped run (the certified optimum does
      not depend on the start rank); a failed certificate at a random
-     point at rank 10 (Rayleigh–Ritz n = 36), at rank 31 (n = 99) and at
-     rank 106 (n = 324), whose LOBPCG must run as replayed graphs through
-     `small_eigh_cluster` (`small_eigh_global` for rank 106's 3k = 324,
-     past the cluster family's n = 320), the k × k matrices through their
-     own route, and no other route; the visualize CLI's solve half
+     point at rank 10 (Rayleigh–Ritz n = 36), at rank 31 (n = 99), at rank
+     106 (n = 324, 16 CTAs) and at rank 150 (n = 456), whose LOBPCG must
+     run as replayed graphs through `small_eigh_cluster`
+     (`small_eigh_grid` for rank 150's 3k = 456), the k × k matrices
+     through their own route, and no other route; the rank-150
+     certificate again with its 3k × 3k matrices forced to the global
+     kernel, which must reach the same verdict and θ; the visualize CLI's
+     solve half
      (`cora_tpu_torch.visualize.solve`) on a one-robot chain written as
      PyFG, in float32 on the chain kernels and with `--animate` (float64,
      iterates logged, the canonical path), both certified and within 1 %
@@ -167,21 +178,23 @@ solves and read just after them; the main path must launch the cluster
 `chunk`, `step` and `ladder` and `small_eigh` (its failed certificates),
 and never a comparator (`small_eigh_cluster` only for a routed n > 32,
 that is a certificate at rank 9 or more). The certificate path of phase
-3b must launch `small_eigh_cluster`. The line before the last is one JSON
-object with the route, source, launches, error, times and bound of each
-kernel the paths launch (`chunk`, `step`, `ladder`, `small_eigh` from
-phase 3, `small_eigh_cluster` from phase 3b, with the chain kernels'
-times and bounds past rank 10 under `by_rank` and the cluster family's at
-n = 36, 99 and 246 under `by_n`; `tcg`, whose loop runs inside `chunk`,
-and small_eigh's one-CTA and global kernels, the cluster family's
-comparators, get a line of their own). A
+3b must launch `small_eigh_cluster` and `small_eigh_grid`. The line
+before the last is one JSON object with the route, source, launches,
+error, times and bound of each kernel the paths launch (`chunk`, `step`,
+`ladder`, `small_eigh` from phase 3, `small_eigh_cluster` and
+`small_eigh_grid` from phase 3b, with the chain kernels' times and bounds
+past rank 10 under `by_rank` and the cluster family's and the grid's by n
+under `by_n`; `tcg`, whose loop runs inside `chunk`, and small_eigh's
+one-CTA and global kernels, the comparators, get a line of their own). A
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s, and its
 dependent group-barrier phases (`tnt_kernels.work_counts`) times the
 C-CTA cluster barrier the probe measured in this run (`small_eigh`: its
 sweeps × (n − 1) rounds times the barrier it waits on each round, the
 probe's `__syncthreads` or, for the cluster family on C > 1 CTAs, its
-C-CTA `cluster.sync`, its FLOPs at the float64 peak, 34 TFLOP/s); the
+C-CTA `cluster.sync`, for the grid its counter barrier at the probe's
+largest measured CTA count not above G, its FLOPs at the float64 peak,
+34 TFLOP/s); the
 last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
@@ -208,11 +221,12 @@ REPLACES = {
     # in routes by n (small_eigh.route), and the one-CTA comparator
     "small_eigh": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_cluster": "cora_tpu/ops/lobpcg.py:61",
+    "small_eigh_grid": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_cta": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_global": "cora_tpu/ops/lobpcg.py:61",
 }
-EIGH_KEYS = ("small_eigh", "small_eigh_cluster", "small_eigh_cta",
-             "small_eigh_global")
+EIGH_KEYS = ("small_eigh", "small_eigh_cluster", "small_eigh_grid",
+             "small_eigh_cta", "small_eigh_global")
 # the CPU tests' tolerances (tests/test_torch_kernels_plain.py)
 TOL_STATE, TOL_F, TOL_GN, TOL_PGN = 2e-5, 1e-4, 1e-4, 1e-3
 TOL_MDEC = TOL_SNORM = 2e-2
@@ -229,13 +243,18 @@ LADDER_SWEEP = (1, 2, 3, 4, 6, 7, 8)
 PATH_KERNELS = ("chunk", "step", "ladder", "small_eigh")
 # the kernels of the certificate path past the main path's ranks (phase
 # 3b): the 3k × 3k Rayleigh–Ritz matrices of a certificate at rank 10 (n =
-# 36) and at rank 31 (n = 99), both the cluster family's (one CTA), and at
-# rank 106 (n = 324), past the cluster family's n = 320: the global
-# kernel's (its k × k ones, n = 108, the cluster family's)
+# 36) and at rank 31 (n = 99), both the cluster family's (one CTA), at
+# rank 106 (n = 324: 16 CTAs) and at rank 150 (n = 456): the grid's (the
+# k × k ones, n = 108 and 152, the cluster family's)
 CERT_RANKS = (("small_eigh_cluster", 10), ("small_eigh_cluster", 31),
-              ("small_eigh_global", 106))
-# small_eigh's comparator, which no path launches (the one-CTA kernel)
-EIGH_COMPARATORS = ("small_eigh_cta",)
+              ("small_eigh_cluster", 106), ("small_eigh_grid", 150))
+# the certificate held to the global route's verdict and θ (its 3k × 3k
+# matrices forced to `small_eigh_global`): θ within the float32 eigenvalue
+# tolerance of the kernels' check, relative to |θ|
+CERT_AGAINST_GLOBAL, CERT_THETA_TOL = 150, 1e-5
+# small_eigh's comparators, which no path launches (the one-CTA kernel;
+# the global kernel, the route only past n = 1056)
+EIGH_COMPARATORS = ("small_eigh_cta", "small_eigh_global")
 # small_eigh against its plain twin: eigenvalues relative to the largest
 # (the float32 / float64 eigh's accuracy), ‖VᵀV − I‖ and ‖AV − VΛ‖ / ‖Λ‖
 # (n·ε with room for the Jacobi rotations' rounding)
@@ -262,15 +281,22 @@ HIGH_REPS = 3
 # small_eigh's cluster family bit for bit against the one-CTA kernel at
 # n ≤ 96 and the global kernel past it (and the global kernel against the
 # one-CTA kernel where both run), in float32 and float64, at an n of each
-# cluster size the route picks (99: 1 CTA, 150: 2, 198: 4, 246: 8); against
-# its twin in float64, as the JAX package's eigh computes, past 96; timed
-# in turns with its comparator at the certificates' n = 36 (rank 10) and
-# 99 (rank 31) and at rank 80's 246; the global route past n = 320 (rank
-# 105) checked and timed at rank 106's 324
+# cluster size the route picks (99: 1 CTA, 150: 2, 198: 4, 246: 8, 321,
+# 384 and 448: 16), and the grid at 449 (113 CTAs, the last of one pair),
+# 516 (129), 768 (128) and 1056 (132); against the twin in float64, as the
+# JAX package's eigh computes, past 96 (two matrices a call to 320 and at
+# 449, the grid's batch; one past); timed in turns with the comparator at
+# the certificates' n = 36 (rank 10), 99 (rank 31), 324 (rank 106), 516
+# (rank 170) and at 246 and 448 (median of EIGH_FEW_REPS past 320), and at
+# 1056 one timed call each; the global route past n = 1056 checked and
+# timed once at rank 352's 1062
 EIGH_FORCED = (36, 96)
-EIGH_GLOBAL = (99, 150, 198, 246)
-EIGH_TIMED = (36, 99, 246)
-EIGH_PAST = 324
+EIGH_GLOBAL = (99, 150, 198, 246, 321, 384, 448, 449, 516, 768, 1056)
+EIGH_BATCH2 = 449
+EIGH_TIMED = (36, 99, 246, 324, 448, 516)
+EIGH_FEW_REPS = 3
+EIGH_ONCE = 1056
+EIGH_PAST = 1062
 # phase 3b: the plaza2-shaped staircase from rank 11 (init_rank_jump 9)
 # with max_rank 12 on the kernels; a staircase from rank 10 that escapes
 # to rank 11 on the kernels (a chain whose relaxation's optimum has rank
@@ -433,6 +459,20 @@ def phase_device():
           " us; L2 read " + ", ".join(
               f"{b} SMs {v:.1f} GB/s" for b, v in res["l2_read_GBps"].items()),
           flush=True)
+    print("[device] probe: cluster.sync, 16 CTAs of small_eigh's shared "
+          f"memory {res['cluster_sync_smem_us']['16']:.4f} us "
+          f"({res['cluster_smem_fit']['16']} fit); grid barriers "
+          "(cooperative launch, one CTA per SM; captured and replayed): "
+          + "; ".join(f"{kind} " + ", ".join(
+              f"{g} CTAs {us:.4f} us ({res['grid_barrier_captured'][kind][g]})"
+              for g, us in v.items())
+              for kind, v in res["grid_barrier_us"].items()), flush=True)
+    check(res["cluster_smem_fit"]["16"] >= 1, "no 16-CTA cluster of "
+          "small_eigh's shared memory fits on the card")
+    check(all(ok == "ok" for v in res["grid_barrier_captured"].values()
+              for ok in v.values()),
+          f"a cooperative launch did not capture and replay: "
+          f"{res['grid_barrier_captured']}")
     print(f"[device] chunk, tcg, step: one cluster of C = {C} CTAs of 1024 "
           "threads; ladder: several such clusters", flush=True)
     check(res["max_active_clusters"][str(C)] >= 1,
@@ -850,7 +890,7 @@ def check_small_eigh(A, stats, what):
     which = route(n, A.dtype)
     w, V, info = small_eigh(A)
     wp, Vp, _ = small_eigh_plain(A)
-    if which in ("warp", "cluster"):
+    if which in ("warp", "cluster", "grid"):
         # the routed kernel against its comparator (the one-CTA kernel to
         # n = 96, the global one past it), bit for bit; the comparator
         # against the twin as the routed one is below
@@ -916,19 +956,21 @@ def phase_small_eigh(stats, probe):
     at 3.35 TB/s, its FLOPs at the float64 peak and its dependent rounds
     (sweeps × (n − 1)) times the barrier it waits on each round (the
     `__syncthreads` the probe measured in this run, or its `cluster.sync`
-    at the kernel's cluster size). The cluster family: bit for bit against
-    the one-CTA kernel at n = 36 and 96 (the global kernel too) and
-    against the global kernel at n = 99, 150, 198 and 246, in float32 and
-    float64, against the twin in float64 past 96, its float32 eigenvalues
-    against float64 eigh; timed in turns with its comparator (cluster,
-    old, old, cluster) at n = 36, 99 and 246; the global route past n =
-    320 checked and timed at 324, rank 106's Rayleigh–Ritz size."""
+    at the kernel's cluster size, or the grid's counter barrier). The
+    cluster family: bit for bit against the one-CTA kernel at n = 36 and
+    96 (the grid and the global kernel too) and, with the grid, against
+    the global kernel at EIGH_GLOBAL (1-16 CTAs; the grid at 449-1056), in
+    float32 and float64, against the twin in float64 past 96, the float32
+    eigenvalues against float64 eigh; timed in turns with the comparator
+    (new, old, old, new) at EIGH_TIMED, one call each at EIGH_ONCE; the
+    global route past n = 1056 checked and timed once at EIGH_PAST, rank
+    352's Rayleigh–Ritz size."""
     import numpy as np
     import torch
     from small_eigh_cases import bits_equal, corpus
 
-    from cora_tpu_torch.ops.small_eigh import KEYS, MAX_N, cluster_size, \
-        route, small_eigh, small_eigh_plain
+    from cora_tpu_torch.ops.small_eigh import KEYS, MAX_N, route, \
+        small_eigh, small_eigh_plain
 
     rng = np.random.default_rng(11)
     for n, dt in EIGH_CASES:
@@ -965,94 +1007,112 @@ def phase_small_eigh(stats, probe):
             A = torch.as_tensor(np.stack([corpus(n, s)["graded"]
                                           for s in range(4)])).to("cuda", dt)
             check_small_eigh(A, stats, "graded")
-    # the cluster family and the global kernel, forced, against the
-    # one-CTA kernel where all three run
+    # the cluster family, the grid (on two CTAs) and the global kernel,
+    # forced, against the one-CTA kernel where all four run
     for n in EIGH_FORCED:
         for dt in (torch.float32, torch.float64):
             M = rng.standard_normal((4, n, n))
             A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda", dt)
             cta = small_eigh(A, kernel="cta")
-            for k in ("cluster", "global"):
+            for k in ("cluster", "grid", "global"):
                 same = bits_equal(small_eigh(A, kernel=k), cta)
                 print(f"[kernels] small_eigh n = {n} {dt}: {KEYS[k]} and "
                       f"small_eigh_cta bit for bit: {same}", flush=True)
                 check(same, f"small_eigh n = {n}: {KEYS[k]} left the "
                       "one-CTA kernel's bits")
-    # past it, the routed cluster family against the global kernel (in
-    # check_small_eigh, float64, and here, float32) and against the twin in
-    # float64; float32 inputs against float64 eigh of the same matrices
+    # past it, the routed cluster family and grid against the global kernel
+    # (in check_small_eigh, float64, and here, float32) and against the
+    # twin in float64; float32 inputs against float64 eigh of the same
+    # matrices
     for n in EIGH_GLOBAL:
-        M = rng.standard_normal((2, n, n))
+        batch = 2 if n <= 320 or n == EIGH_BATCH2 else 1
+        M = rng.standard_normal((batch, n, n))
         A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda")
         check_small_eigh(A, stats, "random")
         A32 = A.float()
         r32 = small_eigh(A32)
+        which = KEYS[route(n, torch.float32)]
         same = bits_equal(r32, small_eigh(A32, kernel="global"))
-        print(f"[kernels] small_eigh n = {n} float32: small_eigh_cluster "
-              f"(C = {cluster_size(n)}) and small_eigh_global bit for bit: "
-              f"{same}, sweeps {r32[2].tolist()}", flush=True)
-        check(same, f"small_eigh n = {n} float32: the cluster family left "
-              "the global kernel's bits")
+        print(f"[kernels] small_eigh n = {n} float32: {which} ({ctas(n)} "
+              f"CTAs) and small_eigh_global bit for bit: {same}, sweeps "
+              f"{r32[2].tolist()}", flush=True)
+        check(same, f"small_eigh n = {n} float32: {which} left the global "
+              "kernel's bits")
         w64 = torch.linalg.eigh(A32.double())[0]
         e32 = float(((r32[0].double() - w64).abs().amax(-1)
                      / w64.abs().amax(-1)).max())
-        check(e32 <= EIGH_TOL["float32"], f"small_eigh_cluster n = {n} "
-              f"float32: eigenvalues {e32:.3e} off float64 eigh")
-    # the cluster family against its comparator in turns, float32
-    for n in EIGH_TIMED:
+        check(e32 <= EIGH_TOL["float32"], f"{which} n = {n} float32: "
+              f"eigenvalues {e32:.3e} off float64 eigh")
+    stats["small_eigh_cluster"]["group"] = (
+        "a cluster of C = 1-16 CTAs per matrix (C by n), rows of A by "
+        "circle-method position, a look-ahead warp; then V from the rotation "
+        "log, a warp per row")
+    stats["small_eigh_grid"]["group"] = (
+        "G co-resident CTAs per matrix (a cooperative launch, G by n), the "
+        "cluster family's rounds with the boundary rows and the round table "
+        "through L2 and a counter barrier; then V from the log")
+    stats["small_eigh_cta"]["group"] = ("one CTA per matrix, a thread per "
+                                        "2 × 2 block")
+    stats["small_eigh_global"]["group"] = (
+        "one CTA of up to 1024 threads per matrix, A and V in a global "
+        "workspace")
+    # the routes against their comparator in turns (new, old, old, new),
+    # float32, and at EIGH_ONCE one timed call of each
+    for n in EIGH_TIMED + (EIGH_ONCE,):
         M = rng.standard_normal((n, n))
         A1 = torch.as_tensor(M + M.T).to("cuda", torch.float32)
+        new = route(n, torch.float32)
         old = "cta" if n <= MAX_N else "global"
-        reps = REPS if n <= MAX_N else 5
-        t = [median_ms(lambda: small_eigh(A1, kernel=k), torch, reps=reps)
-             for k in ("cluster", old, old, "cluster")]
+        if n == EIGH_ONCE:
+            t = [once_ms(lambda: small_eigh(A1, kernel=k), torch)
+                 for k in (new, old)]
+            t = [t[0], t[1], t[1], t[0]]
+            reps = 1
+        else:
+            reps = REPS if n <= MAX_N else 5 if n <= 320 else EIGH_FEW_REPS
+            t = [median_ms(lambda: small_eigh(A1, kernel=k), torch,
+                           reps=reps) for k in (new, old, old, new)]
         ms, old_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         sweeps = small_eigh(A1)[2].item()
-        plain_ms = median_ms(lambda: small_eigh_plain(A1), torch, reps=reps)
-        lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch, reps=reps)
-        C = cluster_size(n)
+        timer = once_ms if n == EIGH_ONCE else (
+            lambda fn, torch: median_ms(fn, torch, reps=reps))
+        plain_ms = timer(lambda: small_eigh_plain(A1), torch)
+        lib_ms = timer(lambda: torch.linalg.eigh(A1), torch)
         common = dict(plain_ms=plain_ms, library_ms=lib_ms, n=n)
-        for key, k_ms, k_c in (("small_eigh_cluster", ms, C),
-                               (KEYS[old], old_ms, 1)):
-            work, terms, term = eigh_bound(n, sweeps, 4, probe, k_c)
+        for key, k_ms, k_route in ((KEYS[new], ms, new),
+                                   (KEYS[old], old_ms, old)):
+            work, terms, term = eigh_bound(n, sweeps, 4, probe, k_route)
             entry = dict(common, ms=k_ms, bound_ms=terms[term],
                          bound_by="bytes" if term == "bytes" else
                          "operations", bound_term=term, work=work,
-                         turns_ms=t)
-            if key == "small_eigh_cluster":
-                entry.update(clusters=C, block_ms=old_ms,
+                         turns_ms=t, sweeps=sweeps)
+            if k_route == new:
+                entry.update(ctas=ctas(n), block_ms=old_ms,
                              comparator=KEYS[old])
             st = stats[key]
             st.setdefault("by_n", {})[n] = entry
-            # the certificate path's n = 99 (rank 31) heads the cluster
-            # family's line, n = 36 the one-CTA kernel's (the global
-            # kernel's: its route's n, below)
-            if (key == "small_eigh_cluster" and n == 99) or \
-                    key == "small_eigh_cta":
+            # the certificate path's n heads each line: 99 (rank 31) the
+            # cluster family's, 516 (rank 170) the grid's, 36 the one-CTA
+            # kernel's, 324 (rank 106) the global kernel's, the comparator
+            # there
+            if (key, n) in (("small_eigh_cluster", 99), ("small_eigh_grid", 516),
+                            ("small_eigh_cta", 36), ("small_eigh_global", 324)):
                 st.update(entry)
-        st = stats["small_eigh_cluster"]
-        st["group"] = ("a cluster of C CTAs per matrix (C by n), rows of A "
-                       "by circle-method position, a look-ahead warp; then V "
-                       "from the rotation log, a warp per row")
-        stats["small_eigh_cta"]["group"] = ("one CTA per matrix, a thread "
-                                            "per 2 × 2 block")
-        stats["small_eigh_global"]["group"] = (
-            "one CTA of up to 1024 threads per matrix, A and V in a global "
-            "workspace")
-        b = st["by_n"][n]
-        print(f"[kernels] small_eigh_cluster n = {n} float32 (C = {C}): "
-              f"{ms:.4f} ms against {KEYS[old]}'s {old_ms:.4f} ms (in turns "
-              "cluster, old, old, cluster: " + ", ".join(f"{x:.4f}" for x in t)
-              + f" ms; plain twin {plain_ms:.4f} ms, torch.linalg.eigh "
+        b = stats[KEYS[new]]["by_n"][n]
+        print(f"[kernels] {KEYS[new]} n = {n} float32 ({ctas(n)} CTAs, "
+              f"{sweeps} sweeps): {ms:.4f} ms against {KEYS[old]}'s "
+              f"{old_ms:.4f} ms ("
+              + ("one call each" if n == EIGH_ONCE else
+                 f"median of {reps}, in turns new, old, old, new: "
+                 + ", ".join(f"{x:.4f}" for x in t) + " ms")
+              + f"; plain twin {plain_ms:.4f} ms, torch.linalg.eigh "
               f"{lib_ms:.4f} ms); bound {b['bound_ms']:.4f} ms by "
               f"{b['bound_term']} ({sweeps} sweeps × {n + n % 2 - 1} rounds × "
-              f"the {'__syncthreads' if C == 1 else f'{C}-CTA cluster.sync'} "
-              "of this run)", flush=True)
+              f"the {barrier_name(n, new, probe)} of this run)", flush=True)
 
-    # the global route past the cluster family's largest n, at the
-    # certificate path's n there (rank 106): checked, and timed (float32)
-    # beside the twin and torch.linalg.eigh; it heads the global kernel's
-    # line
+    # the global route past the grid's largest n, at the certificate path's
+    # n there (rank 352): checked, and one call timed (float32) beside the
+    # twin and torch.linalg.eigh
     n = EIGH_PAST
     check(route(n, torch.float64) == "global",
           f"small_eigh n = {n}: routed {route(n, torch.float64)}")
@@ -1060,34 +1120,82 @@ def phase_small_eigh(stats, probe):
     A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda")
     check_small_eigh(A, stats, "random (the global route)")
     A1 = A[0].float()
-    sweeps = small_eigh(A1)[2].item()
-    ms = median_ms(lambda: small_eigh(A1), torch, reps=3)
-    plain_ms = median_ms(lambda: small_eigh_plain(A1), torch, reps=3)
-    lib_ms = median_ms(lambda: torch.linalg.eigh(A1), torch, reps=3)
-    work, terms, term = eigh_bound(n, sweeps, 4, probe)
+    out = []
+    ms = once_ms(lambda: out.append(small_eigh(A1)), torch)
+    sweeps = out[0][2].item()
+    plain_ms = once_ms(lambda: small_eigh_plain(A1), torch)
+    lib_ms = once_ms(lambda: torch.linalg.eigh(A1), torch)
+    work, terms, term = eigh_bound(n, sweeps, 4, probe, "global")
     entry = dict(n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                  bound_ms=terms[term], bound_by="bytes" if term == "bytes"
-                 else "operations", bound_term=term, work=work)
-    st = stats["small_eigh_global"]
-    st.setdefault("by_n", {})[n] = entry
-    st.update(entry)
+                 else "operations", bound_term=term, work=work, sweeps=sweeps)
+    stats["small_eigh_global"].setdefault("by_n", {})[n] = entry
     print(f"[kernels] small_eigh_global n = {n} float32 (the route): "
-          f"{ms:.4f} ms (plain twin {plain_ms:.4f} ms, torch.linalg.eigh "
-          f"{lib_ms:.4f} ms); bound {terms[term]:.4f} ms by {term} "
-          f"({sweeps} sweeps × {n + n % 2 - 1} rounds × the __syncthreads "
-          "of this run)", flush=True)
+          f"{ms:.4f} ms, one call (plain twin {plain_ms:.4f} ms, "
+          f"torch.linalg.eigh {lib_ms:.4f} ms); bound {terms[term]:.4f} ms "
+          f"by {term} ({sweeps} sweeps × {n + n % 2 - 1} rounds × the "
+          "__syncthreads of this run)", flush=True)
 
-def eigh_bound(n, sweeps, itemsize, probe, clusters=1):
-    """small_eigh's work at n × n over `sweeps` sweeps and its bound
-    terms (ms): the input read and w, V written once at 3.35 TB/s, the
-    FLOPs at the float64 peak, and the dependent rounds (sweeps × (n − 1))
-    times the barrier a round waits on, measured by the probe in this run:
-    `__syncthreads` in one CTA, `cluster.sync` over `clusters` CTAs.
+
+def ctas(n):
+    """The CTAs of small_eigh's cluster family or grid at n."""
+    from cora_tpu_torch.ops.small_eigh import cluster_size, grid_size
+
+    return cluster_size(n) or grid_size(n)
+
+
+def once_ms(fn, torch):
+    """One call's device time (CUDA events), after the inputs are ready."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def grid_barrier_us(probe, G):
+    """The counter barrier the probe measured at the largest CTA count not
+    above G (the barrier's cost grows with the CTAs: a lower bound)."""
+    meas = probe["grid_barrier_us"]["counter"]
+    return meas[str(max(int(g) for g in meas if int(g) <= G))]
+
+
+def barrier_name(n, which, probe):
+    """The barrier a round of route `which` waits on at n, as named in the
+    bound."""
+    if which == "grid":
+        from cora_tpu_torch.ops.small_eigh import grid_size
+
+        G = grid_size(n)
+        at = max(int(g) for g in probe["grid_barrier_us"]["counter"]
+                 if int(g) <= G)
+        return f"counter barrier at {at} CTAs ({G} run)"
+    C = ctas(n) if which == "cluster" else 1
+    return "__syncthreads" if C == 1 else f"{C}-CTA cluster.sync"
+
+
+def eigh_bound(n, sweeps, itemsize, probe, which="warp"):
+    """small_eigh's work at n × n over `sweeps` sweeps on route `which` and
+    its bound terms (ms): the input read and w, V written once at 3.35
+    TB/s, the FLOPs at the float64 peak, and the dependent rounds (sweeps ×
+    (n − 1)) times the barrier a round waits on, measured by the probe in
+    this run: `__syncthreads` in one CTA (the one-warp, one-CTA and global
+    kernels, the cluster family at C = 1), `cluster.sync` over the cluster
+    family's C CTAs, the grid's counter barrier (`grid_barrier_us`).
     (work, terms, the largest term)."""
     npad, h = n + n % 2, (n + n % 2) // 2
     rounds = sweeps * (npad - 1)
-    barrier_us = (probe["syncthreads_us"] if clusters == 1 else
-                  probe["cluster_sync_us"][str(clusters)])
+    if which == "grid":
+        from cora_tpu_torch.ops.small_eigh import grid_size
+
+        barrier_us = grid_barrier_us(probe, grid_size(n))
+    else:
+        C = ctas(n) if which == "cluster" else 1
+        barrier_us = (probe["syncthreads_us"] if C == 1 else
+                      probe["cluster_sync_us"][str(C)])
     work = dict(bytes=itemsize * (2 * n * n + n),
                 flops=rounds * (12 * h * (h + 1) + 6 * n * h + 15 * h)
                 + (sweeps + 1) * 2 * npad * npad,
@@ -1487,15 +1595,15 @@ def phase_slice(problems, reference):
     top = max(max(res.ranks_visited) for res, *_ in results.values())
     print(f"[slice] small_eigh: one-warp kernel {launches['small_eigh']} "
           f"launches, cluster family {launches['small_eigh_cluster']} "
-          f"(highest rank {top}: n = 3k ≤ {3 * max(10, top + 2)}), "
-          f"global kernel {launches['small_eigh_global']}, comparator "
+          f"(highest rank {top}: n = 3k ≤ {3 * max(10, top + 2)}), grid "
+          f"{launches['small_eigh_grid']}, comparators "
           f"{[launches[k] for k in EIGH_COMPARATORS]}", flush=True)
     check(top >= 9 or not launches["small_eigh_cluster"],
           f"the cluster small_eigh ran on the main path at n ≤ 32: {launches}")
     check(not any(launches[k] for k in EIGH_COMPARATORS
-                  + ("small_eigh_global",)),
-          f"a small_eigh comparator or the global route (n > 320) ran on "
-          f"the main path: {launches}")
+                  + ("small_eigh_grid",)),
+          f"a small_eigh comparator or the grid (n > 448) ran on the main "
+          f"path: {launches}")
     for name in bench:
         res, wall, ate, levels = solve_once(
             problems[name], config(name, "never"), starts[name])
@@ -1521,10 +1629,12 @@ def phase_ranks(problems, reference):
     `ladder`) runs past rank 10 on the kernels, gated against the chain
     plain path's solve (`use_kernels="never"`) of the same graph from the
     same start; a failed
-    certificate at rank 10, 31 and 106 (`method="auto"` at a random
+    certificate at rank 10, 31, 106 and 150 (`method="auto"` at a random
     point), whose LOBPCG must run as replayed graphs through the routes of
     its 3k × 3k and k × k Rayleigh–Ritz matrices alone: the cluster
-    small_eigh, and at rank 106 (n = 324 > 320) the global kernel; the visualize CLI's solve half, still and
+    small_eigh (16 CTAs at rank 106's n = 324), and at rank 150 (n = 456)
+    the grid, whose certificate is run again with those matrices on the
+    global kernel and must reach its verdict and θ; the visualize CLI's solve half, still and
     `--animate`, as the CLI runs it (float64, so the canonical path), on a
     one-robot chain written as PyFG, the drawing where matplotlib imports.
     Returns the certificate path's launches per small_eigh route."""
@@ -1539,7 +1649,7 @@ def phase_ranks(problems, reference):
     from cora_tpu_torch.ops import lobpcg, small_eigh, tnt_kernels
     from cora_tpu_torch.ops.riemannian import random_initial_guess
     from cora_tpu_torch.solve import staircase
-    from cora_tpu_torch.utils.graphs import device_loop
+    from cora_tpu_torch.utils.graphs import clear_graphs, device_loop
 
     def kernel_run(tag, problem, cfg, x0):
         tnt_kernels.reset_launch_counts()
@@ -1620,6 +1730,17 @@ def phase_ranks(problems, reference):
 
     pd = problems[name].device_data(np.float32, "cuda")
     cert_launches = {}
+
+    def certify_at(r, Y):
+        small_eigh.reset_launch_counts()
+        lobpcg.reset_loop_stats()
+        t0 = time.time()
+        with device_loop(graphs=True):
+            cert = staircase._certify_with_retry(
+                problems[name], pd, Y.cpu().numpy(), 1e-5, cfg.cert, None)
+        torch.cuda.synchronize()
+        return cert, time.time() - t0, dict(lobpcg.LOOP_STATS)
+
     for key, r in CERT_RANKS:
         Y = random_initial_guess(pd, r, torch.Generator().manual_seed(300 + r))
         # LOBPCG's Rayleigh–Ritz matrices: 3k × 3k (the route `key` names)
@@ -1629,14 +1750,7 @@ def phase_ranks(problems, reference):
                   for m in (3 * k, k)}
         check(routes[3 * k] == key, f"rank {r}: n = {3 * k} routes to "
               f"{routes[3 * k]}, not {key}")
-        small_eigh.reset_launch_counts()
-        lobpcg.reset_loop_stats()
-        t0 = time.time()
-        with device_loop(graphs=True):
-            cert = staircase._certify_with_retry(
-                problems[name], pd, Y.cpu().numpy(), 1e-5, cfg.cert, None)
-        torch.cuda.synchronize()
-        lp = dict(lobpcg.LOOP_STATS)
+        cert, took, lp = certify_at(r, Y)
         # the routes past n = 32 (the one-warp kernel's count is the main
         # path's)
         for used in set(routes.values()) - {"small_eigh"}:
@@ -1644,7 +1758,7 @@ def phase_ranks(problems, reference):
                 + small_eigh.LAUNCHES[used]
         print(f"[ranks] certificate at rank {r} (a random point): certified "
               f"{cert.is_certified} theta {cert.theta:.4e}, {cert.num_iters}"
-              f" LOBPCG iterations, {time.time() - t0:.3f} s; Rayleigh–Ritz "
+              f" LOBPCG iterations, {took:.3f} s; Rayleigh–Ritz "
               + ", ".join(f"n = {m} → {v}" for m, v in routes.items())
               + f"; LOBPCG {lp['captures']} captures, {lp['replays']} "
               f"replays, {lp['eager_calls']} eager calls; small_eigh "
@@ -1659,6 +1773,34 @@ def phase_ranks(problems, reference):
               f"rank {r} certificate's LOBPCG not replayed through "
               f"{sorted(set(routes.values()))} alone: {lp}, "
               f"{small_eigh.LAUNCHES}")
+        if r != CERT_AGAINST_GLOBAL:
+            continue
+        # the same certificate with its 3k × 3k matrices on the global
+        # kernel (a fresh capture: the kept loop replays the grid)
+        real = lobpcg.small_eigh
+        lobpcg.small_eigh = lambda A: real(
+            A, kernel="global" if A.shape[-1] == 3 * k else None)
+        clear_graphs("certificate")
+        try:
+            ref, ref_took, ref_lp = certify_at(r, Y)
+        finally:
+            lobpcg.small_eigh = real
+            clear_graphs("certificate")
+        gap = abs(cert.theta - ref.theta) / max(abs(ref.theta), 1e-30)
+        print(f"[ranks] certificate at rank {r}, {3 * k} × {3 * k} on "
+              f"small_eigh_global: certified {ref.is_certified} theta "
+              f"{ref.theta:.4e} ({ref.num_iters} LOBPCG iterations, "
+              f"{ref_took:.3f} s; launches {json.dumps(small_eigh.LAUNCHES)}"
+              f"); against {key}: same verdict "
+              f"{ref.is_certified == cert.is_certified}, theta rel {gap:.3e}"
+              f" (bit-equal {ref.theta == cert.theta}), {took:.3f} s "
+              f"against {ref_took:.3f} s", flush=True)
+        check(ref.is_certified == cert.is_certified and gap <= CERT_THETA_TOL
+              and small_eigh.LAUNCHES["small_eigh_global"] > 0
+              and ref_lp["replays"] > 0 and not ref_lp["eager_calls"],
+              f"rank {r}: {key}'s certificate ({cert.is_certified}, "
+              f"{cert.theta}) against the global route's "
+              f"({ref.is_certified}, {ref.theta}), {ref_lp}")
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "chain.pyfg")
@@ -2381,16 +2523,18 @@ def main():
                      block_ms=v.get("block_ms"))
         for x in ("us_per_tcg_iter", "block_us_per_tcg_iter", "sweep_ms",
                   "scratch_mb", "turns_ms", "n", "by_rank", "by_n",
-                  "clusters", "comparator"):
+                  "ctas", "sweeps", "comparator"):
             if x in v:
                 entry[x] = v[x]
         kernels.append(entry)
     # `tcg` is checked and timed in phase 2, but the main path runs its loop
-    # inside `chunk`, not as a launch of its own, and small_eigh's one-CTA
-    # kernel is the comparator that no size routes to: the JSON line lists
-    # the kernels the paths launch
+    # inside `chunk`, not as a launch of its own; small_eigh's one-CTA
+    # kernel is the comparator that no size routes to, and its global
+    # kernel the comparator past n = 96 and the route past 1056, which no
+    # path here reaches: the JSON line lists the kernels the paths launch
     listed = PATH_KERNELS + tuple(dict(CERT_RANKS))
-    print("[kernels] tcg, small_eigh_cta (not launched on the paths): "
+    print("[kernels] tcg, small_eigh_cta, small_eigh_global (not launched on "
+          "the paths): "
           + json.dumps(
               [k for k in kernels if k["name"] not in listed]), flush=True)
     print(json.dumps({"kernels": [k for k in kernels

@@ -1,8 +1,9 @@
 // small_eigh: the full eigendecomposition of small symmetric matrices
 // for the Rayleigh–Ritz step of LOBPCG, by parallel-order (round-robin)
-// cyclic Jacobi, in four routes that give the same bits where they
+// cyclic Jacobi, in five routes that give the same bits where they
 // overlap: the one-warp kernel (n ≤ 32), the cluster family (32 < n ≤
-// CLUSTER_MAX_N = 320), the global kernel (past that), and the one-CTA
+// CLUSTER_MAX_N = 448) and its grid (to GRID_MAX_N = 1056), the global
+// kernel (past that, and the comparator past n = 96), and the one-CTA
 // kernel (n ≤ 96), the first design, kept as the comparator of the others.
 //
 // Replaces `jnp.linalg.eigh` inside the JAX package's LOBPCG
@@ -35,17 +36,19 @@
 //   stays exactly symmetric) and one per (row, pair) of V, A and V in
 //   shared memory, two __syncthreads phases a round. The first design, now
 //   the comparator of the others (whose bits it defines).
-// small_eigh_global_kernel (any n, routed n > CLUSTER_MAX_N): the one-CTA
+// small_eigh_global_kernel (any n, routed n > GRID_MAX_N): the one-CTA
 //   kernel's body (`jacobi_cta`, written once for both) with A, V and the
 //   round's tables in a global workspace instead of shared memory, at the
 //   same thread count, so the same bits where both run. 2·n²·8 B stays in
 //   L2 (~1 MB at n = 246); each round's loads go through L1/L2, ~10 µs a
-//   round at n = 99 on the H100 (PERF.md). Past the cluster's shared
-//   memory it is the route; below it, the cluster family's comparator.
+//   round at n = 99 on the H100 (PERF.md). Past the grid's
+//   shared memory it is the route; below it, the comparator of the cluster
+//   family and the grid.
 // small_eigh_cluster (3 ≤ n ≤ CLUSTER_MAX_N, routed 32 < n): three kernels
 //   launched in a row, one launch count. (1) small_eigh_cluster_kernel: the
 //   rounds on A over one thread-block cluster of C CTAs (C = cluster_size,
-//   the smallest of 1, 2, 4, 8 whose shared memory holds A twice), 1024
+//   the smallest of 1, 2, 4, 8, 16 whose shared memory holds A twice; 16
+//   is past the portable cluster size, admitted by its attribute), 1024
 //   threads each. Rows of A are stored by circle-method position (slot,
 //   side a/b), CTA c holding slots [cS, cS + S): the two rows of a pair
 //   are on one CTA, and a round's shift moves each row one position
@@ -61,8 +64,8 @@
 //   table, so no entry is read while it is rewritten. The rotations also
 //   go to a log in the global workspace; V is not touched. (2)
 //   small_eigh_vectors_kernel: V = J₁J₂… from the log, a warp per row of
-//   V in registers by slot (a lane per ≤ 5 slots), the log staged through
-//   shared memory VEC_ROUNDS rounds at a time. (3) small_eigh_sort_kernel:
+//   V in registers by slot (a lane per ≤ 17 slots), the log staged through
+//   shared memory up to VEC_ROUNDS rounds at a time. (3) small_eigh_sort_kernel:
 //   `write_sorted`. Every entry of A sees `rotate_block` / `rotate_diag`
 //   with the one-CTA kernel's operand order (a row's entry in the block
 //   of slots i > j computed as block (j, i) and transposed, as the
@@ -70,6 +73,19 @@
 //   order, and the stop test (once a sweep, on CTA 0, reading the other
 //   CTAs' rows through distributed shared memory) replays the one-CTA
 //   kernel's sums for its thread count (`cta_order_sum`): the same bits.
+//   The kernel is written once, templated on how its CTAs reach each
+//   other (`ClusterLink`, `GridLink`).
+// small_eigh_grid (routed CLUSTER_MAX_N < n ≤ GRID_MAX_N): the same three
+//   kernels, (1) on G = grid_size(n) CTAs of a cooperative launch, one per
+//   SM (`GridLink`): the rows that cross a CTA boundary go through an L2
+//   mailbox and the look-ahead's table through a global round table, both
+//   copied into each CTA's shared memory after the round's barrier, a
+//   monotonic counter in global memory (a release add, an acquire spin;
+//   faster than grid.sync() on the H100, scripts/probe_cluster_sync.py);
+//   the stop test on CTA 0 reads the rows every CTA wrote to the
+//   workspace. The launch raises where the card cannot hold G CTAs at
+//   once; a CUDA graph captures it (checked by the probe). It takes a
+//   batch's matrices in turn inside one launch.
 // small_eigh_warp_kernel (n ≤ 32): a lane per row of A and of V, in W = 3
 //   update warps (each taking every W-th column pair of a round) and one
 //   rotation warp that runs a round ahead: 4 warps, one per SM
@@ -224,10 +240,13 @@ __device__ __forceinline__ void rotate_v(R c, R s, R vp, R vq, R& np_, R& nq_) {
 }
 
 // rank the eigenvalues ascending (ties by index), then one warp per output
-// column: the sign from its largest-magnitude entry (threads tid of nt)
+// column: the sign from its largest-magnitude entry (threads tid of nt;
+// the columns col0, col0 + step, … of warps col0 … of this CTA's, the
+// ranked eigenvalues written where write_w)
 template <typename T>
 __device__ void write_sorted(const R* A, const R* V, int ld, int n, R* diag,
-                             int* perm, T* w_out, T* V_out, int tid, int nt) {
+                             int* perm, T* w_out, T* V_out, int tid, int nt,
+                             int col0 = 0, int step = 0, bool write_w = true) {
   for (int i = tid; i < n; i += nt) diag[i] = A[i * ld + i];
   __syncthreads();
   for (int i = tid; i < n; i += nt) {
@@ -238,11 +257,11 @@ __device__ void write_sorted(const R* A, const R* V, int ld, int n, R* diag,
       rank += (dj < di) || (dj == di && j < i);
     }
     perm[rank] = i;
-    w_out[rank] = T(di);
+    if (write_w) w_out[rank] = T(di);
   }
   __syncthreads();
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
-  for (int col = warp; col < n; col += nwarps) {
+  for (int col = col0 + warp; col < n; col += step ? step : nwarps) {
     const int src = perm[col];
     R best = R(-1);
     int at = n;
@@ -750,23 +769,33 @@ __global__ void __launch_bounds__(32 * (W + 1))
 }
 
 // ---------------------------------------------------------------------------
-// the cluster family (small_eigh_cluster)
+// the cluster family (small_eigh_cluster, small_eigh_grid)
 
-constexpr int CLUSTER_MAX_N = 320;
-constexpr int CLUSTER_MAX_C = 8;
+constexpr int CLUSTER_MAX_N = 448;
+constexpr int CLUSTER_MAX_C = 16;
+// the grid route: G co-resident CTAs, one per SM, at most GRID_MAX_G (the
+// H100's SMs; the launch checks the card's), for n to GRID_MAX_N
+constexpr int GRID_MAX_N = 1056;
+constexpr int GRID_MAX_G = 132;
 constexpr int CLUSTER_THREADS = 1024;
 // the sm_90 opt-in shared memory of a block, less room for the kernel's
 // static shared memory
 constexpr int CLUSTER_SMEM = 232448 - 1024;
 constexpr int VEC_THREADS = 128;  // the vectors kernel: a warp per row of V
 constexpr int VEC_ROWS = VEC_THREADS / 32;
-constexpr int VEC_ROUNDS = 32;  // rounds of the log staged at once
-constexpr int VEC_MAX_R = 5;    // slots a lane holds: h ≤ 32·5 = 160
+constexpr int VEC_ROUNDS = 32;    // rounds of the log staged at once, at most
+constexpr int VEC_SMEM = 232448;  // the staging's shared memory, at most
+constexpr int VEC_MAX_R = 17;     // slots a lane holds: h ≤ 32·17 = 544
+// to 7 slots a lane (the cluster family's n), each round's (c, s) loaded a
+// round ahead; past it not: two rounds' (c, s), a double2 each a slot,
+// would take 8·RR more registers, past the 255 a thread has at RR = 17
+// (189 without them)
+constexpr int VEC_AHEAD_R = 7;
 // the stop test's verdicts, and the status of a matrix with a non-finite
 // entry
 enum { GO = 0, DONE = 1, CAP = 2, BAD = 3 };
 constexpr int NONFINITE = -2147483647 - 1;
-static_assert(CLUSTER_MAX_N <= 64 * VEC_MAX_R, "a lane holds at most VEC_MAX_R slots");
+static_assert(GRID_MAX_N <= 64 * VEC_MAX_R, "a lane holds at most VEC_MAX_R slots");
 
 #ifdef SMALL_EIGH_SPLIT
 // the probe's build: matrix 0's clock64() cycles in the cluster family, as
@@ -774,24 +803,34 @@ static_assert(CLUSTER_MAX_N <= 64 * VEC_MAX_R, "a lane holds at most VEC_MAX_R s
 __device__ long long split_clu[12];
 #endif
 
-// doubles of the cluster kernel's dynamic shared memory at n on C CTAs:
-// the rows (two buffers × two sides × S slots × np + 1), the round table
-// (two parities × seven doubles × h, rounded up to even: (c, s), t, three
+// doubles of the kernel's dynamic shared memory at n on P CTAs: the rows
+// (two buffers × two sides × S slots × np + 1), the round table (two
+// parities × seven doubles × h, rounded up to even: (c, s), t, three
 // entries, the pair as an int) and the rows' next positions (2·S 32-bit
 // addresses)
-__host__ __device__ inline int cluster_smem_doubles(int n, int C) {
-  const int np = n + (n & 1), h = np / 2, S = (h + C - 1) / C;
+__host__ __device__ inline int cluster_smem_doubles(int n, int P) {
+  const int np = n + (n & 1), h = np / 2, S = (h + P - 1) / P;
   return 4 * S * (np + 1) + 2 * (7 * h + (h & 1)) + S;
 }
 
-// whether C CTAs hold n: the shared memory, and at least two slots on
-// every CTA (the look-ahead reads the rows of one of a next pair's two
-// source slots, the one on its own CTA)
+// whether P CTAs hold n: the shared memory, and S ≥ 2 slots a CTA (the
+// look-ahead reads the rows of one of a next pair's two source slots, the
+// one on its own CTA: a CTA between two others needs two slots for that;
+// the last CTA that holds any may hold one, slot h − 1, the source of its
+// own a; CTAs past it hold none and only take part in the barriers)
+__host__ __device__ inline bool parts_fit(int n, int P) {
+  if (n < 3 || P < 1) return false;
+  const int h = (n + (n & 1)) / 2, S = (h + P - 1) / P;
+  if (P > 1 && S < 2) return false;
+  return (size_t)cluster_smem_doubles(n, P) * sizeof(double) <= (size_t)CLUSTER_SMEM;
+}
+
 __host__ __device__ inline bool cluster_fits(int n, int C) {
-  if (n < 3 || C < 1 || C > CLUSTER_MAX_C) return false;
-  const int h = (n + (n & 1)) / 2, S = (h + C - 1) / C;
-  if (C > 1 && (S < 2 || h - (C - 1) * S < 2)) return false;
-  return (size_t)cluster_smem_doubles(n, C) * sizeof(double) <= (size_t)CLUSTER_SMEM;
+  return C <= CLUSTER_MAX_C && parts_fit(n, C);
+}
+
+__host__ __device__ inline bool grid_fits(int n, int G) {
+  return n <= GRID_MAX_N && G >= 2 && G <= GRID_MAX_G && parts_fit(n, G);
 }
 
 // the smallest power of two that holds n (0: none does)
@@ -801,14 +840,38 @@ __host__ __device__ inline int cluster_size(int n) {
   return 0;
 }
 
+// the most CTAs that hold n with S ≥ 2 pairs each, at most GRID_MAX_G: the
+// smallest S whose ⌈h/S⌉ CTAs the card holds (0: none does). A round's
+// update on a CTA moves S·h entries through its shared memory, which bounds
+// it; more CTAs cost the barrier little (scripts/probe_cluster_sync.py)
+__host__ __device__ inline int grid_size(int n) {
+  const int h = (n + (n & 1)) / 2;
+  for (int S = 2; S <= h; ++S) {
+    const int G = (h + S - 1) / S;
+    if (G <= GRID_MAX_G) return grid_fits(n, G) ? G : 0;
+  }
+  return 0;
+}
+
 // doubles of one matrix's global workspace: the rotation log ((c, s) per
 // slot per round, up to max_sweeps·(np − 1) rounds and the one computed
-// ahead), V (np × np), A's diagonal (np × np, the diagonal written, so that
-// `write_sorted` reads it as it reads A), two ints (info, rounds); even,
-// so that every matrix's log is 16-byte aligned
+// ahead), V (np × np), A (np × np: its diagonal written at the end, so
+// that `write_sorted` reads it as it reads A; on the grid also the stop
+// test's copy of the rows), two ints (info, rounds); even, so that every
+// matrix's log is 16-byte aligned
 __host__ __device__ inline size_t cluster_work_doubles(int n, int max_sweeps) {
   const size_t np = n + (n & 1), h = np / 2, m = np - 1;
   const size_t total = 2 * ((size_t)max_sweeps * m + 1) * h + 2 * np * np + 1;
+  return total + (total & 1);
+}
+
+// doubles the grid adds after its matrices' workspaces, shared by them: the
+// round table (two parities, as in shared memory), the mailbox (two
+// buffers × G CTAs × two sides × np) and the barrier's count with the stop
+// test's verdict
+__host__ __device__ inline size_t grid_extra_doubles(int n, int G) {
+  const size_t np = n + (n & 1), h = np / 2;
+  const size_t total = 2 * (7 * h + (h & 1)) + 4 * (size_t)G * np + 1;
   return total + (total & 1);
 }
 
@@ -1008,127 +1071,124 @@ __device__ __forceinline__ unsigned map_cluster(unsigned a, int cta) {
   return out;
 }
 
+// a generic address's double (this CTA's shared memory or global memory)
+__device__ __forceinline__ void st_generic(R* p, R v) {
+  asm volatile("st.f64 [%0], %1;" ::"l"(p), "d"(v) : "memory");
+}
+
+// Where a row's update goes, one column at a time: this CTA's shared
+// memory, another's in the cluster, or a generic address (the grid's: this
+// CTA's shared memory, or the L2 mailbox at a boundary)
+struct CtaStore {
+  unsigned a;
+  __device__ void operator()(int col, R v) const { st_cta(a + 8 * col, v); }
+};
+struct ClusterStore {
+  unsigned a;
+  __device__ void operator()(int col, R v) const { st_cluster(a + 8 * col, v); }
+};
+struct GenericStore {
+  R* p;
+  __device__ void operator()(int col, R v) const { st_generic(p + col, v); }
+};
+
 // A row's update at one column slot j (lane's), MODE 0: every lane's j > i
 // (block (i, j) as is), 1: every lane's j < i (block (j, i), transposed), 2:
 // either, or j = i (the pair's own entries, 0; its diagonal travels in the
 // table)
-template <bool FAR>
-__device__ __forceinline__ void st_row(unsigned addr, R v) {
-  if (FAR)
-    st_cluster(addr, v);
-  else
-    st_cta(addr, v);
-}
-
-template <int MODE, bool FAR>
+template <int MODE, class St>
 __device__ __forceinline__ void update_lane(int i, int j, int pi, int qi, R ci, R si,
                                             const double2* cs, const int* pq, const R* rp,
-                                            const R* rq, unsigned op, unsigned oq) {
+                                            const R* rq, const St& op, const St& oq) {
   const int pqj = pq[j], pj = pqj & 0xffff, qj = pqj >> 16;
   const double2 cj = cs[j];
   const R x00 = rp[pj], x01 = rp[qj], x10 = rq[pj], x11 = rq[qj];
   R z00, z01, z10, z11;
   if (MODE == 0) {
     rotate_block_rn(ci, si, cj.x, cj.y, x00, x01, x10, x11, z00, z01, z10, z11);
-    st_row<FAR>(op + 8 * pj, z00);
-    st_row<FAR>(op + 8 * qj, z01);
-    st_row<FAR>(oq + 8 * pj, z10);
-    st_row<FAR>(oq + 8 * qj, z11);
+    op(pj, z00);
+    op(qj, z01);
+    oq(pj, z10);
+    oq(qj, z11);
   } else if (MODE == 1) {
     rotate_block_rn(cj.x, cj.y, ci, si, x00, x10, x01, x11, z00, z01, z10, z11);
-    st_row<FAR>(op + 8 * pj, z00);
-    st_row<FAR>(op + 8 * qj, z10);
-    st_row<FAR>(oq + 8 * pj, z01);
-    st_row<FAR>(oq + 8 * qj, z11);
+    op(pj, z00);
+    op(qj, z10);
+    oq(pj, z01);
+    oq(qj, z11);
   } else if (j == i) {
-    st_row<FAR>(op + 8 * qi, R(0));
-    st_row<FAR>(oq + 8 * pi, R(0));
+    op(qi, R(0));
+    oq(pi, R(0));
   } else {
     const bool lo = i < j;
     rotate_block_rn(lo ? ci : cj.x, lo ? si : cj.y, lo ? cj.x : ci, lo ? cj.y : si, x00,
                     lo ? x01 : x10, lo ? x10 : x01, x11, z00, z01, z10, z11);
-    st_row<FAR>(op + 8 * pj, z00);
-    st_row<FAR>(op + 8 * qj, lo ? z01 : z10);
-    st_row<FAR>(oq + 8 * pj, lo ? z10 : z01);
-    st_row<FAR>(oq + 8 * qj, z11);
+    op(pj, z00);
+    op(qj, lo ? z01 : z10);
+    oq(pj, lo ? z10 : z01);
+    oq(qj, z11);
   }
 }
 
 // slot i's two rows (rp, rq; next positions op, oq) at the column slots
 // j0 … j0 + 31, a lane each: a pass wholly on one side of i takes no select
-template <bool FAR>
+template <class St>
 __device__ __forceinline__ void update_pass(int i, int h, int j0, int lane, int pi, int qi,
                                             R ci, R si, const double2* cs, const int* pq,
-                                            const R* rp, const R* rq, unsigned op,
-                                            unsigned oq) {
+                                            const R* rp, const R* rq, const St& op,
+                                            const St& oq) {
   const int j = j0 + lane;
   if (i < j0) {
-    if (j < h) update_lane<0, FAR>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
+    if (j < h) update_lane<0>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
   } else if (i > j0 + 31) {
-    update_lane<1, FAR>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
+    update_lane<1>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
   } else if (j < h) {
-    update_lane<2, FAR>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
+    update_lane<2>(i, j, pi, qi, ci, si, cs, pq, rp, rq, op, oq);
   }
 }
 
-// (1) the rounds on A of one matrix over a cluster of C CTAs (the grid:
-// batch × C). CTA `rank` holds slots [s0, s1) (S = ⌈h/C⌉ each): rows[buf]
-// [side][slot − s0][np + 1]; the round table tab[par], per slot: (c, s),
-// t, the diagonal at p and q and the pair's own entry that the round
-// starts from, and p | q << 16; and dst[side][slot − s0], the address
-// (buffer 0; this CTA's shared window, or another's in the cluster's at
-// the boundaries) of the position each of its rows takes next round. One
-// or two look-ahead warps compute the next round's table for the CTA's
-// slots, a lane per slot; the update warps update its rows, a column slot
-// a lane, 32 a pass, passes wholly on one side of the slot taking no
-// select. The probe's build (SMALL_EIGH_SPLIT) sums, for matrix 0 on CTA
-// 0, clock64() cycles into split_clu: [0] rounds, [1] the look-ahead
-// warp's body and [2] its wait at the round's barrier, [3] update warp 2's
-// body and [4] its wait, [5] the stop tests and [6] their count, [7] the
-// whole kernel.
-template <typename T>
-__global__ void __launch_bounds__(CLUSTER_THREADS)
-    small_eigh_cluster_kernel(const T* __restrict__ A_in, T* __restrict__ w_out,
-                              T* __restrict__ V_out, int* __restrict__ info, int n,
-                              int max_sweeps, int C, R* __restrict__ work) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ R red[32];
-  __shared__ int ctl;
-  const int np = n + (n & 1), h = np / 2, m = np - 1, ld = np + 1;
-  const int S = (h + C - 1) / C;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rank = C == 1 ? 0 : (int)cg::this_cluster().block_rank();
-  const int b = blockIdx.x / C;
-  const int s0 = rank * S, s1 = min(h, s0 + S), Sc = s1 - s0;
-  const int nt_ref = cta_threads(n);
-  const size_t BUF = (size_t)2 * S * ld;
-  const int TAB = 7 * h + (h & 1);  // doubles of one parity's table (even)
-  R* rows = reinterpret_cast<R*>(smem_raw);
-  R* tab = rows + 2 * BUF;
-  unsigned* dst = reinterpret_cast<unsigned*>(tab + 2 * TAB);
-  const T* Ab = A_in + (size_t)b * n * n;
-  R* ws = work + (size_t)b * cluster_work_doubles(n, max_sweeps);
-  double2* rlog = reinterpret_cast<double2*>(ws);
-  R* Ad = ws + 2 * ((size_t)max_sweeps * m + 1) * h + (size_t)np * np;
-  int* status = reinterpret_cast<int*>(Ad + (size_t)np * np);
-#ifdef SMALL_EIGH_SPLIT
-  long long ck[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  const long long k_start = clock64();
-  const bool probe = b == 0 && rank == 0;
-#endif
+// one matrix's rounds on its CTA, `rank` of `parts`: slots [s0, s1), S a
+// CTA; rows[buf][side][slot − s0][ld], the round table tab[par] (TAB
+// doubles a parity), dst[side][slot − s0] (the next positions)
+struct Part {
+  int np, h, m, ld, S, s0, s1, Sc, TAB;
+  size_t BUF;  // doubles of one buffer of rows
+  R* rows;
+  R* tab;
+  unsigned* dst;
+};
 
-  auto sync_all = [&]() {
+// The CTAs of one matrix as one thread-block cluster of C (the cluster
+// route): rows cross at a boundary and the table goes to every CTA through
+// distributed shared memory; the barrier is __syncthreads at C = 1, else
+// cluster.sync(); the stop test on CTA 0 reads the others' rows in place.
+struct ClusterLink {
+  using Far = ClusterStore;
+  int C;     // set by the launch
+  int rank;  // set by begin()
+  int* ctl;  // this CTA's verdict
+  __device__ void begin(int* verdict) {
+    rank = C == 1 ? 0 : (int)cg::this_cluster().block_rank();
+    ctl = verdict;
+  }
+  __device__ int parts() const { return C; }
+  __device__ int first() const { return blockIdx.x / C; }
+  __device__ int last() const { return blockIdx.x / C + 1; }
+  __device__ void sync() {
     if (C == 1)
       __syncthreads();
     else
       cg::this_cluster().sync();
-  };
+  }
+  // the address `a` (this CTA's shared memory) in CTA `to`'s
+  __device__ unsigned remote(unsigned a, int to) const { return map_cluster(a, to); }
   // slot k's entries of the table `par`: (c, s) and p | q << 16 into every
   // CTA's, the rest into this CTA's and its neighbours' (the look-ahead
   // reads them only for the slots next to its own)
-  auto push = [&](int par, int k, const Ahead& a) {
+  __device__ void publish(const Part& P, int par, int k, const Ahead& a) {
+    const int h = P.h;
     for (int d = 0; d < C; ++d) {
-      R* tb = cta_ptr(tab, d, rank) + par * TAB;
+      R* tb = cta_ptr(P.tab, d, rank) + par * P.TAB;
       reinterpret_cast<double2*>(tb)[k] = make_double2(a.c, a.s);
       reinterpret_cast<int*>(tb + 6 * h)[k] = a.pq;
       if (d >= rank - 1 && d <= rank + 1) {
@@ -1138,13 +1198,218 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
         tb[5 * h + k] = a.apq;
       }
     }
-  };
-  // row u at its position of round 0 (every sweep starts there), buffer buf
-  auto row_of = [&](int u, int buf) -> const R* {
-    const int slot = u == m ? 0 : (u < h ? u : m - u), side = u == m || u >= h;
-    const int cta = slot / S;
-    return cta_ptr(rows + buf * BUF + (size_t)(side * S + slot - cta * S) * ld, cta, rank);
-  };
+  }
+  // the table of `par` complete on every CTA
+  __device__ void after_table(const Part&, int) { sync(); }
+  // a round ended: its rows (buffer cur) and next table (par) complete
+  __device__ void after_round(const Part&, int, int) { sync(); }
+  // where the row e = side·S + il of a boundary slot goes (buffer nxt)
+  __device__ Far far(const Part& P, int e, int nxt) const {
+    return Far{P.dst[e] + nxt * (unsigned)(P.BUF * sizeof(R))};
+  }
+  // CTA 0's stop test `f(entry)` on the rows of buffer `cur`, read in place,
+  // and its verdict to every CTA
+  template <class F>
+  __device__ int decide(const Part& P, int cur, R*, F f) {
+    if (rank == 0) {
+      const int v = f([&](int u, int w) {
+        const int slot = u == P.m ? 0 : (u < P.h ? u : P.m - u);
+        const int side = u == P.m || u >= P.h, cta = slot / P.S;
+        return cta_ptr(P.rows + cur * P.BUF + (size_t)(side * P.S + slot - cta * P.S) * P.ld,
+                       cta, rank)[w];
+      });
+      if (threadIdx.x == 0)
+        for (int d = 0; d < C; ++d) *cta_ptr(ctl, d, rank) = v;
+    }
+    sync();
+    return *ctl;
+  }
+};
+
+// The CTAs of one matrix as G co-resident CTAs of a cooperative launch (the
+// grid route), which takes the batch's matrices in turn: the two rows that
+// cross each CTA boundary go through an L2 mailbox, mail[buf][cta][side]
+// [np] (side 0: the a-row arriving at the CTA's last slot, 1: the b-row at
+// its first), double-buffered with the rows, and the look-ahead publishes
+// to a global round table; after each barrier a CTA copies its incoming
+// rows, every slot's rotations and pairs and its own and its neighbours'
+// entries into its shared memory (L2 loads, __ldcg). The barrier is a
+// monotonic count (a release add by one thread a CTA, an acquire spin; the
+// launch zeroes it). The stop test: every CTA writes its rows into the
+// matrix's workspace A by index, CTA 0 reads them from L2, its verdict comes
+// back through `flag`.
+struct GridLink {
+  using Far = GenericStore;
+  int G, batch;      // set by the launch
+  R* gtab;           // the global round table, two parities
+  R* mail;           // the mailbox
+  unsigned* count;   // the barrier's count
+  int* flag;         // the stop test's verdict
+  int rank;          // set by begin()
+  unsigned passed;   // barriers passed (every CTA the same)
+  __device__ void begin(int*) {
+    rank = blockIdx.x;
+    passed = 0;
+  }
+  __device__ int parts() const { return G; }
+  __device__ int first() const { return 0; }
+  __device__ int last() const { return batch; }
+  __device__ void sync() {
+    __syncthreads();
+    ++passed;
+    if (threadIdx.x == 0) {
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
+      const unsigned target = passed * (unsigned)G;
+      unsigned v;
+      do {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(count) : "memory");
+      } while (v < target);
+    }
+    __syncthreads();
+  }
+  __device__ unsigned remote(unsigned, int) const { return 0; }  // never stored to
+  __device__ void publish(const Part& P, int par, int k, const Ahead& a) {
+    const int h = P.h;
+    R* tb = gtab + par * P.TAB;
+    reinterpret_cast<double2*>(tb)[k] = make_double2(a.c, a.s);
+    reinterpret_cast<int*>(tb + 6 * h)[k] = a.pq;
+    tb[2 * h + k] = a.t;
+    tb[3 * h + k] = a.app;
+    tb[4 * h + k] = a.aqq;
+    tb[5 * h + k] = a.apq;
+  }
+  // After the barrier, into this CTA's shared memory: with `rows`, the
+  // incoming rows from the mailbox into buffer cur; the table of `par`:
+  // (c, s) and the pairs of every slot, t and the three entries of slots
+  // s0 − 1 … s1. A thread issues all its L2 loads (IMPORT a pass) before
+  // its stores, so that the copy waits on L2 about once.
+  static constexpr int IMPORT = 4;
+  __device__ void import(const Part& P, bool rows, int cur, int par) {
+    const int np = P.np, h = P.h, hp = (h + 1) / 2;
+    const int lo = P.s0 > 0 ? P.s0 - 1 : 0, hi = P.s1 < h ? P.s1 + 1 : h, w = hi - lo;
+    const bool top = rows && P.Sc > 0 && P.s1 < h, bottom = rows && P.Sc > 0 && P.s0 > 0;
+    const R* box = mail + (size_t)(cur * G + rank) * 2 * np;
+    R* rc = P.rows + cur * P.BUF;
+    const R* src = gtab + par * P.TAB;
+    R* tb = P.tab + par * P.TAB;
+    const int nrow = (top + bottom) * np, total = nrow + 2 * h + hp + 4 * w;
+    for (int e0 = threadIdx.x; e0 < total; e0 += IMPORT * (int)blockDim.x) {
+      R v[IMPORT];
+      R* to[IMPORT];
+#pragma unroll
+      for (int k = 0; k < IMPORT; ++k) {
+        const int e = e0 + k * blockDim.x;
+        to[k] = nullptr;
+        if (e >= total) continue;
+        const R* from;
+        if (e < nrow) {
+          // the a-row at the last slot (top), then the b-row at the first
+          const bool a = top && e < np;
+          const int x = a || !top ? e : e - np;
+          from = box + (a ? 0 : np) + x;
+          to[k] = rc + (size_t)(a ? P.Sc - 1 : P.S) * P.ld + x;
+        } else {
+          const int t = e - nrow;
+          int o;
+          if (t < 2 * h) {
+            o = t;
+          } else if (t < 2 * h + hp) {
+            o = 6 * h + t - 2 * h;
+          } else {
+            const int x = t - 2 * h - hp, q = x / w;
+            o = (2 + q) * h + lo + x - q * w;
+          }
+          from = src + o;
+          to[k] = tb + o;
+        }
+        v[k] = __ldcg(from);
+      }
+#pragma unroll
+      for (int k = 0; k < IMPORT; ++k)
+        if (to[k]) *to[k] = v[k];
+    }
+  }
+  __device__ void after_table(const Part& P, int par) {
+    sync();
+    import(P, false, 0, par);
+    __syncthreads();
+  }
+  // the incoming rows into buffer cur, the table of par
+  __device__ void after_round(const Part& P, int cur, int par) {
+    sync();
+    import(P, true, cur, par);
+    __syncthreads();
+  }
+  // where the row e = side·S + il of a boundary slot goes (buffer nxt): the
+  // neighbour's mailbox where the shift takes it off this CTA, else its
+  // next position here
+  __device__ Far far(const Part& P, int e, int nxt) const {
+    const int side = e >= P.S, il = e - side * P.S;
+    if (side == 0 && il == 0 && P.s0 > 0)
+      return Far{mail + (size_t)(nxt * G + rank - 1) * 2 * P.np};
+    if (side == 1 && il == P.Sc - 1 && P.s1 < P.h)
+      return Far{mail + ((size_t)(nxt * G + rank + 1) * 2 + 1) * P.np};
+    int ni, ns;
+    next_pos(P.s0 + il, side, P.h, ni, ns);
+    return Far{P.rows + nxt * P.BUF + (size_t)(ns * P.S + ni - P.s0) * P.ld};
+  }
+  template <class F>
+  __device__ int decide(const Part& P, int cur, R* Ad, F f) {
+    const int np = P.np;
+    const R* rows = P.rows + cur * P.BUF;
+    for (int e = threadIdx.x; e < 2 * P.Sc * np; e += blockDim.x) {
+      const int r = e / np, v = e - r * np;
+      const int side = r >= P.Sc, il = side ? r - P.Sc : r;
+      const int u = index_at(0, P.s0 + il, side, P.m);
+      Ad[(size_t)u * np + v] = rows[(size_t)(side * P.S + il) * P.ld + v];
+    }
+    sync();
+    if (rank == 0) {
+      const int v = f([&](int u, int w) { return __ldcg(Ad + (size_t)u * np + w); });
+      if (threadIdx.x == 0) *flag = v;
+    }
+    sync();
+    return __ldcg(flag);
+  }
+};
+
+// (1) The rounds on A of one matrix over the CTAs of a Link (one cluster
+// of C; or the grid's G, which take a batch's matrices in turn). CTA
+// `rank` holds slots [s0, s1) (S = ⌈h/parts⌉ each): rows[buf][side][slot −
+// s0][np + 1]; the round table tab[par], per slot: (c, s), t, the diagonal
+// at p and q and the pair's own entry that the round starts from, and p |
+// q << 16; and dst[side][slot − s0], the shared::cta address (buffer 0) of
+// the position each of its rows takes next round on this CTA (in the
+// cluster, another's mapped at the boundaries). One or two look-ahead
+// warps compute the next round's table for the CTA's slots, a lane per
+// slot; the update warps update its rows, a column slot a lane, 32 a pass,
+// passes wholly on one side of the slot taking no select. The probe's
+// build (SMALL_EIGH_SPLIT) sums, for matrix 0 on CTA 0, clock64() cycles
+// into split_clu: [0] rounds, [1] the look-ahead warp's body and [2] its
+// wait at the round's barrier, [3] update warp 2's body and [4] its wait,
+// [5] the stop tests and [6] their count, [7] the whole kernel.
+template <typename T, class Link>
+__device__ void jacobi_rounds(Link& L, const Part& P, const T* __restrict__ Ab,
+                              T* __restrict__ w_b, T* __restrict__ V_b,
+                              int* __restrict__ info_b, int n, int max_sweeps,
+                              R* __restrict__ ws, R* red, bool probe) {
+  const int np = P.np, h = P.h, m = P.m, ld = P.ld, S = P.S;
+  const int s0 = P.s0, s1 = P.s1, Sc = P.Sc, TAB = P.TAB, rank = L.rank;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt_ref = cta_threads(n);
+  const size_t BUF = P.BUF;
+  R* rows = P.rows;
+  R* tab = P.tab;
+  unsigned* dst = P.dst;
+  double2* rlog = reinterpret_cast<double2*>(ws);
+  R* Ad = ws + 2 * ((size_t)max_sweeps * m + 1) * h + (size_t)np * np;
+  int* status = reinterpret_cast<int*>(Ad + (size_t)np * np);
+#ifdef SMALL_EIGH_SPLIT
+  long long ck[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const long long k_start = clock64();
+#else
+  (void)probe;
+#endif
 
   // the CTA's rows at their round-0 positions (the lower triangle,
   // mirrored, as the one-CTA kernel loads it), and where each goes next
@@ -1162,9 +1427,9 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
     next_pos(s0 + il, side, h, ni, ns);
     const int to = ni / S;
     const unsigned a = smem_addr(rows + (size_t)(ns * S + ni - to * S) * ld);
-    dst[side * S + il] = to == rank ? a : map_cluster(a, to);
+    dst[side * S + il] = to == rank ? a : L.remote(a, to);
   }
-  sync_all();  // every CTA has started before any writes into another's
+  L.sync();  // every CTA has started before any writes into another's
   // round 0's rotations of the CTA's slots, from A as loaded
   for (int il = tid; il < Sc; il += CLUSTER_THREADS) {
     const int k = s0 + il;
@@ -1179,37 +1444,30 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
     a.apq = rp[q];
     a.pq = p | (q << 16);
     rotation(a.app, a.aqq, a.apq, a.c, a.s, a.t);
-    push(0, k, a);
+    L.publish(P, 0, k, a);
     rlog[k] = make_double2(a.c, a.s);
   }
-  sync_all();
+  L.after_table(P, 0);
   // ‖A‖² and the first stop test on CTA 0, its verdict to every CTA
   R tol2 = R(0);
-  if (rank == 0) {
+  int verdict = L.decide(P, 0, Ad, [&](const auto& entry) {
     const R norm2 = cta_order_sum<false>(
         [&](int u, int v) {
           return u < n && v < n ? R(u >= v ? Ab[u * n + v] : Ab[v * n + u]) : R(0);
         },
         np, nt_ref, red);
-    int verdict = BAD;
-    if (isfinite(norm2)) {
-      tol2 = EPS * EPS * norm2;
-      const R off2 =
-          cta_order_sum<true>([&](int u, int v) { return row_of(u, 0)[v]; }, np, nt_ref, red);
-      verdict = off2 <= tol2 ? DONE : (max_sweeps == 0 ? CAP : GO);
-    }
-    if (tid == 0)
-      for (int d = 0; d < C; ++d) *cta_ptr(&ctl, d, rank) = verdict;
-  }
-  sync_all();
-  int verdict = ctl;
+    if (!isfinite(norm2)) return (int)BAD;
+    tol2 = EPS * EPS * norm2;
+    const R off2 = cta_order_sum<true>(entry, np, nt_ref, red);
+    return off2 <= tol2 ? (int)DONE : (max_sweeps == 0 ? (int)CAP : (int)GO);
+  });
   if (verdict == BAD) {
     if (rank == 0) {
       const R nan = R(0) / R(0);
-      for (int e = tid; e < n * n; e += CLUSTER_THREADS) V_out[(size_t)b * n * n + e] = T(nan);
-      for (int i = tid; i < n; i += CLUSTER_THREADS) w_out[(size_t)b * n + i] = T(nan);
+      for (int e = tid; e < n * n; e += CLUSTER_THREADS) V_b[e] = T(nan);
+      for (int i = tid; i < n; i += CLUSTER_THREADS) w_b[i] = T(nan);
       if (tid == 0) {
-        info[b] = 0;
+        info_b[0] = 0;
         status[0] = NONFINITE;
       }
     }
@@ -1219,14 +1477,21 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
   // the look-ahead warps: 0, and 4 past 32 slots (one SM sub-partition:
   // the two chains interleave there); warp 8 logs the round's rotations.
   // The update warps: the NUW = 29 others, this one the wu-th (−1: none),
-  // a slot at a time, NJ passes of 32 column slots; the 24 on the other
-  // three sub-partitions first, so that the five left on the chains' take
-  // a slot only where a CTA holds more than 24
+  // the 24 on the other three sub-partitions first, so that the five left
+  // on the chains' take work only where a CTA holds more than 24 slots or
+  // fewer than 15. A warp takes a slot at a time, its NJ passes of 32
+  // column slots; where a CTA holds fewer than NUW slots, `per` warps split
+  // each slot's passes (wu % Sc the slot, passes wu / Sc, + per, …)
   const int ahead2 = Sc <= 32 ? -1 : 4;
   const int NJ = (h + 31) / 32;
   constexpr int NUW = 29;
   const int wu = (warp & 3) ? warp - 1 - (warp >> 2) : (warp >= 12 ? 21 + (warp >> 2) : -1);
-  const int BUFB = (int)(BUF * sizeof(R));  // a buffer, in bytes
+  const int per = Sc > 0 && Sc < NUW ? NUW / Sc : 1;
+  const int first_slot = per == 1 ? wu : (wu < per * Sc ? wu % Sc : Sc);
+  const int slot_step = per == 1 ? NUW : Sc;
+  const int first_pass = per == 1 ? 0 : wu / Sc;
+  const bool far_slots = L.parts() > 1;
+  const unsigned BUFB = (unsigned)(BUF * sizeof(R));  // a buffer, in bytes
   int sweeps = 0, cur = 0, par = 0, g = 0;
   while (verdict == GO) {
     for (int rd = 0; rd < m; ++rd, ++g) {
@@ -1243,38 +1508,39 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
         const int il = (warp == 0 ? 0 : 32) + lane;
         if (il < Sc) {
           const Ahead a = ahead_slot(s0 + il, rd, tb, rows_cur, S, ld, h, m, s0, s1);
-          push(par ^ 1, s0 + il, a);
+          L.publish(P, par ^ 1, s0 + il, a);
         }
       } else if (wu >= 0) {
-        // the update warps: slot s0 + il's rows, il = wu, wu + NUW, …
-        for (int il = wu; il < Sc; il += NUW) {
+        // the update warps: slot s0 + il's rows
+        for (int il = first_slot; il < Sc; il += slot_step) {
           const int i = s0 + il;
           const int pqi = pq[i], pi = pqi & 0xffff, qi = pqi >> 16;
           const int ps = index_at(rd, i, 0, m) == pi ? 0 : 1;
           const R* rp = rows_cur + (size_t)(ps * S + il) * ld;
           const R* rq = rows_cur + (size_t)((1 - ps) * S + il) * ld;
-          const unsigned op = dst[ps * S + il] + nxt * BUFB;
-          const unsigned oq = dst[(1 - ps) * S + il] + nxt * BUFB;
           const double2 ci = cs[i];
           // a row crosses to a neighbour only from the CTA's first or last
           // slot
-          for (int j0 = 0; j0 < NJ * 32; j0 += 32) {
-            if (C > 1 && (il == 0 || il == Sc - 1))
-              update_pass<true>(i, h, j0, lane, pi, qi, ci.x, ci.y, cs, pq, rp, rq, op, oq);
-            else
-              update_pass<false>(i, h, j0, lane, pi, qi, ci.x, ci.y, cs, pq, rp, rq, op, oq);
+          if (far_slots && (il == 0 || il == Sc - 1)) {
+            const auto op = L.far(P, ps * S + il, nxt), oq = L.far(P, (1 - ps) * S + il, nxt);
+            for (int jp = first_pass; jp < NJ; jp += per)
+              update_pass(i, h, 32 * jp, lane, pi, qi, ci.x, ci.y, cs, pq, rp, rq, op, oq);
+          } else {
+            const CtaStore op{dst[ps * S + il] + nxt * BUFB}, oq{dst[(1 - ps) * S + il] + nxt * BUFB};
+            for (int jp = first_pass; jp < NJ; jp += per)
+              update_pass(i, h, 32 * jp, lane, pi, qi, ci.x, ci.y, cs, pq, rp, rq, op, oq);
           }
         }
       } else if (warp == 8) {
         // this round's rotations into the log, early in the round, so that
-        // no global store is still in flight at the cluster barrier of the
+        // no global store is still in flight at the barrier of the
         // look-ahead warp
         for (int il = lane; il < Sc; il += 32) rlog[(size_t)g * h + s0 + il] = cs[s0 + il];
       }
 #ifdef SMALL_EIGH_SPLIT
       const long long t1 = clock64();
 #endif
-      sync_all();
+      L.after_round(P, nxt, par ^ 1);
 #ifdef SMALL_EIGH_SPLIT
       if (probe && lane == 0 && (warp == 0 || warp == 2)) {
         const long long t2 = clock64();
@@ -1290,15 +1556,10 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
 #ifdef SMALL_EIGH_SPLIT
     const long long s_0 = clock64();
 #endif
-    if (rank == 0) {
-      const R off2 =
-          cta_order_sum<true>([&](int u, int v) { return row_of(u, cur)[v]; }, np, nt_ref, red);
-      const int v = off2 <= tol2 ? DONE : (sweeps == max_sweeps ? CAP : GO);
-      if (tid == 0)
-        for (int d = 0; d < C; ++d) *cta_ptr(&ctl, d, rank) = v;
-    }
-    sync_all();
-    verdict = ctl;
+    verdict = L.decide(P, cur, Ad, [&](const auto& entry) {
+      const R off2 = cta_order_sum<true>(entry, np, nt_ref, red);
+      return off2 <= tol2 ? (int)DONE : (sweeps == max_sweeps ? (int)CAP : (int)GO);
+    });
 #ifdef SMALL_EIGH_SPLIT
     ck[5] += clock64() - s_0;
     ck[6] += 1;
@@ -1329,6 +1590,39 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
 #endif
 }
 
+template <typename T, class Link>
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+    small_eigh_cluster_kernel(const T* __restrict__ A_in, T* __restrict__ w_out,
+                              T* __restrict__ V_out, int* __restrict__ info, int n,
+                              int max_sweeps, Link link, R* __restrict__ work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ R red[32];
+  __shared__ int ctl;
+  Link L = link;
+  L.begin(&ctl);
+  Part P;
+  P.np = n + (n & 1);
+  P.h = P.np / 2;
+  P.m = P.np - 1;
+  P.ld = P.np + 1;
+  P.S = (P.h + L.parts() - 1) / L.parts();
+  P.s0 = min(L.rank * P.S, P.h);
+  P.s1 = min(P.h, P.s0 + P.S);
+  P.Sc = P.s1 - P.s0;
+  P.TAB = 7 * P.h + (P.h & 1);  // doubles of one parity's table (even)
+  P.BUF = (size_t)2 * P.S * P.ld;
+  P.rows = reinterpret_cast<R*>(smem_raw);
+  P.tab = P.rows + 2 * P.BUF;
+  P.dst = reinterpret_cast<unsigned*>(P.tab + 2 * P.TAB);
+  for (int b = L.first(); b < L.last(); ++b) {
+    jacobi_rounds(L, P, A_in + (size_t)b * n * n, w_out + (size_t)b * n,
+                  V_out + (size_t)b * n * n, info + b, n, max_sweeps,
+                  work + (size_t)b * cluster_work_doubles(n, max_sweeps), red,
+                  b == 0 && L.rank == 0);
+    __syncthreads();  // the shared memory is the next matrix's
+  }
+}
+
 // (2) V from the rotation log: a warp per row k of V (the grid: batch ×
 // ⌈n / VEC_ROWS⌉ CTAs), lane l holding the row's entries at the slots
 // j = RR·l … RR·l + RR − 1 by side, va (the index a_j) and vb (b_j), from
@@ -1337,14 +1631,19 @@ __global__ void __launch_bounds__(CLUSTER_THREADS)
 // every entry with its index: a down a slot, b up a slot, two shuffles.
 // After the rounds (whole sweeps), every index is back at its round-0
 // position, where V is written out in index order. The log comes through
-// shared memory VEC_ROUNDS rounds at a time, the next chunk copied
-// (cp.async) while this one is applied. The probe's build sums, for matrix
-// 0's first CTA, [8] the kernel's cycles and [9] its waits for the log.
-template <typename T, int RR>
+// shared memory `vr` rounds at a time (VEC_ROUNDS, fewer where 2·vr·h·16 B
+// would pass VEC_SMEM), the next chunk copied (cp.async) while this one is
+// applied; to VEC_AHEAD_R slots a lane each round's (c, s) is loaded a
+// round ahead, past it (the grid's n) when it is applied. Any RR ≥ ⌈h/32⌉
+// gives the same bits. The probe's build sums, for matrix 0's first CTA,
+// [8] the kernel's cycles and [9] its waits for the log.
+template <int RR>
 __global__ void __launch_bounds__(VEC_THREADS)
-    small_eigh_vectors_kernel(int n, int max_sweeps, R* __restrict__ work, int blocks) {
+    small_eigh_vectors_kernel(int n, int max_sweeps, R* __restrict__ work, int blocks,
+                              int vr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double2* stage = reinterpret_cast<double2*>(smem_raw);  // [2][VEC_ROUNDS][h]
+  double2* stage = reinterpret_cast<double2*>(smem_raw);  // [2][vr][h]
+  constexpr bool AHEAD = RR <= VEC_AHEAD_R;
   const int np = n + (n & 1), h = np / 2, m = np - 1;
   const int b = blockIdx.x / blocks, blk = blockIdx.x - b * blocks;
   R* ws = work + (size_t)b * cluster_work_doubles(n, max_sweeps);
@@ -1367,9 +1666,9 @@ __global__ void __launch_bounds__(VEC_THREADS)
     va[r] = j < h && k == j ? R(1) : R(0);
     vb[r] = j < h && k == (j == 0 ? m : m - j) ? R(1) : R(0);
   }
-  const int chunk = VEC_ROUNDS * h;
+  const int chunk = vr * h;
   auto fetch = [&](int g0, int buf) {
-    const int cnt = min(VEC_ROUNDS, rounds - g0);
+    const int cnt = min(vr, rounds - g0);
     for (int e = tid; e < cnt * h; e += VEC_THREADS)
       __pipeline_memcpy_async(stage + buf * chunk + e, rlog + (size_t)g0 * h + e,
                               sizeof(double2));
@@ -1377,10 +1676,10 @@ __global__ void __launch_bounds__(VEC_THREADS)
   };
   if (rounds > 0) fetch(0, 0);
   int rd = 0;
-  for (int g0 = 0, buf = 0; g0 < rounds; g0 += VEC_ROUNDS, buf ^= 1) {
-    const int cnt = min(VEC_ROUNDS, rounds - g0);
-    const bool more = g0 + VEC_ROUNDS < rounds;
-    if (more) fetch(g0 + VEC_ROUNDS, buf ^ 1);
+  for (int g0 = 0, buf = 0; g0 < rounds; g0 += vr, buf ^= 1) {
+    const int cnt = min(vr, rounds - g0);
+    const bool more = g0 + vr < rounds;
+    if (more) fetch(g0 + vr, buf ^ 1);
 #ifdef SMALL_EIGH_SPLIT
     const long long s_0 = clock64();
 #endif
@@ -1392,20 +1691,30 @@ __global__ void __launch_bounds__(VEC_THREADS)
 #ifdef SMALL_EIGH_SPLIT
     stage_clk += clock64() - s_0;
 #endif
-    // each round's (c, s) loaded a round ahead, off the rotations' chain
-    double2 xs[RR];
+    // each round's (c, s), loaded a round ahead (AHEAD), off the rotations'
+    // chain
+    double2 xs[AHEAD ? RR : 1];
+    if constexpr (AHEAD) {
 #pragma unroll
-    for (int r = 0; r < RR; ++r) xs[r] = stage[buf * chunk + min(lane * RR + r, h - 1)];
+      for (int r = 0; r < RR; ++r) xs[r] = stage[buf * chunk + min(lane * RR + r, h - 1)];
+    }
     for (int q = 0; live && q < cnt; ++q) {
-      double2 nx[RR];
-      const double2* cs = stage + buf * chunk + min(q + 1, cnt - 1) * h;
+      double2 nx[AHEAD ? RR : 1];
+      if constexpr (AHEAD) {
+        const double2* nc = stage + buf * chunk + min(q + 1, cnt - 1) * h;
 #pragma unroll
-      for (int r = 0; r < RR; ++r) nx[r] = cs[min(lane * RR + r, h - 1)];
+        for (int r = 0; r < RR; ++r) nx[r] = nc[min(lane * RR + r, h - 1)];
+      }
+      const double2* cs = stage + buf * chunk + q * h;
       const int top = min(rd, m - 1 - rd);
 #pragma unroll
       for (int r = 0; r < RR; ++r) {
         const int j = lane * RR + r;
-        const double2 x = xs[r];
+        double2 x;
+        if constexpr (AHEAD)
+          x = xs[r];
+        else
+          x = cs[min(j, h - 1)];
         const bool aq = j >= 1 && j <= top;  // the slot's a is its q
         const R vp = aq ? vb[r] : va[r], vq = aq ? va[r] : vb[r];
         R np_, nq_;
@@ -1427,7 +1736,10 @@ __global__ void __launch_bounds__(VEC_THREADS)
       for (int r = 0; r < RR; ++r) {
         va[r] = na[r];
         vb[r] = nb[r];
-        xs[r] = nx[r];
+      }
+      if constexpr (AHEAD) {
+#pragma unroll
+        for (int r = 0; r < RR; ++r) xs[r] = nx[r];
       }
       rd = rd + 1 == m ? 0 : rd + 1;
     }
@@ -1452,47 +1764,76 @@ __global__ void __launch_bounds__(VEC_THREADS)
 }
 
 // (3) the eigenvalues ranked and the eigenvectors signed (`write_sorted`),
-// a CTA per matrix; the probe's build stamps [10] the kernel's cycles
+// ⌈n/32⌉ CTAs per matrix (`blocks`), each ranking all n and signing 32
+// columns, a warp each; the probe's build stamps [10] the kernel's cycles
+constexpr int SORT_THREADS = 1024;
 template <typename T>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(SORT_THREADS)
     small_eigh_sort_kernel(T* __restrict__ w_out, T* __restrict__ V_out,
                            int* __restrict__ info, int n, int max_sweeps,
-                           R* __restrict__ work) {
-  __shared__ R diag[CLUSTER_MAX_N];
-  __shared__ int perm[CLUSTER_MAX_N];
+                           R* __restrict__ work, int blocks) {
+  __shared__ R diag[GRID_MAX_N];
+  __shared__ int perm[GRID_MAX_N];
 #ifdef SMALL_EIGH_SPLIT
   const long long k_start = clock64();
 #endif
-  const int np = n + (n & 1), h = np / 2, m = np - 1, b = blockIdx.x;
+  const int np = n + (n & 1), h = np / 2, m = np - 1;
+  const int b = blockIdx.x / blocks, blk = blockIdx.x - b * blocks;
   const R* ws = work + (size_t)b * cluster_work_doubles(n, max_sweeps);
   const R* Vg = ws + 2 * ((size_t)max_sweeps * m + 1) * h;
   const R* Ad = Vg + (size_t)np * np;
   const int* status = reinterpret_cast<const int*>(Ad + (size_t)np * np);
   if (status[0] == NONFINITE) return;
+  constexpr int WARPS = SORT_THREADS / 32;
   write_sorted(Ad, Vg, np, n, diag, perm, w_out + (size_t)b * n,
-               V_out + (size_t)b * n * n, threadIdx.x, blockDim.x);
-  if (threadIdx.x == 0) info[b] = status[0];
+               V_out + (size_t)b * n * n, threadIdx.x, SORT_THREADS, blk * WARPS,
+               blocks * WARPS, blk == 0);
+  if (blk == 0 && threadIdx.x == 0) info[b] = status[0];
 #ifdef SMALL_EIGH_SPLIT
-  if (b == 0 && threadIdx.x == 0) split_clu[10] = clock64() - k_start;
+  if (b == 0 && blk == 0 && threadIdx.x == 0) split_clu[10] = clock64() - k_start;
 #endif
 }
 
-template <typename T, int RR>
+template <int RR>
 int launch_vectors(int batch, int n, int max_sweeps, R* work, cudaStream_t st) {
   static bool attr_set = false;
   if (!attr_set) {
-    // the largest staging any n of this RR needs; set once, outside any
-    // capture
+    // the most staging any n needs; set once, outside any capture
     const cudaError_t e = cudaFuncSetAttribute(
-        small_eigh_vectors_kernel<T, RR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(2 * VEC_ROUNDS * 32 * RR * sizeof(double2)));
+        small_eigh_vectors_kernel<RR>, cudaFuncAttributeMaxDynamicSharedMemorySize, VEC_SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const int h = (n + (n & 1)) / 2, blocks = (n + VEC_ROWS - 1) / VEC_ROWS;
-  small_eigh_vectors_kernel<T, RR>
-      <<<batch * blocks, VEC_THREADS, 2 * VEC_ROUNDS * h * sizeof(double2), st>>>(
-          n, max_sweeps, work, blocks);
+  const int fit = VEC_SMEM / (2 * h * (int)sizeof(double2));
+  const int vr = fit < VEC_ROUNDS ? fit : VEC_ROUNDS;
+  small_eigh_vectors_kernel<RR>
+      <<<batch * blocks, VEC_THREADS, 2 * vr * h * sizeof(double2), st>>>(
+          n, max_sweeps, work, blocks, vr);
+  return (int)cudaGetLastError();
+}
+
+// the vectors kernel with RR = ⌈h / 32⌉ slots a lane
+template <int RR>
+int launch_vectors_for(int rr, int batch, int n, int max_sweeps, R* work, cudaStream_t st) {
+  if constexpr (RR > VEC_MAX_R) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (rr == RR) return launch_vectors<RR>(batch, n, max_sweeps, work, st);
+    return launch_vectors_for<RR + 1>(rr, batch, n, max_sweeps, work, st);
+  }
+}
+
+// (2) and (3) after the rounds
+template <typename T>
+int launch_tail(void* w, void* V, void* info, int batch, int n, int max_sweeps, R* work,
+                cudaStream_t st) {
+  const int err = launch_vectors_for<1>((n + (n & 1) + 63) / 64, batch, n, max_sweeps,
+                                        work, st);
+  if (err) return err;
+  const int blocks = (n + SORT_THREADS / 32 - 1) / (SORT_THREADS / 32);
+  small_eigh_sort_kernel<T><<<batch * blocks, SORT_THREADS, 0, st>>>(
+      (T*)w, (T*)V, (int*)info, n, max_sweeps, work, blocks);
   return (int)cudaGetLastError();
 }
 
@@ -1502,20 +1843,43 @@ int launch_cluster(const void* A, void* w, void* V, void* info, int batch, int n
   const int C = cluster_size(n);
   if (n < 3 || n > CLUSTER_MAX_N || batch < 1 || max_sweeps < 0 || C == 0)
     return (int)cudaErrorInvalidValue;
+  const auto kernel = small_eigh_cluster_kernel<T, ClusterLink>;
+  const cudaStream_t st = (cudaStream_t)stream;
   static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        small_eigh_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        CLUSTER_SMEM);
+    // once, outside any capture: the largest shared memory, clusters past
+    // the portable 8, and one cluster of CLUSTER_MAX_C CTAs at that shared
+    // memory fits on the card
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         CLUSTER_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CLUSTER_MAX_C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CLUSTER_MAX_C, 1, 1);
+    cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = CLUSTER_SMEM;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int fit = 0;
+    e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (fit < 1) return (int)cudaErrorLaunchOutOfResources;
     attr_set = true;
   }
-  const cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = (size_t)cluster_smem_doubles(n, C) * sizeof(double);
+  ClusterLink link = {};
+  link.C = C;
   cudaError_t e;
   if (C == 1) {
-    small_eigh_cluster_kernel<T><<<batch, CLUSTER_THREADS, smem, st>>>(
-        (const T*)A, (T*)w, (T*)V, (int*)info, n, max_sweeps, 1, (R*)work);
+    kernel<<<batch, CLUSTER_THREADS, smem, st>>>((const T*)A, (T*)w, (T*)V, (int*)info, n,
+                                                  max_sweeps, link, (R*)work);
     e = cudaGetLastError();
   } else {
     cudaLaunchAttribute attr[1];
@@ -1530,24 +1894,68 @@ int launch_cluster(const void* A, void* w, void* V, void* info, int batch, int n
     cfg.stream = st;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, small_eigh_cluster_kernel<T>, (const T*)A, (T*)w, (T*)V,
-                           (int*)info, n, max_sweeps, C, (R*)work);
+    e = cudaLaunchKernelEx(&cfg, kernel, (const T*)A, (T*)w, (T*)V, (int*)info, n, max_sweeps,
+                           link, (R*)work);
     if (e == cudaSuccess) e = cudaGetLastError();
   }
   if (e != cudaSuccess) return (int)e;
-  int err;
-  switch ((n + (n & 1) + 63) / 64) {  // ⌈h / 32⌉ slots a lane
-    case 1: err = launch_vectors<T, 1>(batch, n, max_sweeps, (R*)work, st); break;
-    case 2: err = launch_vectors<T, 2>(batch, n, max_sweeps, (R*)work, st); break;
-    case 3: err = launch_vectors<T, 3>(batch, n, max_sweeps, (R*)work, st); break;
-    case 4: err = launch_vectors<T, 4>(batch, n, max_sweeps, (R*)work, st); break;
-    case 5: err = launch_vectors<T, 5>(batch, n, max_sweeps, (R*)work, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  return launch_tail<T>(w, V, info, batch, n, max_sweeps, (R*)work, st);
+}
+
+// The grid route: G = grid_size(n) CTAs of a cooperative launch
+// (cudaLaunchKernelEx with the cooperative attribute, which a CUDA graph
+// capture takes), refused when the card does not hold them all at once.
+// `work`: batch × cluster_work_doubles(n, max_sweeps) and then
+// grid_extra_doubles(n, G); the barrier's count is zeroed on the stream
+// first.
+template <typename T>
+int launch_grid(const void* A, void* w, void* V, void* info, int batch, int n,
+                int max_sweeps, void* work, void* stream) {
+  const int G = grid_size(n);
+  if (n < 3 || batch < 1 || max_sweeps < 0 || G == 0) return (int)cudaErrorInvalidValue;
+  const auto kernel = small_eigh_cluster_kernel<T, GridLink>;
+  const cudaStream_t st = (cudaStream_t)stream;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CLUSTER_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
   }
-  if (err) return err;
-  small_eigh_sort_kernel<T><<<batch, 1024, 0, st>>>((T*)w, (T*)V, (int*)info, n, max_sweeps,
-                                                     (R*)work);
-  return (int)cudaGetLastError();
+  const size_t smem = (size_t)cluster_smem_doubles(n, G) * sizeof(double);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, CLUSTER_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if ((long long)per_sm * sms < G) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const size_t np = n + (n & 1), h = np / 2;
+  R* extra = (R*)work + (size_t)batch * cluster_work_doubles(n, max_sweeps);
+  GridLink link = {};
+  link.G = G;
+  link.batch = batch;
+  link.gtab = extra;
+  link.mail = extra + 2 * (7 * h + (h & 1));
+  link.count = reinterpret_cast<unsigned*>(link.mail + 4 * (size_t)G * np);
+  link.flag = reinterpret_cast<int*>(link.count + 1);
+  e = cudaMemsetAsync(link.count, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, 1, 1);
+  cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, (const T*)A, (T*)w, (T*)V, (int*)info, n, max_sweeps,
+                         link, (R*)work);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_tail<T>(w, V, info, batch, n, max_sweeps, (R*)work, st);
 }
 
 template <typename T>
@@ -1650,6 +2058,27 @@ long long cora_small_eigh_cluster_work(int n, int max_sweeps) {
 int cora_small_eigh_cluster_size(int n) { return cluster_size(n); }
 
 int cora_small_eigh_cluster_max_n() { return CLUSTER_MAX_N; }
+
+int cora_small_eigh_grid_f32(const void* A, void* w, void* V, void* info, int batch,
+                             int n, int max_sweeps, void* work, void* stream) {
+  return launch_grid<float>(A, w, V, info, batch, n, max_sweeps, work, stream);
+}
+
+int cora_small_eigh_grid_f64(const void* A, void* w, void* V, void* info, int batch,
+                             int n, int max_sweeps, void* work, void* stream) {
+  return launch_grid<double>(A, w, V, info, batch, n, max_sweeps, work, stream);
+}
+
+// doubles of the grid route's workspace for `batch` matrices of size n
+long long cora_small_eigh_grid_work(int n, int max_sweeps, int batch) {
+  return (long long)((size_t)batch * cluster_work_doubles(n, max_sweeps) +
+                     grid_extra_doubles(n, grid_size(n)));
+}
+
+// the CTAs the grid route takes at n (0: none holds it)
+int cora_small_eigh_grid_size(int n) { return grid_size(n); }
+
+int cora_small_eigh_grid_max_n() { return GRID_MAX_N; }
 
 int cora_small_eigh_max_n() { return MAX_N; }
 

@@ -10,17 +10,27 @@ Jacobi; the source says what bounds it), for any n in float32 and float64,
 computing in float64 for both (a float32 matrix's eigenpairs come out
 rounded from float64 ones: LOBPCG keeps the smallest pairs of graded
 matrices, where float32 rotations would lose them). `route` picks one of
-four routes, all giving the same bits where they overlap:
+five routes, all giving the same bits where they overlap:
   * "warp", n ≤ `WARP_MAX_N` = 32 (every matrix of the main path: 3k = 30
     and k = 10; key `small_eigh`): one warp per row, three warps updating
     the rows and one computing the next round's rotations;
-  * "cluster", 32 < n ≤ `CLUSTER_MAX_N` = 320 (a certificate at rank 9 to
-    104: k = r + 2, n = 3k; key `small_eigh_cluster`): A's rows by
+  * "cluster", 32 < n ≤ `CLUSTER_MAX_N` = 448 (a certificate at rank 9 to
+    147: k = r + 2, n = 3k; key `small_eigh_cluster`): A's rows by
     circle-method position over a thread-block cluster of
-    `cluster_size(n)` CTAs, a look-ahead warp per 32 pairs, the rotations
-    logged; then V from the log and the sort, three kernels per call;
-  * "global", n > 320 (key `small_eigh_global`): the one-CTA kernel's
-    arithmetic with A and V in a global workspace that stays in L2;
+    `cluster_size(n)` = 1, 2, 4, 8 or 16 CTAs, a look-ahead warp per 32
+    pairs, the rotations logged; then V from the log and the sort, three
+    kernels per call;
+  * "grid", 448 < n ≤ `GRID_MAX_N` = 1056 (rank 148 to 350; key
+    `small_eigh_grid`): the same kernels, the rounds on `grid_size(n)` =
+    113-132 co-resident CTAs of a cooperative launch (one per SM, at most
+    the card's SMs, two to four pairs each), the rows that cross a CTA
+    boundary and the round table through L2, a grid barrier a round. Its workspace (the rotation log,
+    `MAX_SWEEPS` × (n_p − 1) × n_p/2 × 16 B: 50 MB at n = 456, 267 MB at
+    1056) is allocated per call, so inside LOBPCG's captured graphs it
+    lives in the graph's memory pool;
+  * "global", n > 1056 (key `small_eigh_global`): the one-CTA kernel's
+    arithmetic with A and V in a global workspace that stays in L2, and
+    the comparator of the other routes past n = 96;
   * "cta", n ≤ `MAX_N` = 96 (key `small_eigh_cta`): one CTA, a thread per
     2 × 2 block, A and V in shared memory: the first design, routed to by
     no size now, the comparator whose bits the others give.
@@ -54,8 +64,12 @@ WARP_MAX_N = 32
 # the cluster family's n: its smallest (a look-ahead needs two pairs) and
 # its largest (A twice in the shared memory of at most CLUSTER_MAX_C CTAs)
 CLUSTER_MIN_N = 3
-CLUSTER_MAX_N = 320
-CLUSTER_MAX_C = 8
+CLUSTER_MAX_N = 448
+CLUSTER_MAX_C = 16
+# the grid route's largest n and CTAs (the H100's SMs; the launch checks
+# the card's count and that all of them are resident at once)
+GRID_MAX_N = 1056
+GRID_MAX_G = 132
 # the sm_90 opt-in shared memory of a block, less room for the cluster
 # kernel's static shared memory (small_eigh.cu CLUSTER_SMEM)
 CLUSTER_SMEM = 232448 - 1024
@@ -68,11 +82,12 @@ NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches of each kernel; the wrapper adds one where it launches (inside a
 # captured graph: each replay, `utils.graphs.COUNTERS`)
-LAUNCHES = {"small_eigh": 0, "small_eigh_cluster": 0, "small_eigh_cta": 0,
-            "small_eigh_global": 0}
+LAUNCHES = {"small_eigh": 0, "small_eigh_cluster": 0, "small_eigh_grid": 0,
+            "small_eigh_cta": 0, "small_eigh_global": 0}
 # route → launch key
 KEYS = {"warp": "small_eigh", "cluster": "small_eigh_cluster",
-        "cta": "small_eigh_cta", "global": "small_eigh_global"}
+        "grid": "small_eigh_grid", "cta": "small_eigh_cta",
+        "global": "small_eigh_global"}
 loops.COUNTERS.append(LAUNCHES)
 BUILD_INFO: dict = {}
 
@@ -110,25 +125,34 @@ def load_library():
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
         fn.restype = ci
     for fn in (lib.cora_small_eigh_cluster_f32,
-               lib.cora_small_eigh_cluster_f64):
+               lib.cora_small_eigh_cluster_f64, lib.cora_small_eigh_grid_f32,
+               lib.cora_small_eigh_grid_f64):
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
         fn.restype = ci
     lib.cora_small_eigh_global_work.argtypes = [ci]
     lib.cora_small_eigh_global_work.restype = ctypes.c_longlong
     lib.cora_small_eigh_cluster_work.argtypes = [ci, ci]
     lib.cora_small_eigh_cluster_work.restype = ctypes.c_longlong
+    lib.cora_small_eigh_grid_work.argtypes = [ci, ci, ci]
+    lib.cora_small_eigh_grid_work.restype = ctypes.c_longlong
     lib.cora_small_eigh_cluster_size.argtypes = [ci]
+    lib.cora_small_eigh_grid_size.argtypes = [ci]
     for fn in (lib.cora_small_eigh_max_n, lib.cora_small_eigh_warp_max_n,
                lib.cora_small_eigh_cluster_max_n,
-               lib.cora_small_eigh_cluster_size):
+               lib.cora_small_eigh_cluster_size,
+               lib.cora_small_eigh_grid_max_n, lib.cora_small_eigh_grid_size):
         fn.restype = ci
     if (lib.cora_small_eigh_max_n(), lib.cora_small_eigh_warp_max_n(),
-            lib.cora_small_eigh_cluster_max_n()) \
-            != (MAX_N, WARP_MAX_N, CLUSTER_MAX_N):
+            lib.cora_small_eigh_cluster_max_n(),
+            lib.cora_small_eigh_grid_max_n()) \
+            != (MAX_N, WARP_MAX_N, CLUSTER_MAX_N, GRID_MAX_N):
         raise KernelBuildError(f"{so} was built for another MAX_N")
     if any(lib.cora_small_eigh_cluster_size(n) != cluster_size(n)
            for n in range(1, CLUSTER_MAX_N + 2)):
         raise KernelBuildError(f"{so} sizes its clusters otherwise")
+    if any(lib.cora_small_eigh_grid_size(n) != grid_size(n)
+           for n in range(1, GRID_MAX_N + 2)):
+        raise KernelBuildError(f"{so} sizes its grid otherwise")
     BUILD_INFO.update(path=str(so), seconds=time.time() - t0, log=log)
     _LIB = lib
     return lib
@@ -146,42 +170,99 @@ def cluster_smem_bytes(n: int, clusters: int) -> int:
     return 8 * (4 * slots * (np_ + 1) + 2 * (7 * h + h % 2) + slots)
 
 
-def cluster_fits(n: int, clusters: int) -> bool:
-    """Whether `clusters` CTAs hold an n × n matrix: the shared memory,
-    and at least two pairs on every CTA."""
-    if n < CLUSTER_MIN_N or not 1 <= clusters <= CLUSTER_MAX_C:
+def parts_fit(n: int, parts: int) -> bool:
+    """Whether `parts` CTAs hold an n × n matrix (small_eigh.cu
+    `parts_fit`): the shared memory, and ⌈h/parts⌉ ≥ 2 pairs a CTA (a CTA
+    between two others needs two; the last that holds any may hold one,
+    the pair h − 1, and those past it none)."""
+    if n < CLUSTER_MIN_N or parts < 1:
         return False
     h = (n + n % 2) // 2
-    slots = -(-h // clusters)
-    if clusters > 1 and (slots < 2 or h - (clusters - 1) * slots < 2):
+    if parts > 1 and -(-h // parts) < 2:
         return False
-    return cluster_smem_bytes(n, clusters) <= CLUSTER_SMEM
+    return cluster_smem_bytes(n, parts) <= CLUSTER_SMEM
+
+
+def cluster_fits(n: int, clusters: int) -> bool:
+    """Whether a cluster of `clusters` CTAs (at most `CLUSTER_MAX_C`)
+    holds an n × n matrix."""
+    return clusters <= CLUSTER_MAX_C and parts_fit(n, clusters)
 
 
 def cluster_size(n: int) -> int:
-    """The CTAs of the cluster kernel at n: the smallest of 1, 2, 4, 8
+    """The CTAs of the cluster kernel at n: the smallest of 1, 2, 4, 8, 16
     that holds it (0: none does, past `CLUSTER_MAX_N`)."""
-    return next((c for c in (1, 2, 4, 8) if cluster_fits(n, c)), 0)
+    return next((c for c in (1, 2, 4, 8, 16) if cluster_fits(n, c)), 0)
+
+
+def grid_fits(n: int, ctas: int) -> bool:
+    """Whether the grid route's `ctas` CTAs (2 to `GRID_MAX_G`) hold an
+    n × n matrix, n ≤ `GRID_MAX_N`."""
+    return n <= GRID_MAX_N and 2 <= ctas <= GRID_MAX_G and parts_fit(n, ctas)
+
+
+def grid_size(n: int) -> int:
+    """The CTAs of the grid route at n (small_eigh.cu `grid_size`): the
+    most that hold it with two or more pairs each, at most `GRID_MAX_G`
+    (the smallest ⌈h/G⌉ ≥ 2 the card's CTAs allow; 0: none holds it). A
+    round's update on a CTA is bound by the entries of its pairs' rows that
+    pass through its shared memory; more CTAs cost the barrier little."""
+    h = (n + n % 2) // 2
+    for slots in range(2, h + 1):
+        g = -(-h // slots)
+        if g <= GRID_MAX_G:
+            return g if grid_fits(n, g) else 0
+    return 0
+
+
+def grid_work_doubles(n: int, max_sweeps: int, batch: int) -> int:
+    """Doubles of the grid route's workspace for `batch` matrices
+    (small_eigh.cu `cora_small_eigh_grid_work`): per matrix the cluster
+    family's (`cluster_work_doubles`), then the round table (two parities
+    of 7h doubles, h rounded up to even), the mailbox (two buffers × G CTAs
+    × two sides × n_p) and the barrier's count with the verdict, rounded up
+    to even."""
+    np_ = n + n % 2
+    h = np_ // 2
+    extra = 2 * (7 * h + h % 2) + 4 * grid_size(n) * np_ + 1
+    return batch * cluster_work_doubles(n, max_sweeps) + extra + extra % 2
+
+
+def cluster_work_doubles(n: int, max_sweeps: int) -> int:
+    """Doubles of the cluster family's workspace per matrix
+    (small_eigh.cu `cluster_work_doubles`): the rotation log ((c, s) per
+    slot for max_sweeps·(n_p − 1) + 1 rounds), V and A (n_p × n_p each) and
+    two ints, rounded up to even."""
+    np_ = n + n % 2
+    h = np_ // 2
+    total = 2 * (max_sweeps * (np_ - 1) + 1) * h + 2 * np_ * np_ + 1
+    return total + total % 2
 
 
 def route(n: int, dtype, kernel: str | None = None) -> str:
     """The kernel an n × n matrix of `dtype` runs on the card: "warp" for
-    n ≤ `WARP_MAX_N`, "cluster" for n ≤ `CLUSTER_MAX_N`, else "global";
-    `kernel` forces one (the comparisons of the probe and the smoke test;
-    "cta" only so), checked against its sizes. Raises for a size or a
-    dtype no kernel takes."""
+    n ≤ `WARP_MAX_N`, "cluster" for n ≤ `CLUSTER_MAX_N`, "grid" for n ≤
+    `GRID_MAX_N`, else "global"; `kernel` forces one (the comparisons of
+    the probe and the smoke test; "cta" only so), checked against its
+    sizes. Raises for a size or a dtype no kernel takes."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"small_eigh: dtype {dtype}")
-    if kernel not in (None, "warp", "cluster", "cta", "global"):
+    if kernel not in (None, "warp", "cluster", "grid", "cta", "global"):
         raise ValueError(f"small_eigh: no kernel {kernel!r}")
     least, most = {"warp": (1, WARP_MAX_N), "cta": (1, MAX_N),
                    "cluster": (CLUSTER_MIN_N, CLUSTER_MAX_N)}.get(
                        kernel, (1, None))
+    if kernel == "grid":
+        if not grid_size(n):
+            raise ValueError(f"small_eigh grid takes no n × n matrix with "
+                             f"n = {n} (two pairs a CTA, n ≤ {GRID_MAX_N})")
+        return kernel
     if n < least or (most is not None and n > most):
         raise ValueError(f"small_eigh {kernel} takes n × n matrices with "
                          f"{least} ≤ n ≤ {most}, got n = {n}")
     return kernel or ("warp" if n <= WARP_MAX_N else
-                      "cluster" if n <= CLUSTER_MAX_N else "global")
+                      "cluster" if n <= CLUSTER_MAX_N else
+                      "grid" if n <= GRID_MAX_N else "global")
 
 
 def small_eigh_plain(A: torch.Tensor):
@@ -202,8 +283,9 @@ def small_eigh(A: torch.Tensor, kernel: str | None = None):
     (its lower triangle is read): (w ascending, V with the eigenvectors as
     columns, info per matrix). On the CPU the plain twin; on the card the
     kernel `route` picks (or `kernel`; the cluster kernel on
-    `cluster_size(n)` CTAs), which raises for another dtype or a failed
-    launch."""
+    `cluster_size(n)` CTAs, the grid on `grid_size(n)`), which raises for
+    another dtype or a failed launch (the grid also where the card cannot
+    hold its CTAs at once)."""
     if A.device.type == "cpu":
         return small_eigh_plain(A)
     from cora_tpu_torch.ops.tnt_kernels import KernelLaunchError
@@ -231,6 +313,10 @@ def small_eigh(A: torch.Tensor, kernel: str | None = None):
         work = torch.empty(
             batch * lib.cora_small_eigh_cluster_work(n, MAX_SWEEPS),
             dtype=torch.float64, device=A.device)
+        args.append(work.data_ptr())
+    elif which == "grid":
+        work = torch.empty(lib.cora_small_eigh_grid_work(n, MAX_SWEEPS, batch),
+                           dtype=torch.float64, device=A.device)
         args.append(work.data_ptr())
     err = fn(*args, torch.cuda.current_stream(A.device).cuda_stream)
     key = KEYS[which]

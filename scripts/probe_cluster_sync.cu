@@ -8,6 +8,18 @@
 //                         cluster size attribute)
 //   probe_grid_sync     — `iters` grid.sync() in a cooperative launch of
 //                         `blocks` CTAs of 1024 threads
+//   probe_grid_barrier  — `iters` grid barriers in a cooperative launch
+//                         (cudaLaunchKernelEx, the cooperative attribute) of
+//                         `blocks` CTAs of 1024 threads, one per SM (each asks
+//                         for more than half an SM's shared memory): kind 0
+//                         grid.sync(), kind 1 a monotonic counter (a release
+//                         add by one thread a CTA, an acquire spin; zeroed by
+//                         a memset first). With `check`, each CTA stores the
+//                         barrier's index before it and reads its neighbour's
+//                         after it through L2; `bad` counts the misses. Its
+//                         launch is what a CUDA graph capture is asked to take
+//   probe_cluster_sync_smem — cluster.sync() as probe_cluster_sync, each CTA
+//                         with `smem` bytes of dynamic shared memory
 //   probe_l2_read       — `blocks` CTAs (one per SM: each asks for more than
 //                         half an SM's shared memory) stream their shares of
 //                         an L2-resident buffer `reps` times with 16-byte
@@ -51,6 +63,49 @@ grid_sync_kernel(int iters, float* sink) {
     acc += 1.f;
   }
   if (acc < 0.f) sink[0] = acc;
+}
+
+// a grid barrier on a monotonic count: every CTA's thread 0 adds one
+// (release) and waits (acquire) until all `gridDim.x` CTAs have added for
+// this barrier
+__device__ __forceinline__ void counter_barrier(unsigned* count, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(count) : "memory");
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+grid_barrier_kernel(int kind, int iters, int check, unsigned* count, int* slot,
+                    int* bad) {
+  const int G = gridDim.x, b = blockIdx.x;
+  int miss = 0;
+  for (int i = 0; i < iters; ++i) {
+    if (check && threadIdx.x == 0) slot[(i & 1) * G + b] = i;
+    if (kind == 0)
+      cg::this_grid().sync();
+    else
+      counter_barrier(count, (unsigned)G * (i + 1));
+    if (check && threadIdx.x == 0)
+      miss += __ldcg(slot + (i & 1) * G + (b + 1) % G) != i;
+  }
+  if (threadIdx.x == 0) bad[b] = miss;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+cluster_smem_kernel(int iters, float* sink) {
+  extern __shared__ float hold[];
+  float acc = (float)threadIdx.x;
+  for (int i = 0; i < iters; ++i) {
+    cg::this_cluster().sync();
+    acc += 1.f;
+  }
+  if (acc < 0.f) sink[0] = acc + hold[0];
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -107,6 +162,60 @@ int probe_grid_sync(int blocks, int iters, float* sink, void* stream) {
   cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)grid_sync_kernel, dim3(blocks), dim3(kThreads), args, 0,
       (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// kind 0: grid.sync(), 1: the counter barrier; `count` is zeroed first
+int probe_grid_barrier(int kind, int blocks, int iters, int check, unsigned* count,
+                       int* slot, int* bad, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)grid_barrier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kOneCtaPerSm);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemsetAsync(count, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = kOneCtaPerSm;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, grid_barrier_kernel, kind, iters, check, count, slot, bad);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// cluster.sync() at C CTAs of `smem` bytes of dynamic shared memory each;
+// also writes how many such clusters fit on the card at once
+int probe_cluster_sync_smem(int C, int smem, int iters, float* sink, int* max_clusters,
+                            void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)cluster_smem_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute((const void*)cluster_smem_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(max_clusters, (const void*)cluster_smem_kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, cluster_smem_kernel, iters, sink);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

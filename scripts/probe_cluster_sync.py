@@ -11,6 +11,17 @@ of `iters` barriers less that of none, over `iters`; median of 5):
   (b) `cluster.sync()` in one cluster of C = 2, 4, 8 and 16 CTAs of 1024
       threads, with the number of such clusters the card holds at once;
   (c) `grid.sync()` in a cooperative launch of one 1024-thread CTA per SM;
+      and, at G = 9, 17, 22, 64, 113, 129 and 132 CTAs (those the card
+      has), a grid barrier in a cooperative `cudaLaunchKernelEx` of G CTAs
+      one per SM: `grid.sync()` and a monotonic counter (a release add, an
+      acquire spin), the two `small_eigh_grid` could take (it takes the
+      counter, the faster on the H100: PERF.md); each launched also
+      inside a CUDA graph capture (torch.cuda.graph, as the LOBPCG loop
+      captures) and replayed, each CTA checking its neighbour's store
+      across every barrier: whether a cooperative launch captures, and
+      whether the barrier orders memory;
+  (b') `cluster.sync()` at 16 CTAs each holding `small_eigh`'s cluster
+      shared memory (231 424 bytes: one CTA per SM), and how many fit;
   (d) the L2 read rate of 1, 8, 16 and all SMs (one CTA each) streaming
       the plaza2-shaped graph's propagators' size (3 240 864 B) from L2.
 Prints one line per measurement and, last, one JSON object of them all
@@ -30,6 +41,12 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(REPO, "scripts", "probe_cluster_sync.cu")
 CLUSTERS = (2, 4, 8, 16)
+# grid barriers at CTA counts small_eigh_grid takes (n = 449-1056: 113 at
+# 449, 129 at 516, 132 at 1056, the card's SM count) and fewer
+GRID_BLOCKS = (9, 17, 22, 64, 113, 129, 132)
+GRID_KINDS = ("grid_sync", "counter")
+# small_eigh.cu CLUSTER_SMEM: the cluster family's dynamic shared memory
+EIGH_SMEM = 232448 - 1024
 # the plaza2-shaped graph's propagators: 11 levels × 2046 blocks × 6 × 6
 L2_BYTES = 11 * 2046 * 36 * 4
 
@@ -57,8 +74,11 @@ def build():
     lib.probe_cluster_sync.argtypes = [ci, ci, vp, vp, vp]
     lib.probe_grid_sync.argtypes = [ci, ci, vp, vp]
     lib.probe_l2_read.argtypes = [ci, vp, ci, ci, vp, vp]
+    lib.probe_grid_barrier.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp]
+    lib.probe_cluster_sync_smem.argtypes = [ci, ci, ci, vp, vp, vp]
     for fn in (lib.probe_block_sync, lib.probe_cluster_sync,
-               lib.probe_grid_sync, lib.probe_l2_read):
+               lib.probe_grid_sync, lib.probe_l2_read,
+               lib.probe_grid_barrier, lib.probe_cluster_sync_smem):
         fn.restype = ci
     return lib
 
@@ -77,6 +97,36 @@ def _ms(torch, launch, reps=5):
             raise RuntimeError(f"probe launch failed: CUDA error {err}")
         times.append(t0.elapsed_time(t1))
     return statistics.median(times[1:])
+
+
+def captured(torch, launch, bad):
+    """A launch captured into a CUDA graph as the LOBPCG loop captures
+    (warm-up on a side stream, then torch.cuda.graph) and replayed three
+    times: "ok" when every launch returned 0 and `bad` (the misses the
+    kernel counted) stays 0, else what failed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        err = launch(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    if err:
+        return f"eager launch: CUDA error {err}"
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            err = launch(torch.cuda.current_stream().cuda_stream)
+    except RuntimeError as e:
+        return f"capture refused: {e}"
+    if err:
+        return f"captured launch: CUDA error {err}"
+    for _ in range(3):
+        bad.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if int(bad.sum()):
+            return f"replay: {int(bad.sum())} stores missed across a barrier"
+    return "ok"
 
 
 def measure(lib, quick=False):
@@ -106,6 +156,30 @@ def measure(lib, quick=False):
     out["grid_blocks"] = sms
     out["grid_sync_us"] = per_barrier_us(
         lambda it: lib.probe_grid_sync(sms, it, sp, stream))
+    mc = ctypes.c_int(0)
+    out["cluster_sync_smem_us"] = {"16": per_barrier_us(
+        lambda it: lib.probe_cluster_sync_smem(16, EIGH_SMEM, it, sp,
+                                               ctypes.byref(mc), stream))}
+    out["cluster_smem_fit"] = {"16": mc.value}
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    blocks = [g for g in GRID_BLOCKS if g <= sms]
+    slot = torch.zeros(2 * max(blocks), dtype=torch.int32, device="cuda")
+    bad = torch.zeros(max(blocks), dtype=torch.int32, device="cuda")
+
+    def barrier(kind, G, it, check=0, st=None):
+        return lib.probe_grid_barrier(
+            kind, G, it, check, count.data_ptr(), slot.data_ptr(),
+            bad.data_ptr(), st or torch.cuda.current_stream().cuda_stream)
+
+    out["grid_barrier_us"] = {k: {} for k in GRID_KINDS}
+    out["grid_barrier_captured"] = {k: {} for k in GRID_KINDS}
+    for kind, name in enumerate(GRID_KINDS):
+        for G in blocks:
+            out["grid_barrier_us"][name][str(G)] = per_barrier_us(
+                lambda it, G=G, kind=kind: barrier(kind, G, it))
+            out["grid_barrier_captured"][name][str(G)] = captured(
+                torch, lambda st, G=G, kind=kind: barrier(kind, G, 100, 1, st),
+                bad[:G])
     buf = torch.ones(L2_BYTES // 4, device="cuda")
     n4 = buf.numel() // 4
     out["l2_bytes"] = L2_BYTES
@@ -141,6 +215,14 @@ def main():
               flush=True)
     print(f"[probe] grid.sync, {res['grid_blocks']} CTAs: "
           f"{res['grid_sync_us']:.4f} us", flush=True)
+    print(f"[probe] cluster.sync, 16 CTAs of {EIGH_SMEM} B shared memory: "
+          f"{res['cluster_sync_smem_us']['16']:.4f} us "
+          f"({res['cluster_smem_fit']['16']} clusters fit)", flush=True)
+    for kind in GRID_KINDS:
+        for G, us in res["grid_barrier_us"][kind].items():
+            print(f"[probe] grid barrier {kind}, {G} CTAs (cooperative "
+                  f"cudaLaunchKernelEx): {us:.4f} us; captured and replayed: "
+                  f"{res['grid_barrier_captured'][kind][G]}", flush=True)
     for b, r in res["l2_read_GBps"].items():
         print(f"[probe] L2 read, {b} SMs: {r:.1f} GB/s", flush=True)
     res.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi)

@@ -15,29 +15,33 @@ parallel). Prints nvcc's `-Xptxas -v` lines of the package's kernels, then:
       96 in float32 and float64, batch 1 and 4, the routed `small_eigh`
       and the cluster family (`small_eigh_cluster`, forced at n ≤ 32)
       against the one-CTA kernel (`small_eigh_cta`), and at n ≤ 32 the
-      one-warp kernel of every update-warp count; at n = 97, 99, 150, 198,
-      246 and 320 the routed cluster family against the global kernel
+      one-warp kernel of every update-warp count, and the grid forced on
+      its CTAs (9 to 49 here); at n = 97, 99, 150, 198, 246, 320, 321,
+      324, 384 and 448 the routed cluster family against the global kernel
       (`small_eigh_global`), so that each cluster size the route picks (1,
-      2, 4, 8 CTAs) is checked at an n it is picked for: `torch.equal` on
-      the bits of w, V and info, counted per case; the eigenvalues' error
-      against `torch.linalg.eigh` in float64;
+      2, 4, 8, 16 CTAs) is checked at an n it is picked for, and at 449,
+      456, 516, 768 and 1056 the grid (113, 114, 129, 128, 132 CTAs; past n =
+      320 the random, graded and NaN cases, batch 2 only to 516):
+      `torch.equal` on the bits of w, V and info, counted per case; the
+      eigenvalues' error against `torch.linalg.eigh` in float64;
   (b) times: median of 20 single calls (CUDA events around each, as
       `chip_smoke.py` times) of the one-CTA kernel, the one-warp kernel of
       each update-warp count (`warp<w>_ms`) and `torch.linalg.eigh`, in
       turns (one-CTA, warp, warp, one-CTA), at n = 10, 30, 36 in both
       dtypes, with the sweeps taken; and each kernel's device ms per call
-      over 50 calls back to back (`loop_ms`); the cluster family against
-      its comparator in turns (cluster, old, old, cluster; the one-CTA
-      kernel at n = 36, the global one at n = 99, 150, 198 and 246; median
-      of 5 past n = 96) in float32, beside `torch.linalg.eigh`, with its
-      cluster size;
+      over 50 calls back to back (`loop_ms`); the cluster family and the
+      grid against their comparator in turns (new, old, old, new; the
+      one-CTA kernel at n = 36, the global one at n = 99, 150, 198, 246,
+      324, 448 and 516; median of 5 past n = 96, of 3 past 320) in
+      float32, beside `torch.linalg.eigh`, with the CTA count;
   (c) with `--split`: builds with `-DSMALL_EIGH_SPLIT` (never set by the
       package's build), whose one-warp kernel stamps `clock64()` in each
       round: the cycles per round of the rotation warp (the next round's
       entries and rotations), of update warp 0 and of its wait at the
       round's barrier, and per stop test, at n = 10 and 30 for each
-      update-warp count; and whose cluster family stamps, at n = 99, 198
-      and 246: per round the look-ahead warp's body (the next round's entries
+      update-warp count; and whose cluster family stamps, at n = 99, 198,
+      246 and 324, and grid at 516 and 1056: per round the look-ahead
+      warp's body (the next round's entries
       and rotations, and their stores into every CTA's table) and its wait
       at the round's barrier, the first update warp's body and its wait;
       per sweep the stop test; the A kernel's whole run, and the V kernel's
@@ -73,14 +77,22 @@ from small_eigh_cases import bits_equal, corpus, ptxas_lines  # noqa: E402
 
 SIZES = (10, 12, 30, 31, 32, 36, 64, 96)
 # past the one-CTA kernel: the cluster family against the global kernel,
-# routed to 1 CTA (97, 99), 2 (150), 4 (198) and 8 (246, 320)
-GLOBAL_SIZES = (97, 99, 150, 198, 246, 320)
+# routed to 1 CTA (97, 99), 2 (150), 4 (198), 8 (246, 320) and 16 (321,
+# 324, 384, 448); the grid routed at 449 (113 CTAs, the last of one pair),
+# 456 (114), 516 (129), 768 (128) and 1056 (132)
+GLOBAL_SIZES = (97, 99, 150, 198, 246, 320, 321, 324, 384, 448, 449, 456,
+                516, 768, 1056)
+# past these, fewer cases (the global kernel takes seconds a call)
+LARGE_N = 320
+LARGE_CASES = ("random", "graded", "nonfinite")
 TIMED = (10, 30, 36)
-# the cluster family timed against its comparator (float32), at 1, 1, 2,
-# 4 and 8 CTAs
-CLUSTER_TIMED = (36, 99, 150, 198, 246)
+# the cluster family and the grid timed against their comparator
+# (float32), at 1, 1, 2, 4, 8 and 16 CTAs, and on the grid's 22
+CLUSTER_TIMED = (36, 99, 150, 198, 246, 324, 448, 516)
 SPLIT = (10, 30)
-CLUSTER_SPLIT = (99, 198, 246)
+# the cluster family's and the grid's clock64() split, at 1, 4, 8 and 16
+# CTAs and on the grid's 22 and 106
+CLUSTER_SPLIT = (99, 198, 246, 324, 516, 1056)
 HANG_S = 60  # a first call of a kernel not done by then has hung
 WIDTHS = (1, 2, 3, 4)  # update warps of the one-warp kernel; the package: 3
 REPS = 20
@@ -204,12 +216,14 @@ def check_bits(torch, se, libs, quick=False):
     eigenvalues' error against float64 eigh."""
     rows, failed = [], []
     for n in SIZES + GLOBAL_SIZES:
-        mats = [corpus(n, s) for s in range(4)]
+        mats = [corpus(n, s) for s in range(4 if n <= LARGE_N else 2)]
         old = "cta" if n <= se.MAX_N else "global"
         for dt in (torch.float32, torch.float64):
-            for batch in ((1,) if quick else (1, 4)):
+            for batch in ((1,) if quick or n > 516 else (1, len(mats))):
                 for name in mats[0]:
                     if quick and name not in ("random", "nonfinite"):
+                        continue
+                    if n > LARGE_N and name not in LARGE_CASES:
                         continue
                     A = torch.as_tensor(np.stack([m[name] for m in mats[:batch]])
                                         if batch > 1 else mats[0][name]
@@ -221,6 +235,11 @@ def check_bits(torch, se, libs, quick=False):
                         same = same and bits_equal(waited(
                             torch, lambda: se.small_eigh(
                                 A, kernel="cluster")), cta)
+                    if 3 <= n <= se.CLUSTER_MAX_N and se.grid_size(n):
+                        # the grid forced (9 to 49 CTAs here)
+                        same = same and bits_equal(waited(
+                            torch, lambda: se.small_eigh(A, kernel="grid")),
+                            cta)
                     if n <= se.WARP_MAX_N and not quick:
                         same = same and all(bits_equal(
                             run_warp(libs[w], A, torch, se), cta)
@@ -233,7 +252,8 @@ def check_bits(torch, se, libs, quick=False):
                     rows.append(dict(n=n, dtype=str(dt)[6:], batch=batch,
                                      case=name, route=se.route(n, dt),
                                      against=old, same=same,
-                                     clusters=se.cluster_size(n),
+                                     clusters=se.cluster_size(n)
+                                     or se.grid_size(n),
                                      sweeps=routed[2].reshape(-1).tolist(),
                                      eig_err=err))
                     if not same:
@@ -292,18 +312,21 @@ def time_cluster(torch, se):
         M = rng.standard_normal((n, n))
         A = torch.as_tensor(M + M.T).to("cuda", torch.float32)
         old = "cta" if n <= se.MAX_N else "global"
-        reps = REPS if n <= se.MAX_N else 5
+        new = "grid" if n > se.CLUSTER_MAX_N else "cluster"
+        reps = REPS if n <= se.MAX_N else 5 if n <= 320 else 3
         run = {k: (lambda k=k: se.small_eigh(A, kernel=k))
-               for k in ("cluster", old)}
+               for k in (new, old)}
         t = [median_ms(run[k], torch, reps)
-             for k in ("cluster", old, old, "cluster")]
-        row = dict(n=n, dtype="float32", clusters=se.cluster_size(n),
+             for k in (new, old, old, new)]
+        row = dict(n=n, dtype="float32", route=new,
+                   clusters=se.cluster_size(n) or se.grid_size(n),
                    sweeps=int(se.small_eigh(A)[2]), against=old,
                    turns_ms=t, cluster_ms=(t[0] + t[3]) / 2,
                    old_ms=(t[1] + t[2]) / 2,
                    eigh_ms=median_ms(lambda: torch.linalg.eigh(A), torch,
                                      reps))
-        for d, lib in variant_libs.items():  # --define builds, in turns
+        for d, lib in (variant_libs.items() if new == "cluster" else ()):
+            # --define builds' cluster family, in turns
             t2 = [median_ms(f, torch, reps) for f in (
                 run["cluster"], lambda: run_cluster(lib, A, torch, se),
                 lambda: run_cluster(lib, A, torch, se), run["cluster"])]
@@ -314,23 +337,29 @@ def time_cluster(torch, se):
 
 
 def cluster_split(torch, se, lib):
-    """(c): the cluster family's clock64() stamps (matrix 0, CTA 0), per
-    round, per stop test and per kernel, from the -DSMALL_EIGH_SPLIT
-    build."""
+    """(c): the cluster family's and the grid's clock64() stamps (matrix 0,
+    CTA 0), per round, per stop test and per kernel, from the
+    -DSMALL_EIGH_SPLIT build."""
     out = []
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.cora_small_eigh_cluster_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci,
-                                                vp, vp]
+    for fn in (lib.cora_small_eigh_cluster_f32, lib.cora_small_eigh_grid_f32):
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
     lib.cora_small_eigh_cluster_work.argtypes = [ci, ci]
     lib.cora_small_eigh_cluster_work.restype = ctypes.c_longlong
+    lib.cora_small_eigh_grid_work.argtypes = [ci, ci, ci]
+    lib.cora_small_eigh_grid_work.restype = ctypes.c_longlong
     for n in CLUSTER_SPLIT:
         A = torch.as_tensor(corpus(n)["random"]).to("cuda", torch.float32)
         w = torch.empty(n, dtype=A.dtype, device="cuda")
         V = torch.empty_like(A)
         info = torch.empty(1, dtype=torch.int32, device="cuda")
-        work = torch.empty(lib.cora_small_eigh_cluster_work(n, se.MAX_SWEEPS),
-                           dtype=torch.float64, device="cuda")
-        err = lib.cora_small_eigh_cluster_f32(
+        grid = n > se.CLUSTER_MAX_N
+        words = (lib.cora_small_eigh_grid_work(n, se.MAX_SWEEPS, 1) if grid
+                 else lib.cora_small_eigh_cluster_work(n, se.MAX_SWEEPS))
+        work = torch.empty(words, dtype=torch.float64, device="cuda")
+        launch = (lib.cora_small_eigh_grid_f32 if grid
+                  else lib.cora_small_eigh_cluster_f32)
+        err = launch(
             A.data_ptr(), w.data_ptr(), V.data_ptr(), info.data_ptr(), 1, n,
             se.MAX_SWEEPS, work.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -343,7 +372,8 @@ def cluster_split(torch, se, lib):
             raise RuntimeError(f"split clocks: CUDA error {err}")
         c = list(clk)
         rounds = max(c[0], 1)
-        row = dict(n=n, clusters=se.cluster_size(n), rounds=c[0],
+        row = dict(n=n, route="grid" if grid else "cluster",
+                   clusters=se.cluster_size(n) or se.grid_size(n), rounds=c[0],
                    sweeps=int(info), lookahead=c[1] / rounds,
                    lookahead_wait=c[2] / rounds, update=c[3] / rounds,
                    update_wait=c[4] / rounds,

@@ -60,10 +60,14 @@ def ptxas_lines(log):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            m = re.search(r"(small_eigh_(?:warp|cta|global|cluster|vectors|sort)_kernel)I([fd])", name)
+            m = re.search(r"(small_eigh_(?:warp|cta|global|cluster|vectors|sort)"
+                          r"_kernel)I(?:([fd])|Li(\d+)E)", name)
             if m:
-                name = (f"{m.group(1)}<"
-                        f"{'float' if m.group(2) == 'f' else 'double'}>")
+                args = ([{"f": "float", "d": "double"}[m.group(2)]]
+                        if m.group(2) else [m.group(3)])
+                args += [link for link in ("ClusterLink", "GridLink")
+                         if link in name]
+                name = f"{m.group(1)}<{', '.join(args)}>"
         elif name and ("registers" in line or "spill" in line):
             out.append((name, line.strip().split(": ", 1)[-1]))
     return out

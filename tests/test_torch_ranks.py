@@ -8,7 +8,8 @@ port's kernels keep their rank-sized buffers in dynamic shared memory
 sized at launch, so their bound is `chain.rank_bound` (one block's shared
 memory), and the certificate's Rayleigh–Ritz matrices (n = 3k, k = r + 2)
 past the one-warp `small_eigh` kernel's n ≤ 32 go to its cluster family
-(n ≤ 320) and past that to its global-memory route. Here:
+(n ≤ 448), then to its grid (n ≤ 1056) and past that to its global-memory
+route. Here:
   * `PlainTNT` (the kernels' plain versions) at rank 12 (d = 2) and 11
     (d = 3) against the JAX package's interpret-mode `PallasTNT`, with the
     tests and tolerances of `test_torch_kernels_plain.py`;
@@ -235,11 +236,11 @@ def test_rank_bound_covers_the_jax_guard(g):
     assert guard >= 80  # rank 80 plaza2-shaped, 150 single_drone-shaped
     assert chain.rank_bound(g["n_landmarks"], jpd.size) >= guard
     # the certificate at that rank: k = r + 2, Rayleigh–Ritz n = 3k, the
-    # cluster family's to n = 320, the global kernel's past it
+    # cluster family's to n = 448, the grid's to 1056 (rank 150's 456)
     n = 3 * (guard + 2)
     for dt in (torch.float32, torch.float64):
         assert se.route(n, dt) == ("cluster" if n <= se.CLUSTER_MAX_N
-                                   else "global")
+                                   else "grid")
 
 
 def test_rank_bound_is_shared_memory():
@@ -303,12 +304,12 @@ def test_global_route_emulation_matches_numpy(n):
     assert np.abs(V.T @ V - np.eye(n)).max() <= 10 * eigh.EIG_TOL
 
 
-@pytest.mark.parametrize("n", [1, 97, 246, 456])
+@pytest.mark.parametrize("n", [1, 97, 246, 456, 1057])
 def test_route_global_by_size(n):
     assert se.route(n, torch.float64, kernel="global") == "global"
     assert se.route(n, torch.float32) == (
         "warp" if n == 1 else "cluster" if n <= se.CLUSTER_MAX_N else
-        "global")
+        "grid" if n <= se.GRID_MAX_N else "global")
 
 
 # ---------------------------------------------------------------------------

@@ -6,24 +6,26 @@ same bits: the one-CTA kernel (`small_eigh_cta`: a thread per 2 × 2 block
 (i ≤ j) of a round, the mirrored block written by the same thread), the
 one-warp kernel the wrapper routes n ≤ 32 to (a lane per row of A, each
 lane computing the entries of its own row), and the cluster family the
-wrapper routes 32 < n ≤ 320 to (A's rows by circle-method position over C
+wrapper routes 32 < n ≤ 448 to (A's rows by circle-method position over C
 CTAs, each round's next pairs computed a round ahead from this round's
 rows and table, the rows written straight into their next positions,
 across a CTA boundary where the shift takes them there; V afterwards from
-the log of rotations, by slot). The emulations below follow each kernel's
-order of operations: (a) block by block, (b) row by row, where a row's
-entry in a block (j, i) with slot j < i is computed as the one-CTA
-kernel's thread for (j, i) computes it (rows with Jⱼ first, then columns
-with Jᵢ) and transposed, (c) the cluster family's positions, tables and
-shift (`Cluster`). The stop test's sums are taken in the one-CTA kernel's
+the log of rotations, by slot), and on to 1056 the same rounds on a grid
+of co-resident CTAs (the crossing rows through a mailbox, each CTA's copy
+of the table imported after the barrier). The emulations below follow
+each kernel's order of operations: (a) block by block, (b) row by row,
+where a row's entry in a block (j, i) with slot j < i is computed as the
+one-CTA kernel's thread for (j, i) computes it (rows with Jⱼ first, then
+columns with Jᵢ) and transposed, (c) the cluster family's positions,
+tables and shift (`Cluster`), (d) with `grid`, the grid's. The stop test's sums are taken in the one-CTA kernel's
 order for its thread count (a strided sum per thread, a `__shfl_down` tree
 per warp, a tree over the warps), (b) replaying it virtual warp by
 virtual warp, as the one-warp kernel does, (c) with the terms read from
 the rows by position, up to ~60 a thread past n = 45, as the cluster
 family's CTA 0 does. They must agree bit for bit on A, V and the sweeps,
 and with `numpy.linalg.eigh` to the tolerances of `test_torch_cert_loop.py`.
-The wrapper's routing and cluster sizes and `pair_of`'s round-robin
-schedule are checked too. Everything here runs on the CPU and checks the
+The wrapper's routing, cluster and grid sizes and workspace formulas and
+`pair_of`'s round-robin schedule are checked too. Everything here runs on the CPU and checks the
 emulations and the wrapper's routing, not the CUDA source: the kernels
 themselves are held to each other, bit for bit, only on the card, by
 `scripts/probe_small_eigh.py` and `chip_smoke.py` phase 2.
@@ -399,12 +401,22 @@ class Cluster:
     [slot − cta·S] by circle-method position, the round's table per slot
     (c, s, t, the diagonal at p and q, the pair's entry, p, q), the log of
     (c, s) per round. A row's diagonal entry is never written after the
-    load (NaN here: a read of it would show), its table entry carries it."""
+    load (NaN here: a read of it would show), its table entry carries it.
 
-    def __init__(self, M, C):
+    With `grid`, the grid route's layout on C co-resident CTAs: the
+    look-ahead writes a global table; the rows that cross a CTA boundary go
+    to a mailbox; at the barrier each CTA copies its incoming rows and, into
+    a table of its own, every slot's (c, s, p, q) and its own and its
+    neighbours' slots' t and entries, and the round reads only that table
+    (the entries it does not copy are NaN, so a read of them would show, as
+    would a row the mailbox did not bring: a buffer is NaN before the
+    round writes it)."""
+
+    def __init__(self, M, C, grid=False):
         A, _, self.n, self.npad = start(M)
         self.m, self.h = self.npad - 1, self.npad // 2
-        self.C, self.S = C, -(-self.h // C)
+        self.C, self.S, self.grid = C, -(-self.h // C), grid
+        self.used = -(-self.h // self.S)  # the CTAs that hold slots
         self.rows = np.zeros((C, 2, 2, self.S, self.npad))
         slots = np.arange(self.h)
         for side in (0, 1):
@@ -414,8 +426,26 @@ class Cluster:
         c, s, t = rotations(A[P, P], A[Q, Q], A[P, Q])
         self.tab = dict(c=c, s=s, t=t, dp=A[P, P], dq=A[Q, Q], apq=A[P, Q],
                         p=P, q=Q)
+        self.tabs = [self.imported(c) for c in range(C)]
         self.log = [(c, s)]
         self.cur = 0
+
+    def slots(self, c):
+        """CTA c's slots (none past the last that holds any)."""
+        return np.arange(min(c * self.S, self.h), min((c + 1) * self.S, self.h))
+
+    def imported(self, c):
+        """CTA c's copy of the table: (c, s, p, q) of every slot; t and the
+        three entries of its slots and their neighbours', NaN elsewhere."""
+        k = self.slots(c)
+        out = {key: v.copy() for key, v in self.tab.items()}
+        if self.grid:
+            lo = max(k[0] - 1, 0) if len(k) else 0
+            hi = min(k[-1] + 2, self.h) if len(k) else 0
+            for key in ("t", "dp", "dq", "apq"):
+                out[key][:lo] = np.nan
+                out[key][hi:] = np.nan
+        return out
 
     def cta(self, slot):
         return np.asarray(slot) // self.S
@@ -424,15 +454,15 @@ class Cluster:
         slot = np.asarray(slot)
         return self.rows[slot // self.S, buf, side, slot % self.S]
 
-    def p_side(self, rd, slot):
+    def p_side(self, rd, slot, tb):
         """The side of each slot's p in round rd."""
-        return np.where(index_at(rd, slot, 0, self.m) == self.tab["p"][slot],
-                        0, 1)
+        return np.where(index_at(rd, slot, 0, self.m) == tb["p"][slot], 0, 1)
 
-    def round(self, rd):
-        h, m, tb = self.h, self.m, self.tab
-        k = np.arange(h)
-        # the look-ahead: next round's table from this round's rows
+    def lookahead(self, rd, tb, k):
+        """Next round's table entries at the slots k (one CTA's, or all in
+        the cluster, whose CTAs share the table) from the table tb and the
+        rows of each next pair's source slot on k's CTA."""
+        h, m = self.h, self.m
         ia, sa = prev_pos(k, 0, h)
         ib, sb = prev_pos(k, 1, h)
         ua, ub = index_at(rd, ia, sa, m), index_at(rd, ib, sb, m)
@@ -447,26 +477,31 @@ class Cluster:
         uL, uO = np.where(own_a, ua, ub), np.where(own_a, ub, ua)
         assert (self.cta(L) == self.cta(k)).all()  # rows on k's own CTA
         pL, pO, qO = tb["p"][L], tb["p"][O], tb["q"][O]
-        ps = self.p_side(rd, L)
+        ps = self.p_side(rd, L, tb)
         rp, rq = self.row(self.cur, L, ps), self.row(self.cur, L, 1 - ps)
+        r = np.arange(len(k))
         at_p, at_q = row_entries(
             uL == pL, L < O, tb["c"][L], tb["s"][L], tb["c"][O], tb["s"][O],
-            rp[k, pO], rp[k, qO], rq[k, pO], rq[k, qO])
+            rp[r, pO], rp[r, qO], rq[r, pO], rq[r, qO])
         apq = np.where(uO == pO, at_p, at_q)
         app, aqq = np.where(ua < ub, da, db), np.where(ua < ub, db, da)
         c, s, t = rotations(app, aqq, apq)
-        nxt = dict(c=c, s=s, t=t, dp=app, dq=aqq, apq=apq,
-                   p=np.minimum(ua, ub), q=np.maximum(ua, ub))
-        # the update: each slot's rows at every column slot, into their
-        # next positions (another CTA's at a boundary)
-        i = np.arange(h)[:, None]
+        return dict(c=c, s=s, t=t, dp=app, dq=aqq, apq=apq,
+                    p=np.minimum(ua, ub), q=np.maximum(ua, ub))
+
+    def update(self, rd, tb, slots):
+        """The rows of `slots` after the round at every column slot: (side
+        of p, the p rows, the q rows), NaN where the round writes nothing."""
+        h = self.h
+        i = slots[:, None]
         j = np.arange(h)[None, :]
-        ps = self.p_side(rd, np.arange(h))
-        rp = self.row(self.cur, np.arange(h), ps)
-        rq = self.row(self.cur, np.arange(h), 1 - ps)
+        ps = self.p_side(rd, slots, tb)
+        rp = self.row(self.cur, slots, ps)
+        rq = self.row(self.cur, slots, 1 - ps)
+        r = np.arange(len(slots))[:, None]
         P, Q = tb["p"], tb["q"]
-        x00, x01 = rp[i, P[j]], rp[i, Q[j]]
-        x10, x11 = rq[i, P[j]], rq[i, Q[j]]
+        x00, x01 = rp[r, P[j]], rp[r, Q[j]]
+        x10, x11 = rq[r, P[j]], rq[r, Q[j]]
         lo = i < j
         z00, z01, z10, z11 = block(
             np.where(lo, tb["c"][i], tb["c"][j]),
@@ -474,27 +509,58 @@ class Cluster:
             np.where(lo, tb["c"][j], tb["c"][i]),
             np.where(lo, tb["s"][j], tb["s"][i]),
             x00, np.where(lo, x01, x10), np.where(lo, x10, x01), x11)
-        op = np.full((h, self.npad), np.nan)
-        oq = np.full((h, self.npad), np.nan)
+        op = np.full((len(slots), self.npad), np.nan)
+        oq = np.full((len(slots), self.npad), np.nan)
         off = i != j
-        ii = np.broadcast_to(i, off.shape)
+        rr = np.broadcast_to(r, off.shape)
         Pj, Qj = np.broadcast_to(P[j], off.shape), np.broadcast_to(Q[j],
                                                                   off.shape)
-        op[ii[off], Pj[off]] = z00[off]
-        op[ii[off], Qj[off]] = np.where(lo, z01, z10)[off]
-        oq[ii[off], Pj[off]] = np.where(lo, z10, z01)[off]
-        oq[ii[off], Qj[off]] = z11[off]
-        op[np.arange(h), Q] = 0.0
-        oq[np.arange(h), P] = 0.0
-        nbuf = self.cur ^ 1
-        for side, out in ((ps, op), (1 - ps, oq)):
-            ni, ns = next_pos(np.arange(h), side, h)
-            self.rows[ni // self.S, nbuf, ns, ni % self.S] = out
-        self.crossed = int(sum(
-            (self.cta(next_pos(np.arange(h), sd, h)[0])
-             != self.cta(np.arange(h))).sum() for sd in (0, 1)))
+        op[rr[off], Pj[off]] = z00[off]
+        op[rr[off], Qj[off]] = np.where(lo, z01, z10)[off]
+        oq[rr[off], Pj[off]] = np.where(lo, z10, z01)[off]
+        oq[rr[off], Qj[off]] = z11[off]
+        op[r[:, 0], Q[slots]] = 0.0
+        oq[r[:, 0], P[slots]] = 0.0
+        return ps, op, oq
+
+    def round(self, rd):
+        h, S, nbuf = self.h, self.S, self.cur ^ 1
+        self.rows[:, nbuf] = np.nan
+        nxt = {key: np.zeros(h, dtype=v.dtype) for key, v in self.tab.items()}
+        mail, self.crossed = {}, 0
+        for c in range(self.C if self.grid else 1):
+            k = self.slots(c) if self.grid else np.arange(h)
+            if not len(k):
+                continue
+            tb = self.tabs[c] if self.grid else self.tab
+            for key, v in self.lookahead(rd, tb, k).items():
+                nxt[key][k] = v
+            ps, op, oq = self.update(rd, tb, k)
+            for side, out in ((ps, op), (1 - ps, oq)):
+                ni, ns = next_pos(k, side, h)
+                for x in range(len(k)):
+                    to = ni[x] // S
+                    if to != k[x] // S:
+                        self.crossed += 1
+                        if self.grid:  # into the neighbour's mailbox
+                            assert (to, ns[x]) not in mail
+                            mail[to, ns[x]] = out[x]
+                            continue
+                    self.rows[to, nbuf, ns[x], ni[x] % S] = out[x]
+        if self.grid:
+            # the barrier: each CTA's incoming rows (the a-row at its last
+            # slot from the next CTA, the b-row at its first from the
+            # previous), then its copy of the table
+            for c in range(self.C):
+                k = self.slots(c)
+                if len(k) and k[-1] < h - 1:
+                    self.rows[c, nbuf, 0, len(k) - 1] = mail.pop((c, 0))
+                if len(k) and k[0] > 0:
+                    self.rows[c, nbuf, 1, 0] = mail.pop((c, 1))
+            assert not mail
         self.cur, self.tab = nbuf, nxt
-        self.log.append((c, s))
+        self.tabs = [self.imported(c) for c in range(self.C)]
+        self.log.append((nxt["c"], nxt["s"]))
 
     def natural(self, rd):
         """A in index order at the start of round rd (its table's)."""
@@ -590,7 +656,8 @@ def test_cluster_rounds_reproduce_blocks_bit_for_bit(n, dtype):
             emu.round(rd)
             crossed += emu.crossed
             assert same_bits(emu.natural((rd + 1) % (npad - 1)), A), (C, g)
-        assert crossed == 2 * (C - 1) * rounds  # two rows each boundary
+        # two rows each boundary
+        assert crossed == 2 * (emu.used - 1) * rounds
         Vc = vectors_from_log(emu.log, n, npad, rounds)
         assert same_bits(Vc[:n], V[:n]), C
 
@@ -637,35 +704,214 @@ def test_cluster_stop_sum_replays_cta_order(n):
 
 
 @pytest.mark.parametrize("n", [32, 33, 116, 117, 164, 165, 232, 233, 246,
-                               320, 321, 456])
+                               320, 321, 448, 449, 456, 1056, 1057])
 def test_route_cluster_and_global_by_size(n):
-    """32 < n ≤ CLUSTER_MAX_N to the cluster family, past it to the global
-    kernel; the cluster size is the smallest power of two whose shared
-    memory holds A twice (and two pairs a CTA)."""
+    """32 < n ≤ CLUSTER_MAX_N to the cluster family, to GRID_MAX_N the
+    grid, past it the global kernel; the cluster size is the smallest power
+    of two whose shared memory holds A twice (and two pairs a CTA)."""
     want = ("warp" if n <= se.WARP_MAX_N else
-            "cluster" if n <= se.CLUSTER_MAX_N else "global")
+            "cluster" if n <= se.CLUSTER_MAX_N else
+            "grid" if n <= se.GRID_MAX_N else "global")
     for dt in (torch.float32, torch.float64):
         assert se.route(n, dt) == want
     C = se.cluster_size(n)
     if n > se.CLUSTER_MAX_N:
-        assert C == 0 and not any(se.cluster_fits(n, c) for c in range(1, 9))
+        assert C == 0 and not any(se.cluster_fits(n, c) for c in range(1, 17))
         return
-    assert C in (1, 2, 4, 8)
+    assert C in (1, 2, 4, 8, 16)
     assert se.cluster_smem_bytes(n, C) <= se.CLUSTER_SMEM
     assert C == 1 or not se.cluster_fits(n, C // 2)
 
 
 def test_cluster_sizes_at_the_boundaries():
     assert [se.cluster_size(n) for n in (33, 99, 116, 117, 150, 164, 165,
-                                         232, 233, 246, 320, 321)] \
-        == [1, 1, 1, 2, 2, 2, 4, 4, 8, 8, 8, 0]
+                                         232, 233, 246, 320, 321, 324, 448,
+                                         449)] \
+        == [1, 1, 1, 2, 2, 2, 4, 4, 8, 8, 8, 16, 16, 16, 0]
     assert se.CLUSTER_MAX_N == max(n for n in range(1, 600)
                                    if se.cluster_size(n))
+    # every n of the 16-CTA range on 16 CTAs (the last few may hold one
+    # pair, or none: 321-332 leave the sixteenth CTA empty)
+    assert all(se.cluster_size(n) == 16 for n in range(321, 449))
 
 
-@pytest.mark.parametrize("n", [2, 321, 456])
+@pytest.mark.parametrize("n", [2, 449, 456])
 def test_forced_cluster_checks_its_size(n):
     with pytest.raises(ValueError):
         se.route(n, torch.float64, kernel="cluster")
     assert se.route(3, torch.float64, kernel="cluster") == "cluster"
     assert se.route(320, torch.float32, kernel="cluster") == "cluster"
+    assert se.route(448, torch.float32, kernel="cluster") == "cluster"
+
+
+# ---------------------------------------------------------------------------
+# (d) the grid route
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [320, 321, 448, 449, 1056, 1057])
+def test_grid_route_boundaries(n, dtype):
+    """448 < n ≤ 1056 to the grid, on the most CTAs (at most the card's
+    132) that hold the rows twice and the table with ≥ 2 pairs a CTA;
+    past 1056 the global kernel."""
+    dt = getattr(torch, dtype)
+    want = ("cluster" if n <= se.CLUSTER_MAX_N else
+            "grid" if n <= se.GRID_MAX_N else "global")
+    assert se.route(n, dt) == want
+    G = se.grid_size(n)
+    if n > se.GRID_MAX_N:
+        assert G == 0
+        with pytest.raises(ValueError):
+            se.route(n, dt, kernel="grid")
+        return
+    assert 2 <= G <= se.GRID_MAX_G and se.grid_fits(n, G)
+    h = (n + n % 2) // 2
+    S = -(-h // G)
+    # two pairs a CTA, or one fewer would take more CTAs than the card has
+    assert S >= 2 and (S == 2 or -(-h // (S - 1)) > se.GRID_MAX_G)
+    assert se.cluster_smem_bytes(n, G) <= se.CLUSTER_SMEM
+    assert se.route(n, dt, kernel="grid") == "grid"
+
+
+def test_grid_sizes():
+    """The CTA counts at the certificates' n = 3(r + 2): rank 150 (456),
+    170 (516), 331 (1000) and 350 (1056); and 449, whose last CTA holds
+    one pair."""
+    assert [se.grid_size(n) for n in (449, 456, 516, 768, 1000, 1056)] \
+        == [113, 114, 129, 128, 125, 132]
+    h = 225  # n = 449
+    S = -(-h // 113)
+    assert h - 112 * S == 1
+    assert se.GRID_MAX_N == 1056
+    assert all(se.grid_size(n) for n in range(449, se.GRID_MAX_N + 1))
+    assert not se.grid_size(se.GRID_MAX_N + 1)
+
+
+def test_grid_workspace():
+    """The workspace formulas: per matrix the cluster family's (the log,
+    MAX_SWEEPS·(n_p − 1) + 1 rounds of (c, s) per pair, 16 B each; V and A;
+    two ints), then the grid's table, mailbox and barrier words once."""
+    for n in (324, 448, 456, 1000, 1056):
+        npad = n + n % 2
+        h = npad // 2
+        log = 16 * (se.MAX_SWEEPS * (npad - 1) + 1) * h
+        per = se.cluster_work_doubles(n, se.MAX_SWEEPS)
+        assert per % 2 == 0 and 8 * per >= log + 2 * 8 * npad * npad + 8
+        assert 8 * per - (log + 2 * 8 * npad * npad) <= 16
+        G = se.grid_size(n)
+        for batch in (1, 3):
+            total = se.grid_work_doubles(n, se.MAX_SWEEPS, batch)
+            extra = total - batch * per
+            if G:
+                assert extra >= 2 * (7 * h) + 4 * G * npad + 1
+                assert extra % 2 == 0 and extra - (2 * (7 * h + h % 2)
+                                                   + 4 * G * npad + 1) <= 1
+    # the log's size, as the route's docstring gives it
+    mb = {n: 16 * (se.MAX_SWEEPS * (n - 1) + 1) * (n // 2) / 1e6
+          for n in (324, 448, 456, 1000, 1056)}
+    assert [round(mb[n]) for n in (324, 448, 456, 1000, 1056)] \
+        == [25, 48, 50, 240, 267]
+
+
+# the grid emulated against the one-CTA kernel's blocks: uneven last CTAs
+# (99 on 3: 17, 17, 16 pairs; 64 on 7: five of 5, 2), one pair on the last
+# (33 on 16: 9 CTAs of 2, then 1, then empty ones), and the grid's smallest
+GRID_CASES = ((33, 3), (33, 16), (35, 5), (64, 7), (99, 3), (99, 16),
+              (36, 2))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n, G", GRID_CASES)
+def test_grid_rounds_reproduce_blocks_bit_for_bit(n, G, dtype):
+    """A sweep and a round of the grid layout, rows across CTA boundaries
+    through the mailbox and each CTA reading only its imported table,
+    against the one-CTA kernel's blocks, round by round: A (the rows by
+    position, the diagonal from the table) and, from the log, V."""
+    M = corpus(n)["random"].astype(dtype).astype(np.float64)
+    A, V, _, npad = start(M)
+    emu = Cluster(M, G, grid=True)
+    rounds = npad  # a whole sweep and one round of the next
+    crossed = 0
+    for g in range(rounds):
+        rd = g % (npad - 1)
+        A = round_blocks(A, V, n, rd)
+        emu.round(rd)
+        crossed += emu.crossed
+        assert same_bits(emu.natural((rd + 1) % (npad - 1)), A), (G, g)
+    assert crossed == 2 * (emu.used - 1) * rounds  # two rows each boundary
+    Vc = vectors_from_log(emu.log, n, npad, rounds)
+    assert same_bits(Vc[:n], V[:n])
+
+
+@pytest.mark.parametrize("n, G", [(33, 16), (99, 3)])
+def test_grid_runs_to_the_blocks_result(n, G):
+    """The grid layout to convergence (stop tests on the workspace copy of
+    the rows) against `jacobi` by blocks: the same sweeps, A and V bit for
+    bit."""
+    M = corpus(n)["graded"]
+    A, V, info = jacobi(M, rows=False)
+    emu = Cluster(M, G, grid=True)
+    nt = cta_threads(n)
+    norm2 = cta_sum((start(M)[0] ** 2).ravel(), nt)
+    sweeps = 0
+    while grid_stop_sum(emu, nt) > EPS * EPS * norm2:
+        for rd in range(emu.npad - 1):
+            emu.round(rd)
+        sweeps += 1
+    assert sweeps == info
+    assert same_bits(emu.natural(0), A)
+    Vc = vectors_from_log(emu.log, n, emu.npad, sweeps * (emu.npad - 1))
+    assert same_bits(Vc[:n], V[:n])
+
+
+def grid_stop_sum(emu, nt, off=True):
+    """The grid's stop test: each CTA writes its rows at their round-0
+    positions into the workspace A by index (its diagonal never written:
+    NaN), CTA 0 sums it in the one-CTA kernel's order for nt threads
+    (thread t's terms e = t, t + nt, …, its (u, v) stepped as the kernel
+    steps them, the diagonal an exact 0), the warp trees, the tree over the
+    warps."""
+    npad, m = emu.npad, emu.m
+    Ad = np.full((npad, npad), np.nan)
+    for c in range(emu.C):
+        k = emu.slots(c)
+        for side in (0, 1):
+            Ad[index_at(0, k, side, m)] = emu.rows[c, emu.cur, side,
+                                                   :len(k)]
+    du, dv = divmod(nt, npad)
+    t = np.arange(nt)
+    u, v = np.divmod(t, npad)
+    parts = np.zeros(nt)
+    for e0 in range(0, npad * npad, nt):
+        live = t + e0 < npad * npad
+        assert (u * npad + v == t + e0)[live].all()  # the kernel's stepping
+        uu, vv = np.where(live, u, 0), np.where(live, v, 0)
+        x = np.where(live & ~(off & (uu == vv)), Ad[uu, vv], 0.0)
+        parts = parts + x * x
+        u, v = u + du, v + dv
+        wrap = v >= npad
+        u, v = np.where(wrap, u + 1, u), np.where(wrap, v - npad, v)
+    red = np.zeros(32)
+    red[:nt // 32] = warp_tree(parts.reshape(-1, 32))
+    return warp_tree(red)
+
+
+@pytest.mark.parametrize("n", [449, 516, 1056])
+def test_grid_stop_sum_replays_cta_order(n):
+    """The grid's stop test at its own sizes (G = 113, 129 and 132 CTAs, the
+    last of 449's holding one pair), over 1024 threads with up to ~1090
+    terms each: the one-CTA kernel's sum of the same entries, bit for
+    bit."""
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((n, n))
+    emu = Cluster(M + M.T, se.grid_size(n), grid=True)
+    nt = cta_threads(n)
+    assert nt == 1024
+    A = emu.natural(0)
+    offd = ~np.eye(emu.npad, dtype=bool)
+    assert grid_stop_sum(emu, nt) == cta_sum(np.where(offd, A * A,
+                                                      0.0).ravel(), nt)
+    # the first test sums the rows as loaded (the diagonal from the input)
+    B = start(M + M.T)[0]
+    assert cta_sum((B * B).ravel(), nt) == cta_sum((A * A).ravel(), nt)
