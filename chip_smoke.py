@@ -40,9 +40,9 @@ raises and the script exits non-zero:
      `small_eigh` (LOBPCG's Rayleigh–Ritz eigensolver: the one-warp
      kernel for n ≤ 32, the cluster family `small_eigh_cluster` to 448 on
      1-16 CTAs, the grid `small_eigh_grid` to 1056 on co-resident CTAs,
-     the global kernel `small_eigh_global` above; the one-CTA kernel
-     `small_eigh_cta`, n ≤ 96, and the global kernel past it, their
-     comparators) against
+     the stream route `small_eigh_stream` above, A by index in L2; the
+     one-CTA kernel `small_eigh_cta`, n ≤ 96, and the global kernel
+     `small_eigh_global` past it, their comparators) against
      its plain twin on random symmetric 30 × 30 and 36 × 36 matrices in
      float32 and float64 and on the graded matrices of
      `scripts/small_eigh_cases.py` at n = 10 and 30 (eigenvalues to 1e-5 /
@@ -51,9 +51,10 @@ raises and the script exits non-zero:
      (w, V, info: the one-CTA kernel's to n = 96, the global kernel's
      past it), and the comparator is held to the twin too; the one-warp
      kernel timed at n = 30 float32 in turns (one-CTA, warp, warp,
-     one-CTA) beside the twin and `torch.linalg.eigh`; the cluster family
-     and the global kernel bit for bit against the one-CTA kernel at n =
-     36 and 96 (forced), the cluster family against the global kernel at
+     one-CTA) beside the twin and `torch.linalg.eigh`; the cluster family,
+     the grid, the stream route and the global kernel bit for bit against
+     the one-CTA kernel at n = 36 and 96 (forced), the cluster family
+     against the global kernel at
      n = 99, 150, 198, 246 (1, 2, 4 and 8 CTAs), 321, 384 and 448 (16
      CTAs), and the grid at 449 (a batch of two), 516, 768 and 1056, in
      float32 and float64 and against the twin in float64 (1e-12), their
@@ -61,9 +62,12 @@ raises and the script exits non-zero:
      grid timed in turns with their comparator (new, old, old, new) at n =
      36 (the one-CTA kernel), 99, 246, 324, 448 and 516 (the global
      kernel; median of 3 past 320), each beside its bound, with its CTA
-     count, and at 1056 one timed call of each; the global route past
-     1056 at n = 1062 (rank 352) against the twin, one timed call beside
-     it and `torch.linalg.eigh`;
+     count, and at 1056 one timed call of each; the stream route past
+     1056: at n = 1062 (rank 352) bit for bit against the global kernel in
+     float32 and float64 (the global kernel's call timed once), against
+     the twin in float64 at 1062, 1536 and 2112, forced at 516 and 1056
+     bit for bit against the grid, one timed call at 1062 and 2112 beside
+     the twin and `torch.linalg.eigh`;
   3. slice — `solve_cora` on both graphs with bench.py's configuration and
      the kernels, from the numpy-seeded start, and on the plaza2-shaped
      graph from rank d (the run that takes a saddle escape), each gated
@@ -90,9 +94,10 @@ raises and the script exits non-zero:
      3 against the fixture's plaza2-shaped run (the certified optimum does
      not depend on the start rank); a failed certificate at a random
      point at rank 10 (Rayleigh–Ritz n = 36), at rank 31 (n = 99), at rank
-     106 (n = 324, 16 CTAs) and at rank 150 (n = 456), whose LOBPCG must
-     run as replayed graphs through `small_eigh_cluster`
-     (`small_eigh_grid` for rank 150's 3k = 456), the k × k matrices
+     106 (n = 324, 16 CTAs), at rank 150 (n = 456) and at rank 352 (n =
+     1062), whose LOBPCG must run as replayed graphs through
+     `small_eigh_cluster` (`small_eigh_grid` for rank 150's 3k = 456,
+     `small_eigh_stream` for rank 352's 3k = 1062), the k × k matrices
      through their own route, and no other route; the rank-150
      certificate again with its 3k × 3k matrices forced to the global
      kernel, which must reach the same verdict and θ; the visualize CLI's
@@ -178,13 +183,14 @@ solves and read just after them; the main path must launch the cluster
 `chunk`, `step` and `ladder` and `small_eigh` (its failed certificates),
 and never a comparator (`small_eigh_cluster` only for a routed n > 32,
 that is a certificate at rank 9 or more). The certificate path of phase
-3b must launch `small_eigh_cluster` and `small_eigh_grid`. The line
+3b must launch `small_eigh_cluster`, `small_eigh_grid` and
+`small_eigh_stream`. The line
 before the last is one JSON object with the route, source, launches,
 error, times and bound of each kernel the paths launch (`chunk`, `step`,
-`ladder`, `small_eigh` from phase 3, `small_eigh_cluster` and
-`small_eigh_grid` from phase 3b, with the chain kernels' times and bounds
-past rank 10 under `by_rank` and the cluster family's and the grid's by n
-under `by_n`; `tcg`, whose loop runs inside `chunk`, and small_eigh's
+`ladder`, `small_eigh` from phase 3, `small_eigh_cluster`,
+`small_eigh_grid` and `small_eigh_stream` from phase 3b, with the chain
+kernels' times and bounds past rank 10 under `by_rank` and the cluster
+family's, the grid's and the stream route's by n under `by_n`; `tcg`, whose loop runs inside `chunk`, and small_eigh's
 one-CTA and global kernels, the comparators, get a line of their own). A
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s, its FLOPs over 67 TFLOP/s, and its
@@ -192,8 +198,9 @@ dependent group-barrier phases (`tnt_kernels.work_counts`) times the
 C-CTA cluster barrier the probe measured in this run (`small_eigh`: its
 sweeps × (n − 1) rounds times the barrier it waits on each round, the
 probe's `__syncthreads` or, for the cluster family on C > 1 CTAs, its
-C-CTA `cluster.sync`, for the grid its counter barrier at the probe's
-largest measured CTA count not above G, its FLOPs at the float64 peak,
+C-CTA `cluster.sync`, for the grid and the stream route its counter
+barrier at the probe's largest measured CTA count not above G, its FLOPs
+at the float64 peak,
 34 TFLOP/s); the
 last line is
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
@@ -222,11 +229,12 @@ REPLACES = {
     "small_eigh": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_cluster": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_grid": "cora_tpu/ops/lobpcg.py:61",
+    "small_eigh_stream": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_cta": "cora_tpu/ops/lobpcg.py:61",
     "small_eigh_global": "cora_tpu/ops/lobpcg.py:61",
 }
 EIGH_KEYS = ("small_eigh", "small_eigh_cluster", "small_eigh_grid",
-             "small_eigh_cta", "small_eigh_global")
+             "small_eigh_stream", "small_eigh_cta", "small_eigh_global")
 # the CPU tests' tolerances (tests/test_torch_kernels_plain.py)
 TOL_STATE, TOL_F, TOL_GN, TOL_PGN = 2e-5, 1e-4, 1e-4, 1e-3
 TOL_MDEC = TOL_SNORM = 2e-2
@@ -244,16 +252,18 @@ PATH_KERNELS = ("chunk", "step", "ladder", "small_eigh")
 # the kernels of the certificate path past the main path's ranks (phase
 # 3b): the 3k × 3k Rayleigh–Ritz matrices of a certificate at rank 10 (n =
 # 36) and at rank 31 (n = 99), both the cluster family's (one CTA), at
-# rank 106 (n = 324: 16 CTAs) and at rank 150 (n = 456): the grid's (the
-# k × k ones, n = 108 and 152, the cluster family's)
+# rank 106 (n = 324: 16 CTAs), at rank 150 (n = 456): the grid's, and at
+# rank 352 (n = 1062): the stream route's (the k × k ones, n = 108, 152
+# and 354, the cluster family's)
 CERT_RANKS = (("small_eigh_cluster", 10), ("small_eigh_cluster", 31),
-              ("small_eigh_cluster", 106), ("small_eigh_grid", 150))
+              ("small_eigh_cluster", 106), ("small_eigh_grid", 150),
+              ("small_eigh_stream", 352))
 # the certificate held to the global route's verdict and θ (its 3k × 3k
 # matrices forced to `small_eigh_global`): θ within the float32 eigenvalue
 # tolerance of the kernels' check, relative to |θ|
 CERT_AGAINST_GLOBAL, CERT_THETA_TOL = 150, 1e-5
 # small_eigh's comparators, which no path launches (the one-CTA kernel;
-# the global kernel, the route only past n = 1056)
+# the global kernel, routed to by no size)
 EIGH_COMPARATORS = ("small_eigh_cta", "small_eigh_global")
 # small_eigh against its plain twin: eigenvalues relative to the largest
 # (the float32 / float64 eigh's accuracy), ‖VᵀV − I‖ and ‖AV − VΛ‖ / ‖Λ‖
@@ -288,8 +298,11 @@ HIGH_REPS = 3
 # 449, the grid's batch; one past); timed in turns with the comparator at
 # the certificates' n = 36 (rank 10), 99 (rank 31), 324 (rank 106), 516
 # (rank 170) and at 246 and 448 (median of EIGH_FEW_REPS past 320), and at
-# 1056 one timed call each; the global route past n = 1056 checked and
-# timed once at rank 352's 1062
+# 1056 one timed call each; the stream route past n = 1056: at rank 352's
+# 1062 bit for bit against the global kernel (float32 and float64, the
+# global kernel's call timed as the comparator's), against the twin in
+# float64 at EIGH_STREAM, forced at EIGH_STREAM_FORCED bit for bit against
+# the grid, one timed call at 1062 and 2112
 EIGH_FORCED = (36, 96)
 EIGH_GLOBAL = (99, 150, 198, 246, 321, 384, 448, 449, 516, 768, 1056)
 EIGH_BATCH2 = 449
@@ -297,6 +310,9 @@ EIGH_TIMED = (36, 99, 246, 324, 448, 516)
 EIGH_FEW_REPS = 3
 EIGH_ONCE = 1056
 EIGH_PAST = 1062
+EIGH_STREAM = (1062, 1536, 2112)
+EIGH_STREAM_FORCED = (516, 1056)
+EIGH_STREAM_TIMED = (1062, 2112)
 # phase 3b: the plaza2-shaped staircase from rank 11 (init_rank_jump 9)
 # with max_rank 12 on the kernels; a staircase from rank 10 that escapes
 # to rank 11 on the kernels (a chain whose relaxation's optimum has rank
@@ -871,12 +887,13 @@ def high_ranks(problems, hp, stats, barrier_us, note):
               f" ladder vs cluster step max rel {worst:.3e}", flush=True)
 
 
-def check_small_eigh(A, stats, what):
+def check_small_eigh(A, stats, what, comparator=True):
     """`small_eigh` (the kernel) against its plain twin on the card for the
     symmetric matrices A (B, n, n): eigenvalues relative to the largest,
     ‖VᵀV − I‖ and ‖AV − VΛ‖ relative to the largest eigenvalue, within
     EIGH_TOL / EIGH_ORTH; the errors go to `stats["small_eigh"]` (the
-    eigenvalues' largest absolute and relative error). Returns the sweeps
+    eigenvalues' largest absolute and relative error); with `comparator`,
+    the routed kernel's bits against its comparator's. Returns the sweeps
     per matrix."""
     import torch
 
@@ -890,7 +907,7 @@ def check_small_eigh(A, stats, what):
     which = route(n, A.dtype)
     w, V, info = small_eigh(A)
     wp, Vp, _ = small_eigh_plain(A)
-    if which in ("warp", "cluster", "grid"):
+    if comparator:
         # the routed kernel against its comparator (the one-CTA kernel to
         # n = 96, the global one past it), bit for bit; the comparator
         # against the twin as the routed one is below
@@ -958,13 +975,16 @@ def phase_small_eigh(stats, probe):
     `__syncthreads` the probe measured in this run, or its `cluster.sync`
     at the kernel's cluster size, or the grid's counter barrier). The
     cluster family: bit for bit against the one-CTA kernel at n = 36 and
-    96 (the grid and the global kernel too) and, with the grid, against
+    96 (the grid, the stream route and the global kernel too) and, with
+    the grid, against
     the global kernel at EIGH_GLOBAL (1-16 CTAs; the grid at 449-1056), in
     float32 and float64, against the twin in float64 past 96, the float32
     eigenvalues against float64 eigh; timed in turns with the comparator
     (new, old, old, new) at EIGH_TIMED, one call each at EIGH_ONCE; the
-    global route past n = 1056 checked and timed once at EIGH_PAST, rank
-    352's Rayleigh–Ritz size."""
+    stream route past n = 1056: at EIGH_PAST (rank 352's Rayleigh–Ritz
+    size) bit for bit against the global kernel, against the twin at
+    EIGH_STREAM, forced against the grid at EIGH_STREAM_FORCED, timed once
+    at EIGH_STREAM_TIMED."""
     import numpy as np
     import torch
     from small_eigh_cases import bits_equal, corpus
@@ -1007,14 +1027,14 @@ def phase_small_eigh(stats, probe):
             A = torch.as_tensor(np.stack([corpus(n, s)["graded"]
                                           for s in range(4)])).to("cuda", dt)
             check_small_eigh(A, stats, "graded")
-    # the cluster family, the grid (on two CTAs) and the global kernel,
-    # forced, against the one-CTA kernel where all four run
+    # the cluster family, the grid (on two CTAs), the stream route and the
+    # global kernel, forced, against the one-CTA kernel where all five run
     for n in EIGH_FORCED:
         for dt in (torch.float32, torch.float64):
             M = rng.standard_normal((4, n, n))
             A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda", dt)
             cta = small_eigh(A, kernel="cta")
-            for k in ("cluster", "grid", "global"):
+            for k in ("cluster", "grid", "stream", "global"):
                 same = bits_equal(small_eigh(A, kernel=k), cta)
                 print(f"[kernels] small_eigh n = {n} {dt}: {KEYS[k]} and "
                       f"small_eigh_cta bit for bit: {same}", flush=True)
@@ -1110,38 +1130,88 @@ def phase_small_eigh(stats, probe):
               f"{b['bound_term']} ({sweeps} sweeps × {n + n % 2 - 1} rounds × "
               f"the {barrier_name(n, new, probe)} of this run)", flush=True)
 
-    # the global route past the grid's largest n, at the certificate path's
-    # n there (rank 352): checked, and one call timed (float32) beside the
-    # twin and torch.linalg.eigh
+    # the stream route past the grid's largest n: at the certificate path's
+    # n there (rank 352) bit for bit against the global kernel in float64
+    # (check_small_eigh) and float32 (the global kernel's call timed: the
+    # comparator's time); against the twin in float64 at EIGH_STREAM;
+    # forced at EIGH_STREAM_FORCED bit for bit against the grid
     n = EIGH_PAST
-    check(route(n, torch.float64) == "global",
+    check(route(n, torch.float64) == "stream",
           f"small_eigh n = {n}: routed {route(n, torch.float64)}")
-    M = rng.standard_normal((1, n, n))
-    A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda")
-    check_small_eigh(A, stats, "random (the global route)")
-    A1 = A[0].float()
-    out = []
-    ms = once_ms(lambda: out.append(small_eigh(A1)), torch)
-    sweeps = out[0][2].item()
-    plain_ms = once_ms(lambda: small_eigh_plain(A1), torch)
-    lib_ms = once_ms(lambda: torch.linalg.eigh(A1), torch)
-    work, terms, term = eigh_bound(n, sweeps, 4, probe, "global")
-    entry = dict(n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                 bound_ms=terms[term], bound_by="bytes" if term == "bytes"
-                 else "operations", bound_term=term, work=work, sweeps=sweeps)
-    stats["small_eigh_global"].setdefault("by_n", {})[n] = entry
-    print(f"[kernels] small_eigh_global n = {n} float32 (the route): "
-          f"{ms:.4f} ms, one call (plain twin {plain_ms:.4f} ms, "
-          f"torch.linalg.eigh {lib_ms:.4f} ms); bound {terms[term]:.4f} ms "
-          f"by {term} ({sweeps} sweeps × {n + n % 2 - 1} rounds × the "
-          "__syncthreads of this run)", flush=True)
+    for n in EIGH_STREAM:
+        M = rng.standard_normal((1, n, n))
+        A = torch.as_tensor(M + M.transpose(0, 2, 1)).to("cuda")
+        check_small_eigh(A, stats, "random (the stream route)",
+                         comparator=n == EIGH_PAST)
+        if n != EIGH_PAST:
+            continue
+        A32 = A[0].float()
+        r32 = small_eigh(A32)
+        out = []
+        global_ms = once_ms(lambda: out.append(small_eigh(A32, kernel="global")),
+                            torch)
+        same = bits_equal(r32, out[0])
+        print(f"[kernels] small_eigh n = {n} float32: small_eigh_stream "
+              f"({ctas(n)} CTAs) and small_eigh_global bit for bit: {same}, "
+              f"sweeps {r32[2].item()}; the global kernel {global_ms:.4f} ms, "
+              "one call", flush=True)
+        check(same, f"small_eigh n = {n} float32: small_eigh_stream left the "
+              "global kernel's bits")
+    for n in EIGH_STREAM_FORCED:
+        M = rng.standard_normal((n, n))
+        for dt in (torch.float32, torch.float64):
+            A = torch.as_tensor(M + M.T).to("cuda", dt)
+            same = bits_equal(small_eigh(A, kernel="stream"), small_eigh(A))
+            print(f"[kernels] small_eigh n = {n} {str(dt)[6:]}: "
+                  f"small_eigh_stream forced ({ctas(n, 'stream')} CTAs) and "
+                  f"small_eigh_grid bit for bit: {same}", flush=True)
+            check(same, f"small_eigh n = {n}: the stream route left the "
+                  "grid's bits")
+    stats["small_eigh_stream"]["group"] = (
+        "G co-resident CTAs per matrix (a cooperative launch, G by n), A by "
+        "index in L2, each CTA rewriting its pairs' rows in place, one "
+        "counter barrier a round; then V from the log, the sort")
+    # one timed call each (float32) beside the twin and torch.linalg.eigh
+    for n in EIGH_STREAM_TIMED:
+        M = rng.standard_normal((n, n))
+        A1 = torch.as_tensor(M + M.T).to("cuda", torch.float32)
+        out = []
+        ms = once_ms(lambda: out.append(small_eigh(A1)), torch)
+        sweeps = out[0][2].item()
+        plain_ms = once_ms(lambda: small_eigh_plain(A1), torch)
+        lib_ms = once_ms(lambda: torch.linalg.eigh(A1), torch)
+        work, terms, term = eigh_bound(n, sweeps, 4, probe, "stream")
+        entry = dict(n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=terms[term], bound_by="bytes" if term == "bytes"
+                     else "operations", bound_term=term, work=work,
+                     sweeps=sweeps, ctas=ctas(n))
+        if n == EIGH_PAST:
+            entry.update(block_ms=global_ms, comparator="small_eigh_global")
+            stats["small_eigh_global"].setdefault("by_n", {})[n] = dict(
+                n=n, ms=global_ms, comparator_of="small_eigh_stream")
+        st = stats["small_eigh_stream"]
+        st.setdefault("by_n", {})[n] = entry
+        if n == EIGH_PAST:  # the certificate path's n heads the line
+            st.update(entry)
+        print(f"[kernels] small_eigh_stream n = {n} float32 ({ctas(n)} CTAs, "
+              f"{sweeps} sweeps): {ms:.4f} ms, one call (plain twin "
+              f"{plain_ms:.4f} ms, torch.linalg.eigh {lib_ms:.4f} ms"
+              + (f"; small_eigh_global {global_ms:.4f} ms"
+                 if n == EIGH_PAST else "")
+              + f"); bound {terms[term]:.4f} ms by {term} ({sweeps} sweeps × "
+              f"{n + n % 2 - 1} rounds × the {barrier_name(n, 'stream', probe)}"
+              " of this run)", flush=True)
 
 
-def ctas(n):
-    """The CTAs of small_eigh's cluster family or grid at n."""
-    from cora_tpu_torch.ops.small_eigh import cluster_size, grid_size
+def ctas(n, which=None):
+    """The CTAs of small_eigh's cluster family, grid or stream route at n
+    (the route's, or `which`'s)."""
+    from cora_tpu_torch.ops.small_eigh import cluster_size, grid_size, \
+        stream_size
 
-    return cluster_size(n) or grid_size(n)
+    if which == "stream":
+        return stream_size(n)
+    return cluster_size(n) or grid_size(n) or stream_size(n)
 
 
 def once_ms(fn, torch):
@@ -1166,10 +1236,8 @@ def grid_barrier_us(probe, G):
 def barrier_name(n, which, probe):
     """The barrier a round of route `which` waits on at n, as named in the
     bound."""
-    if which == "grid":
-        from cora_tpu_torch.ops.small_eigh import grid_size
-
-        G = grid_size(n)
+    if which in ("grid", "stream"):
+        G = ctas(n, which)
         at = max(int(g) for g in probe["grid_barrier_us"]["counter"]
                  if int(g) <= G)
         return f"counter barrier at {at} CTAs ({G} run)"
@@ -1188,10 +1256,8 @@ def eigh_bound(n, sweeps, itemsize, probe, which="warp"):
     (work, terms, the largest term)."""
     npad, h = n + n % 2, (n + n % 2) // 2
     rounds = sweeps * (npad - 1)
-    if which == "grid":
-        from cora_tpu_torch.ops.small_eigh import grid_size
-
-        barrier_us = grid_barrier_us(probe, grid_size(n))
+    if which in ("grid", "stream"):
+        barrier_us = grid_barrier_us(probe, ctas(n, which))
     else:
         C = ctas(n) if which == "cluster" else 1
         barrier_us = (probe["syncthreads_us"] if C == 1 else
@@ -1596,14 +1662,15 @@ def phase_slice(problems, reference):
     print(f"[slice] small_eigh: one-warp kernel {launches['small_eigh']} "
           f"launches, cluster family {launches['small_eigh_cluster']} "
           f"(highest rank {top}: n = 3k ≤ {3 * max(10, top + 2)}), grid "
-          f"{launches['small_eigh_grid']}, comparators "
+          f"{launches['small_eigh_grid']}, stream "
+          f"{launches['small_eigh_stream']}, comparators "
           f"{[launches[k] for k in EIGH_COMPARATORS]}", flush=True)
     check(top >= 9 or not launches["small_eigh_cluster"],
           f"the cluster small_eigh ran on the main path at n ≤ 32: {launches}")
     check(not any(launches[k] for k in EIGH_COMPARATORS
-                  + ("small_eigh_grid",)),
-          f"a small_eigh comparator or the grid (n > 448) ran on the main "
-          f"path: {launches}")
+                  + ("small_eigh_grid", "small_eigh_stream")),
+          f"a small_eigh comparator, the grid or the stream route (n > 448) "
+          f"ran on the main path: {launches}")
     for name in bench:
         res, wall, ate, levels = solve_once(
             problems[name], config(name, "never"), starts[name])
@@ -1618,6 +1685,57 @@ def phase_slice(problems, reference):
     return launches
 
 
+def cert_config(reference):
+    """Phase 3b's plaza2-shaped configuration (its certificates'
+    parameters)."""
+    dim = reference["graphs"]["plaza2_shaped"]["graph"]["dim"]
+    return bench_config(reference, RANK_START - dim, "auto",
+                        max_rank=RANK_MAX)
+
+
+def cert_point(pd, r):
+    """Phase 3b's random point at rank r on the plaza2-shaped graph."""
+    import torch
+
+    from cora_tpu_torch.ops.riemannian import random_initial_guess
+
+    return random_initial_guess(pd, r, torch.Generator().manual_seed(300 + r))
+
+
+def certificate_run(problem, pd, cfg, Y, force_3k=None):
+    """The certificate (`method="auto"`) at the point Y as the staircase
+    takes it, its LOBPCG as replayed graphs; `force_3k` puts its 3k × 3k
+    Rayleigh–Ritz matrices on that small_eigh kernel (`lobpcg.small_eigh`
+    patched, the kept certificate loop cleared before and after, so that
+    the capture is fresh). The launch counts and LOBPCG's loop counts are
+    zeroed first. (certificate, s, LOBPCG's loop counts)."""
+    import torch
+
+    from cora_tpu_torch.ops import lobpcg, small_eigh
+    from cora_tpu_torch.solve import staircase
+    from cora_tpu_torch.utils.graphs import clear_graphs, device_loop
+
+    real = lobpcg.small_eigh
+    if force_3k:
+        k = max(cfg.cert.lobpcg_block_size, Y.shape[1] + 2)
+        lobpcg.small_eigh = lambda A: real(
+            A, kernel=force_3k if A.shape[-1] == 3 * k else None)
+        clear_graphs("certificate")
+    try:
+        small_eigh.reset_launch_counts()
+        lobpcg.reset_loop_stats()
+        t0 = time.time()
+        with device_loop(graphs=True):
+            cert = staircase._certify_with_retry(
+                problem, pd, Y.cpu().numpy(), 1e-5, cfg.cert, None)
+        torch.cuda.synchronize()
+        return cert, time.time() - t0, dict(lobpcg.LOOP_STATS)
+    finally:
+        if force_3k:
+            lobpcg.small_eigh = real
+            clear_graphs("certificate")
+
+
 def phase_ranks(problems, reference):
     """Past the main path's ranks, each path driven with the launch counts
     zeroed just before it and read just after: the plaza2-shaped staircase
@@ -1629,14 +1747,17 @@ def phase_ranks(problems, reference):
     `ladder`) runs past rank 10 on the kernels, gated against the chain
     plain path's solve (`use_kernels="never"`) of the same graph from the
     same start; a failed
-    certificate at rank 10, 31, 106 and 150 (`method="auto"` at a random
-    point), whose LOBPCG must run as replayed graphs through the routes of
-    its 3k × 3k and k × k Rayleigh–Ritz matrices alone: the cluster
-    small_eigh (16 CTAs at rank 106's n = 324), and at rank 150 (n = 456)
-    the grid, whose certificate is run again with those matrices on the
-    global kernel and must reach its verdict and θ; the visualize CLI's solve half, still and
-    `--animate`, as the CLI runs it (float64, so the canonical path), on a
-    one-robot chain written as PyFG, the drawing where matplotlib imports.
+    certificate at rank 10, 31, 106, 150 and 352 (`method="auto"` at a
+    random point), whose LOBPCG must run as replayed graphs through the
+    routes of its 3k × 3k and k × k Rayleigh–Ritz matrices alone: the
+    cluster small_eigh (16 CTAs at rank 106's n = 324), at rank 150 (n =
+    456) the grid, whose certificate is run again with those matrices on
+    the global kernel and must reach its verdict and θ, and at rank 352 (n
+    = 1062) the stream route (its run against the global kernel, ~2.7
+    minutes, is `scripts/probe_small_eigh.py --cert`'s); the visualize
+    CLI's solve half, still and `--animate`, as the CLI runs it (float64,
+    so the canonical path), on a one-robot chain written as PyFG, the
+    drawing where matplotlib imports.
     Returns the certificate path's launches per small_eigh route."""
     import tempfile
 
@@ -1732,17 +1853,10 @@ def phase_ranks(problems, reference):
     cert_launches = {}
 
     def certify_at(r, Y):
-        small_eigh.reset_launch_counts()
-        lobpcg.reset_loop_stats()
-        t0 = time.time()
-        with device_loop(graphs=True):
-            cert = staircase._certify_with_retry(
-                problems[name], pd, Y.cpu().numpy(), 1e-5, cfg.cert, None)
-        torch.cuda.synchronize()
-        return cert, time.time() - t0, dict(lobpcg.LOOP_STATS)
+        return certificate_run(problems[name], pd, cfg, Y)
 
     for key, r in CERT_RANKS:
-        Y = random_initial_guess(pd, r, torch.Generator().manual_seed(300 + r))
+        Y = cert_point(pd, r)
         # LOBPCG's Rayleigh–Ritz matrices: 3k × 3k (the route `key` names)
         # and k × k, k = max(10, r + 2)
         k = max(cfg.cert.lobpcg_block_size, r + 2)
@@ -1777,15 +1891,8 @@ def phase_ranks(problems, reference):
             continue
         # the same certificate with its 3k × 3k matrices on the global
         # kernel (a fresh capture: the kept loop replays the grid)
-        real = lobpcg.small_eigh
-        lobpcg.small_eigh = lambda A: real(
-            A, kernel="global" if A.shape[-1] == 3 * k else None)
-        clear_graphs("certificate")
-        try:
-            ref, ref_took, ref_lp = certify_at(r, Y)
-        finally:
-            lobpcg.small_eigh = real
-            clear_graphs("certificate")
+        ref, ref_took, ref_lp = certificate_run(problems[name], pd, cfg, Y,
+                                                force_3k="global")
         gap = abs(cert.theta - ref.theta) / max(abs(ref.theta), 1e-30)
         print(f"[ranks] certificate at rank {r}, {3 * k} × {3 * k} on "
               f"small_eigh_global: certified {ref.is_certified} theta "
@@ -2534,7 +2641,8 @@ def main():
     # path here reaches: the JSON line lists the kernels the paths launch
     listed = PATH_KERNELS + tuple(dict(CERT_RANKS))
     print("[kernels] tcg, small_eigh_cta, small_eigh_global (not launched on "
-          "the paths): "
+          "the paths; the global kernel the comparator of every route past "
+          "n = 96): "
           + json.dumps(
               [k for k in kernels if k["name"] not in listed]), flush=True)
     print(json.dumps({"kernels": [k for k in kernels

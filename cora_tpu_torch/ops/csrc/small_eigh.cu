@@ -1,10 +1,11 @@
 // small_eigh: the full eigendecomposition of small symmetric matrices
 // for the Rayleigh–Ritz step of LOBPCG, by parallel-order (round-robin)
-// cyclic Jacobi, in five routes that give the same bits where they
+// cyclic Jacobi, in six kernels that give the same bits where they
 // overlap: the one-warp kernel (n ≤ 32), the cluster family (32 < n ≤
-// CLUSTER_MAX_N = 448) and its grid (to GRID_MAX_N = 1056), the global
-// kernel (past that, and the comparator past n = 96), and the one-CTA
-// kernel (n ≤ 96), the first design, kept as the comparator of the others.
+// CLUSTER_MAX_N = 448) and its grid (to GRID_MAX_N = 1056), the stream
+// route (past that), and two comparators routed to by no size: the global
+// kernel (any n; the comparator past n = 96) and the one-CTA kernel (n ≤
+// 96), the first design.
 //
 // Replaces `jnp.linalg.eigh` inside the JAX package's LOBPCG
 // `lax.while_loop` (cora_tpu/ops/lobpcg.py:61; not a Pallas kernel). The
@@ -36,14 +37,14 @@
 //   stays exactly symmetric) and one per (row, pair) of V, A and V in
 //   shared memory, two __syncthreads phases a round. The first design, now
 //   the comparator of the others (whose bits it defines).
-// small_eigh_global_kernel (any n, routed n > GRID_MAX_N): the one-CTA
-//   kernel's body (`jacobi_cta`, written once for both) with A, V and the
-//   round's tables in a global workspace instead of shared memory, at the
-//   same thread count, so the same bits where both run. 2·n²·8 B stays in
-//   L2 (~1 MB at n = 246); each round's loads go through L1/L2, ~10 µs a
-//   round at n = 99 on the H100 (PERF.md). Past the grid's
-//   shared memory it is the route; below it, the comparator of the cluster
-//   family and the grid.
+// small_eigh_global_kernel (any n, forced only): the one-CTA kernel's body
+//   (`jacobi_cta`, written once for both) with A, V and the round's tables
+//   in a global workspace instead of shared memory, at the same thread
+//   count, so the same bits where both run. 2·n²·8 B stays in L2 (~1 MB
+//   at n = 246); each round's loads go through L1/L2, ~10 µs a round at n
+//   = 99 on the H100 (PERF.md). The comparator of the cluster family, the
+//   grid and the stream route past n = 96; one CTA a matrix, 11.4 s at n =
+//   1062.
 // small_eigh_cluster (3 ≤ n ≤ CLUSTER_MAX_N, routed 32 < n): three kernels
 //   launched in a row, one launch count. (1) small_eigh_cluster_kernel: the
 //   rounds on A over one thread-block cluster of C CTAs (C = cluster_size,
@@ -86,6 +87,25 @@
 //   workspace. The launch raises where the card cannot hold G CTAs at
 //   once; a CUDA graph captures it (checked by the probe). It takes a
 //   batch's matrices in turn inside one launch.
+// small_eigh_stream (routed n > GRID_MAX_N, any n ≥ STREAM_MIN_N forced):
+//   the grid's shared memory holds A's rows twice and the table; past
+//   1056 it does not, so (1') small_eigh_stream_kernel keeps A by index in
+//   the workspace (8·n_p² B: 9 MB at n = 1062, 36 MB at 2112, in the 50 MB
+//   L2 to about n = 2500, past which the same kernel reads HBM), on G =
+//   stream_size(n) co-resident CTAs (the grid's launch and counter
+//   barrier). In round rd CTA c owns the rows of its slots and rewrites
+//   every entry of them in place, from those rows alone, with each entry's
+//   operations in the one-CTA kernel's order (`block_rows_rn`); an entry
+//   is written only by the CTA that owns its row, so rows never move
+//   between CTAs and one barrier a round suffices. Warp 0's look-ahead
+//   lane per slot updates the block its next pair's entry comes from
+//   itself (the update warps skip it), so nothing is read while it is
+//   rewritten; the diagonal travels in the table, never read from A. The
+//   stop test's virtual warps are spread over the CTAs, every CTA taking
+//   the tree over their sums. Then V from the log ((2), or past h = 544
+//   (2') with V's rows in shared memory by index) and (3). It takes n to
+//   STREAM_MAX_N = 19 370, where (3)'s ranking fills the shared memory; the
+//   card's memory runs out first (the log: ~80 GB at n ≈ 18 000).
 // small_eigh_warp_kernel (n ≤ 32): a lane per row of A and of V, in W = 3
 //   update warps (each taking every W-th column pair of a round) and one
 //   rotation warp that runs a round ahead: 4 warps, one per SM
@@ -990,15 +1010,30 @@ __device__ __forceinline__ void rotate_diag_rn(R app, R aqq, R apq, R t, R& pp, 
   qq = __fma_rn(t, apq, aqq);
 }
 
-// `row_entries` through rotate_block_rn
-__device__ __forceinline__ void row_entries_rn(bool top, bool lo, R ci, R si, R cj, R sj,
-                                               R x00, R x01, R x10, R x11, R& at_p,
-                                               R& at_q) {
+// the block of slots (i, j), i ≠ j, as rows p_i, q_i see it after the
+// round: their entries at columns (p_j, q_j), computed as the one-CTA
+// kernel's thread for the block (min, max) computes them (lo: i < j; for i >
+// j the block (j, i) and transposed), through rotate_block_rn
+__device__ __forceinline__ void block_rows_rn(bool lo, R ci, R si, R cj, R sj, R x00,
+                                              R x01, R x10, R x11, R& p_at_p, R& p_at_q,
+                                              R& q_at_p, R& q_at_q) {
   R z00, z01, z10, z11;
   rotate_block_rn(lo ? ci : cj, lo ? si : sj, lo ? cj : ci, lo ? sj : si, x00,
                   lo ? x01 : x10, lo ? x10 : x01, x11, z00, z01, z10, z11);
-  at_p = top ? z00 : (lo ? z10 : z01);
-  at_q = top ? (lo ? z01 : z10) : z11;
+  p_at_p = z00;
+  p_at_q = lo ? z01 : z10;
+  q_at_p = lo ? z10 : z01;
+  q_at_q = z11;
+}
+
+// `row_entries` through rotate_block_rn: row p_i's (top) or q_i's
+__device__ __forceinline__ void row_entries_rn(bool top, bool lo, R ci, R si, R cj, R sj,
+                                               R x00, R x01, R x10, R x11, R& at_p,
+                                               R& at_q) {
+  R pp, pq, qp, qq;
+  block_rows_rn(lo, ci, si, cj, sj, x00, x01, x10, x11, pp, pq, qp, qq);
+  at_p = top ? pp : qp;
+  at_q = top ? pq : qq;
 }
 
 // next round's entries of one pair for the look-ahead
@@ -1007,46 +1042,85 @@ struct Ahead {
   int pq;
 };
 
+// A round's table as the look-ahead and the update read it: (c, s) and p |
+// q << 16 of every slot; t, the diagonal at p and q and the pair's own entry
+// that the round starts from, by slot (the cluster family's CTAs hold every
+// slot's, the grid's and the stream route's those of their own slots and
+// their neighbours')
+struct TabView {
+  const double2* cs;
+  const int* pq;
+  const R *t, *dp, *dq, *apq;
+  // the diagonal the round leaves at index u of slot k's pair
+  __device__ __forceinline__ R diag_after(int k, int u) const {
+    R pp, qq;
+    rotate_diag_rn(dp[k], dq[k], apq[k], t[k], pp, qq);
+    return u == (pq[k] & 0xffff) ? pp : qq;
+  }
+};
+
+// the view of a table laid out as the cluster family's shared memory and
+// the grid's global table hold it (7h doubles: (c, s), t, dp, dq, apq, pq)
+__device__ __forceinline__ TabView full_view(const R* tb, int h) {
+  return TabView{reinterpret_cast<const double2*>(tb), reinterpret_cast<const int*>(tb + 6 * h),
+                 tb + 2 * h, tb + 3 * h, tb + 4 * h, tb + 5 * h};
+}
+
+// Next round's slot k: its two indices' positions in this round (ia, sa),
+// (ib, sb), the indices ua, ub there, and of its two source slots the one on
+// this CTA (L, index uL) and the other (O, uO)
+struct AheadSrc {
+  int ia, ib, ua, ub, L, O, uL, uO;
+};
+
+__device__ __forceinline__ AheadSrc ahead_src(int k, int rd, int h, int m, int s0, int s1) {
+  AheadSrc a;
+  int sa, sb;
+  prev_pos(k, 0, h, a.ia, sa);
+  prev_pos(k, 1, h, a.ib, sb);
+  a.ua = index_at(rd, a.ia, sa, m);
+  a.ub = index_at(rd, a.ib, sb, m);
+  const bool own_a = a.ia >= s0 && a.ia < s1;
+  a.L = own_a ? a.ia : a.ib;
+  a.O = own_a ? a.ib : a.ia;
+  a.uL = own_a ? a.ua : a.ub;
+  a.uO = own_a ? a.ub : a.ua;
+  return a;
+}
+
+// The table entries of next round's slot k from this round's table and the
+// entry the round leaves between k's two indices (row uL's at columns p_O
+// and q_O): the diagonal at each index (its source pair's rotate_diag), the
+// entry, then the rotation
+__device__ __forceinline__ Ahead ahead_finish(const AheadSrc& src, const TabView& tb, R at_p,
+                                              R at_q) {
+  const R da = tb.diag_after(src.ia, src.ua), db = tb.diag_after(src.ib, src.ub);
+  Ahead a;
+  a.apq = src.uO == (tb.pq[src.O] & 0xffff) ? at_p : at_q;
+  a.app = src.ua < src.ub ? da : db;
+  a.aqq = src.ua < src.ub ? db : da;
+  a.pq = src.ua < src.ub ? src.ua | (src.ub << 16) : src.ub | (src.ua << 16);
+  rotation(a.app, a.aqq, a.apq, a.c, a.s, a.t);
+  return a;
+}
+
 // The table entries of next round's slot k (this CTA's), computed from
 // this round's table `tb` and the rows of whichever of k's two source
 // slots is on this CTA (`rows_cur`: buffer cur), as the update computes
-// them: the diagonal this round leaves at each of the pair's indices (its
-// source pair's rotate_diag), the entry between them (row_entries from the
-// source slot's rows at the other's columns), then the rotation.
-__device__ __forceinline__ Ahead ahead_slot(int k, int rd, const R* tb, const R* rows_cur,
+// them (row_entries from the source slot's rows at the other's columns).
+__device__ __forceinline__ Ahead ahead_slot(int k, int rd, const TabView& tb, const R* rows_cur,
                                             int S, int ld, int h, int m, int s0, int s1) {
-  const double2* cs = reinterpret_cast<const double2*>(tb);
-  const int* pq = reinterpret_cast<const int*>(tb + 6 * h);
-  int ia, sa, ib, sb;
-  prev_pos(k, 0, h, ia, sa);
-  prev_pos(k, 1, h, ib, sb);
-  const int ua = index_at(rd, ia, sa, m), ub = index_at(rd, ib, sb, m);
-  const int pqa = pq[ia], pqb = pq[ib];
-  const int pa = pqa & 0xffff, pb = pqb & 0xffff;
-  R pp, qq;
-  rotate_diag_rn(tb[3 * h + ia], tb[4 * h + ia], tb[5 * h + ia], tb[2 * h + ia], pp, qq);
-  const R da = ua == pa ? pp : qq;
-  rotate_diag_rn(tb[3 * h + ib], tb[4 * h + ib], tb[5 * h + ib], tb[2 * h + ib], pp, qq);
-  const R db = ub == pb ? pp : qq;
-  const bool own_a = ia >= s0 && ia < s1;
-  const int L = own_a ? ia : ib, O = own_a ? ib : ia;
-  const int uL = own_a ? ua : ub, uO = own_a ? ub : ua;
-  const int pqL = own_a ? pqa : pqb, pqO = own_a ? pqb : pqa;
+  const AheadSrc src = ahead_src(k, rd, h, m, s0, s1);
+  const int L = src.L, pqL = tb.pq[L], pqO = tb.pq[src.O];
   const int pL = pqL & 0xffff, pO = pqO & 0xffff, qO = pqO >> 16;
   const int ps = index_at(rd, L, 0, m) == pL ? 0 : 1;
   const R* rp = rows_cur + (size_t)(ps * S + L - s0) * ld;
   const R* rq = rows_cur + (size_t)((1 - ps) * S + L - s0) * ld;
-  const double2 cL = cs[L], cO = cs[O];
+  const double2 cL = tb.cs[L], cO = tb.cs[src.O];
   R at_p, at_q;
-  row_entries_rn(uL == pL, L < O, cL.x, cL.y, cO.x, cO.y, rp[pO], rp[qO], rq[pO], rq[qO], at_p,
-              at_q);
-  Ahead a;
-  a.apq = uO == pO ? at_p : at_q;
-  a.app = ua < ub ? da : db;
-  a.aqq = ua < ub ? db : da;
-  a.pq = ua < ub ? ua | (ub << 16) : ub | (ua << 16);
-  rotation(a.app, a.aqq, a.apq, a.c, a.s, a.t);
-  return a;
+  row_entries_rn(src.uL == pL, L < src.O, cL.x, cL.y, cO.x, cO.y, rp[pO], rp[qO], rq[pO],
+                 rq[qO], at_p, at_q);
+  return ahead_finish(src, tb, at_p, at_q);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -1507,7 +1581,8 @@ __device__ void jacobi_rounds(Link& L, const Part& P, const T* __restrict__ Ab,
         // next round's pair of slot s0 + il, a lane per slot
         const int il = (warp == 0 ? 0 : 32) + lane;
         if (il < Sc) {
-          const Ahead a = ahead_slot(s0 + il, rd, tb, rows_cur, S, ld, h, m, s0, s1);
+          const Ahead a = ahead_slot(s0 + il, rd, full_view(tb, h), rows_cur, S, ld, h, m,
+                                          s0, s1);
           L.publish(P, par ^ 1, s0 + il, a);
         }
       } else if (wu >= 0) {
@@ -1765,15 +1840,17 @@ __global__ void __launch_bounds__(VEC_THREADS)
 
 // (3) the eigenvalues ranked and the eigenvectors signed (`write_sorted`),
 // ⌈n/32⌉ CTAs per matrix (`blocks`), each ranking all n and signing 32
-// columns, a warp each; the probe's build stamps [10] the kernel's cycles
+// columns, a warp each, the diagonal and the ranking in dynamic shared
+// memory (12·n bytes); the probe's build stamps [10] the kernel's cycles
 constexpr int SORT_THREADS = 1024;
 template <typename T>
 __global__ void __launch_bounds__(SORT_THREADS)
     small_eigh_sort_kernel(T* __restrict__ w_out, T* __restrict__ V_out,
                            int* __restrict__ info, int n, int max_sweeps,
                            R* __restrict__ work, int blocks) {
-  __shared__ R diag[GRID_MAX_N];
-  __shared__ int perm[GRID_MAX_N];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  R* diag = reinterpret_cast<R*>(smem_raw);  // (n)
+  int* perm = reinterpret_cast<int*>(diag + n);  // (n)
 #ifdef SMALL_EIGH_SPLIT
   const long long k_start = clock64();
 #endif
@@ -1824,6 +1901,26 @@ int launch_vectors_for(int rr, int batch, int n, int max_sweeps, R* work, cudaSt
   }
 }
 
+// (3), its shared memory sized at launch (the attribute set once, for the
+// largest)
+template <typename T>
+int launch_sort(void* w, void* V, void* info, int batch, int n, int max_sweeps, R* work,
+                cudaStream_t st) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        small_eigh_sort_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, VEC_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const size_t smem = (size_t)n * (sizeof(R) + sizeof(int));
+  if (smem > (size_t)VEC_SMEM) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + SORT_THREADS / 32 - 1) / (SORT_THREADS / 32);
+  small_eigh_sort_kernel<T><<<batch * blocks, SORT_THREADS, smem, st>>>(
+      (T*)w, (T*)V, (int*)info, n, max_sweeps, work, blocks);
+  return (int)cudaGetLastError();
+}
+
 // (2) and (3) after the rounds
 template <typename T>
 int launch_tail(void* w, void* V, void* info, int batch, int n, int max_sweeps, R* work,
@@ -1831,10 +1928,7 @@ int launch_tail(void* w, void* V, void* info, int batch, int n, int max_sweeps, 
   const int err = launch_vectors_for<1>((n + (n & 1) + 63) / 64, batch, n, max_sweeps,
                                         work, st);
   if (err) return err;
-  const int blocks = (n + SORT_THREADS / 32 - 1) / (SORT_THREADS / 32);
-  small_eigh_sort_kernel<T><<<batch * blocks, SORT_THREADS, 0, st>>>(
-      (T*)w, (T*)V, (int*)info, n, max_sweeps, work, blocks);
-  return (int)cudaGetLastError();
+  return launch_sort<T>(w, V, info, batch, n, max_sweeps, work, st);
 }
 
 template <typename T>
@@ -1956,6 +2050,752 @@ int launch_grid(const void* A, void* w, void* V, void* info, int batch, int n,
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_tail<T>(w, V, info, batch, n, max_sweeps, (R*)work, st);
+}
+
+// ---------------------------------------------------------------------------
+// the stream route (small_eigh_stream: n > GRID_MAX_N; any n ≥ STREAM_MIN_N
+// where forced)
+
+// the smallest n: at two pairs the two look-ahead lanes of one CTA would
+// update the same block
+constexpr int STREAM_MIN_N = 5;
+// the stream kernel's threads a CTA, and the items (a slot's rows at 32
+// column slots) an update warp loads before it stores: 512 threads and 6
+// items were the fastest of the counts timed in turns on the H100 at n =
+// 1062 and 2112, by 19-33 % at 2112 over 1024 threads, which cap a thread
+// at 64 registers (PERF.md §6)
+constexpr int STREAM_THREADS = 512;
+constexpr int STREAM_SB = 6;
+// the vectors kernel with V's rows in shared memory: rows (a warp each) a
+// CTA, at most, and the fewest entries of the log it stages at once
+constexpr int VS_MAX_ROWS = 8;
+constexpr int VS_MIN_CHUNK = 32;
+
+#ifdef SMALL_EIGH_SPLIT
+// the probe's build: matrix 0's clock64() cycles on CTA 0 in the stream
+// route, as `stream_rounds` says
+__device__ long long split_str[8];
+#endif
+
+// the CTAs of the stream route at n: the most with ≥ 2 pairs each, at most
+// GRID_MAX_G (the smallest S whose ⌈h/S⌉ CTAs the card holds; 0 below
+// STREAM_MIN_N). Every CTA holds a slot; the last may hold one
+__host__ __device__ constexpr int stream_size(int n) {
+  if (n < STREAM_MIN_N) return 0;
+  const int h = (n + (n & 1)) / 2;
+  for (int S = 2; S <= h; ++S) {
+    const int G = (h + S - 1) / S;
+    if (G <= GRID_MAX_G) return G;
+  }
+  return 0;
+}
+
+// bytes of the stream kernel's dynamic shared memory at n on G CTAs: a
+// round's table, (c, s) and the pair of every slot (2h doubles and h ints,
+// rounded up to even), t and the three entries of the CTA's slots and its
+// neighbours' (4 × (S + 2) doubles), and the look-ahead's two blocks per slot
+// (2·S ints)
+__host__ __device__ constexpr size_t stream_smem_bytes(int n, int G) {
+  const size_t h = (n + (n & 1)) / 2, S = (h + G - 1) / G;
+  return 16 * h + 4 * (h + (h & 1)) + 32 * (S + 2) + 8 * S;
+}
+
+// whether the stream route takes n: its CTAs hold the round table in shared
+// memory, the vectors kernel one row of V and two chunks of the log, and
+// the sort kernel the diagonal and the ranking (12·n B, which binds first)
+__host__ __device__ constexpr bool stream_fits(int n) {
+  const int G = stream_size(n);
+  const size_t np = n + (n & 1);
+  return G > 0 && stream_smem_bytes(n, G) <= (size_t)CLUSTER_SMEM &&
+         np * sizeof(double) + 2 * VS_MIN_CHUNK * 16 <= (size_t)VEC_SMEM &&
+         (size_t)n * (sizeof(double) + sizeof(int)) <= (size_t)VEC_SMEM;
+}
+
+// the stream route's largest n. The card's memory runs out before it: the
+// rotation log alone is 240·n² B at the package's 30 sweeps, ~90 GB at this n. The
+// pairs packed as p | q << 16 need n ≤ 32768
+constexpr int STREAM_MAX_N = 19370;
+static_assert(stream_fits(STREAM_MAX_N) && !stream_fits(STREAM_MAX_N + 1) &&
+                  STREAM_MAX_N <= 32768,
+              "STREAM_MAX_N is the largest n the stream route takes");
+
+// doubles the stream route adds after its matrices' workspaces (each the
+// cluster family's: the log, V, A by index, two ints), shared by them: the
+// global round table (two parities of 7h, as the grid's), the stop test's
+// partial sums (two buffers × 64) and the barrier's count
+__host__ __device__ inline size_t stream_extra_doubles(int n) {
+  const size_t h = (n + (n & 1)) / 2;
+  const size_t total = 2 * (7 * h + (h & 1)) + 128 + 1;
+  return total + (total & 1);
+}
+
+// The stream route's CTAs: the grid's counter barrier and global round
+// table (GridLink), and the stop test's partial sums
+struct StreamLink : GridLink {
+  R* part;  // [2][64]: per buffer the off-diagonal sums, then the full ones
+};
+
+// One CTA's part of a matrix in the stream route: its slots [s0, s1), the
+// neighbourhood [lo, lo + w) whose t and entries it imports, its copy of a
+// round's table (cs, pq, loc: t, dp, dq, apq by slot − lo) and, per own slot,
+// the column slots whose block its look-ahead lane updates (skip, −1: none)
+struct StreamPart {
+  int np, h, m, S, s0, s1, Sc, lo, w, TAB;
+  double2* cs;
+  int* pq;
+  R* loc;
+  int* skip;
+  __device__ TabView view() const {
+    return TabView{cs, pq, loc - lo, loc + w - lo, loc + 2 * w - lo, loc + 3 * w - lo};
+  }
+  // the table of parity `par` from the global one into this CTA's shared
+  // memory: (c, s) and the pairs of every slot, t and the entries of slots
+  // lo … lo + w − 1. Its e-th double: from src[o] to *to
+  __device__ __forceinline__ void import_at(int e, int& o, R*& to) const {
+    const int hp = (h + 1) / 2;
+    if (e < 2 * h) {
+      o = e;
+      to = reinterpret_cast<R*>(cs) + e;
+    } else if (e < 2 * h + hp) {
+      o = 6 * h + e - 2 * h;
+      to = reinterpret_cast<R*>(pq) + e - 2 * h;
+    } else {
+      const int x = e - 2 * h - hp, q = x / w;
+      o = (2 + q) * h + lo + x - q * w;
+      to = loc + x;
+    }
+  }
+  __device__ __forceinline__ int import_size() const { return 2 * h + (h + 1) / 2 + 4 * w; }
+  // a thread's first K doubles of the import, loaded (before the round's
+  // loads of A, so that they come back first) ...
+  template <int K>
+  __device__ __forceinline__ void import_load(const R* gtab, int par, R (&v)[K]) const {
+    const int total = import_size();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int e = threadIdx.x + k * blockDim.x;
+      int o;
+      R* to;
+      if (e < total) {
+        import_at(e, o, to);
+        v[k] = __ldcg(gtab + par * TAB + o);
+      }
+    }
+  }
+  // ... then stored, and the rest (past K a thread) loaded and stored, the
+  // loads of a pass before its stores
+  template <int K>
+  __device__ __forceinline__ void import_store(const R* gtab, int par, const R (&v)[K]) const {
+    const int total = import_size();
+    const int nt = blockDim.x;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int e = threadIdx.x + k * nt;
+      int o;
+      R* to;
+      if (e < total) {
+        import_at(e, o, to);
+        *to = v[k];
+      }
+    }
+    for (int e0 = threadIdx.x + K * nt; e0 < total; e0 += K * nt) {
+      R u[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int e = e0 + k * nt;
+        int o;
+        R* to;
+        if (e < total) {
+          import_at(e, o, to);
+          u[k] = __ldcg(gtab + par * TAB + o);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int e = e0 + k * nt;
+        int o;
+        R* to;
+        if (e < total) {
+          import_at(e, o, to);
+          *to = u[k];
+        }
+      }
+    }
+  }
+  __device__ void import(const R* gtab, int par) const {
+    R v[GridLink::IMPORT];
+    import_load(gtab, par, v);
+    import_store(gtab, par, v);
+  }
+};
+
+// The one-CTA kernel's strided sums of A's squared entries (A by index in
+// global memory, read from L2) for its thread t of nt: e = t, t + nt, … in
+// order, the diagonal an exact 0 in `off`, every entry in `all` (BOTH);
+// the loads of eight terms before their sums
+template <bool BOTH>
+__device__ void stream_strided(const R* A, int np, int nt, int t, R& off, R& all) {
+  const int size = np * np, du = nt / np, dv = nt - du * np;
+  int u = t / np, v = t - u * np;
+  off = R(0);
+  all = R(0);
+  for (int e0 = t; e0 < size; e0 += 8 * nt) {
+    R a[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * nt;
+      a[k] = e < size ? __ldcg(A + e) : R(0);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (e0 + k * nt < size) {
+        const R x = u == v ? R(0) : a[k];
+        off += x * x;
+        if (BOTH) all += a[k] * a[k];
+        u += du;
+        v += dv;
+        if (v >= np) {
+          v -= np;
+          ++u;
+        }
+      }
+    }
+  }
+}
+
+// This CTA's share of the stop test: the one-CTA kernel's virtual warps v ≡
+// rank (mod G) of its nt threads, a warp each, lane l playing thread 32v + l:
+// its strided sums, the warp's __shfl_down tree, into part[v] (and, BOTH,
+// the sum with the diagonal into part[32 + v]); the tree over the warps'
+// sums is `stream_total`'s, after the barrier
+template <bool BOTH>
+__device__ void stream_partials(const R* A, int np, int nt, R* part, int rank, int G) {
+  const int lane = threadIdx.x & 31, nw = nt >> 5;
+  for (int v = rank + G * (int)(threadIdx.x >> 5); v < nw; v += G * (int)(blockDim.x >> 5)) {
+    R off, all;
+    stream_strided<BOTH>(A, np, nt, 32 * v + lane, off, all);
+    for (int o = 16; o > 0; o >>= 1) {
+      off += __shfl_down_sync(FULL, off, o);
+      if (BOTH) all += __shfl_down_sync(FULL, all, o);
+    }
+    if (lane == 0) {
+      part[v] = off;
+      if (BOTH) part[32 + v] = all;
+    }
+  }
+}
+
+// the tree over the nw warps' sums at `part` (a warp's; every lane returns
+// it), as the one-CTA kernel's block_sum takes it
+__device__ __forceinline__ R stream_total(const R* part, int nw) {
+  const int lane = threadIdx.x & 31;
+  R x = lane < nw ? __ldcg(part + lane) : R(0);
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(FULL, x, o);
+  return __shfl_sync(FULL, x, 0);
+}
+
+// An update warp's STREAM_SB items of a round (item (il, jp): slot s0 +
+// il's rows at column slots 32·jp … 32·jp + 31, a lane each): per item the
+// slot's pair, the column slot's (0: the slot's own, −1: nothing to do), i
+// | j << 16, and the block's four entries, loaded before any is stored
+struct StreamBatch {
+  R x[STREAM_SB][4];
+  int pqi[STREAM_SB], pqj[STREAM_SB], ij[STREAM_SB];
+
+  // the look-ahead's block for next round's slot k into item 0: pqi the
+  // pair of k's source slot on this CTA (L), pqj the other's (O)
+  __device__ __forceinline__ void load_ahead(int k, int rd, const StreamPart& P, const R* Ad) {
+    const AheadSrc src = ahead_src(k, rd, P.h, P.m, P.s0, P.s1);
+    int p, q;
+    pair_fast(rd, src.L, P.np, p, q);
+    pqi[0] = p | (q << 16);
+    const R* rp = Ad + (size_t)p * P.np;
+    const R* rq = Ad + (size_t)q * P.np;
+    pair_fast(rd, src.O, P.np, p, q);
+    pqj[0] = p | (q << 16);
+    x[0][0] = __ldcg(rp + p);
+    x[0][1] = __ldcg(rp + q);
+    x[0][2] = __ldcg(rq + p);
+    x[0][3] = __ldcg(rq + q);
+  }
+
+  // the pairs from the round (not the table), so that the loads may be in
+  // flight while the table comes in
+  __device__ __forceinline__ void load(int it0, int rd, int items, int NJ, int nuw, int lane,
+                                       const StreamPart& P, const R* Ad) {
+#pragma unroll
+    for (int k = 0; k < STREAM_SB; ++k) {
+      const int item = it0 + k * nuw;
+      pqj[k] = -1;
+      if (item >= items) continue;
+      const int il = item / NJ, i = P.s0 + il, j = 32 * (item - il * NJ) + lane;
+      if (j >= P.h || j == P.skip[2 * il] || j == P.skip[2 * il + 1]) continue;
+      int p, q;
+      pair_fast(rd, i, P.np, p, q);
+      pqi[k] = p | (q << 16);
+      ij[k] = i | (j << 16);
+      if (j == i) {
+        pqj[k] = 0;
+        continue;
+      }
+      const R* rp = Ad + (size_t)p * P.np;
+      const R* rq = Ad + (size_t)q * P.np;
+      pair_fast(rd, j, P.np, p, q);
+      pqj[k] = p | (q << 16);
+      x[k][0] = __ldcg(rp + p);
+      x[k][1] = __ldcg(rp + q);
+      x[k][2] = __ldcg(rq + p);
+      x[k][3] = __ldcg(rq + q);
+    }
+  }
+
+  __device__ __forceinline__ void store(const StreamPart& P, const TabView& tb, R* Ad) const {
+#pragma unroll
+    for (int k = 0; k < STREAM_SB; ++k) {
+      if (pqj[k] < 0) continue;
+      R* rp = Ad + (size_t)(pqi[k] & 0xffff) * P.np;
+      R* rq = Ad + (size_t)(pqi[k] >> 16) * P.np;
+      if (pqj[k] == 0) {
+        __stcg(rp + (pqi[k] >> 16), R(0));
+        __stcg(rq + (pqi[k] & 0xffff), R(0));
+        continue;
+      }
+      const int i = ij[k] & 0xffff, j = ij[k] >> 16;
+      const int cp = pqj[k] & 0xffff, cq = pqj[k] >> 16;
+      const double2 ci = tb.cs[i], cj = tb.cs[j];
+      R pp, pq, qp, qq;
+      block_rows_rn(i < j, ci.x, ci.y, cj.x, cj.y, x[k][0], x[k][1], x[k][2], x[k][3], pp, pq,
+                    qp, qq);
+      __stcg(rp + cp, pp);
+      __stcg(rp + cq, pq);
+      __stcg(rq + cp, qp);
+      __stcg(rq + cq, qq);
+    }
+  }
+};
+
+// Next round's slot k (this CTA's) in the stream route: the look-ahead
+// lane updates the block of k's two source slots on the rows of the one on
+// this CTA (L) itself, in place (the update warps skip that block), and
+// takes the entry between k's indices from it. `StreamBatch::load_ahead`
+// loads the block (its item 0) before the table comes in.
+__device__ __forceinline__ Ahead stream_ahead(int k, int rd, const StreamPart& P,
+                                              const TabView& tb, int pqL, int pqO,
+                                              const R* x, R* Ad) {
+  const AheadSrc src = ahead_src(k, rd, P.h, P.m, P.s0, P.s1);
+  const int pL = pqL & 0xffff, qL = pqL >> 16, pO = pqO & 0xffff, qO = pqO >> 16;
+  R* rp = Ad + (size_t)pL * P.np;
+  R* rq = Ad + (size_t)qL * P.np;
+  const double2 cL = tb.cs[src.L], cO = tb.cs[src.O];
+  R pp, pq, qp, qq;
+  block_rows_rn(src.L < src.O, cL.x, cL.y, cO.x, cO.y, x[0], x[1], x[2], x[3], pp, pq, qp, qq);
+  __stcg(rp + pO, pp);
+  __stcg(rp + qO, pq);
+  __stcg(rq + pO, qp);
+  __stcg(rq + qO, qq);
+  const bool top = src.uL == pL;
+  return ahead_finish(src, tb, top ? pp : qp, top ? pq : qq);
+}
+
+// (1') The rounds on A of one matrix in the stream route, on CTA `rank` of
+// G co-resident CTAs: A by index in the workspace (L2), each CTA owning the
+// rows of its slots [s0, s1) in every round and rewriting every entry of
+// them in place (a slot's two rows at a column slot: 4 loads, `rotate_block`
+// as the one-CTA kernel's thread for the block computes it, 4 stores), from
+// its own rows alone; a look-ahead lane per slot (warp 0) computes next
+// round's table of the CTA's slots (updating the block it reads itself) into
+// the global table; one barrier a round. A round starts with its first
+// loads of A in flight while the CTA imports the round's table. The stop
+// test's sums spread over the CTAs by virtual warp, the tree over them on
+// every CTA. The probe's build (SMALL_EIGH_SPLIT) sums, for matrix 0 on CTA
+// 0, clock64() cycles into split_str: [0] rounds, [1] warp 0's body (the
+// log and the look-ahead) and [2] update warp 1's, both after the import,
+// [3] thread 0's barrier (after its own body), [4] the import with the
+// first loads in flight, [5] the stop tests and [6] their count, [7] the
+// whole call.
+template <typename T>
+__device__ void stream_rounds(StreamLink& L, const StreamPart& P, const T* __restrict__ Ab,
+                              T* __restrict__ w_b, T* __restrict__ V_b,
+                              int* __restrict__ info_b, int n, int max_sweeps,
+                              R* __restrict__ ws, int& par, int& tests, bool probe) {
+  const int np = P.np, h = P.h, m = P.m, s0 = P.s0, Sc = P.Sc, rank = L.rank;
+  const int G = L.G, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt_ref = cta_threads(n), nw = nt_ref >> 5;
+  double2* rlog = reinterpret_cast<double2*>(ws);
+  R* Ad = ws + 2 * ((size_t)max_sweeps * m + 1) * h + (size_t)np * np;
+  int* status = reinterpret_cast<int*>(Ad + (size_t)np * np);
+  Part gp;  // what GridLink::publish reads
+  gp.h = h;
+  gp.TAB = P.TAB;
+#ifdef SMALL_EIGH_SPLIT
+  long long ck[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const long long k_start = clock64();
+#else
+  (void)probe;
+#endif
+  auto in = [&](int u, int v) {
+    return u < n && v < n ? R(u >= v ? Ab[u * n + v] : Ab[v * n + u]) : R(0);
+  };
+  // the CTA's rows at their round-0 positions into A by index (the lower
+  // triangle, mirrored), and round 0's rotations of its slots
+  for (int e = tid; e < 2 * Sc * np; e += STREAM_THREADS) {
+    const int r = e / np, v = e - r * np;
+    const int side = r >= Sc, il = side ? r - Sc : r;
+    const int u = index_at(0, s0 + il, side, m);
+    __stcg(Ad + (size_t)u * np + v, in(u, v));
+  }
+  for (int il = tid; il < Sc; il += STREAM_THREADS) {
+    const int k = s0 + il;
+    int p, q;
+    pair_fast(0, k, np, p, q);
+    Ahead a;
+    a.app = in(p, p);
+    a.aqq = in(q, q);
+    a.apq = in(p, q);
+    a.pq = p | (q << 16);
+    rotation(a.app, a.aqq, a.apq, a.c, a.s, a.t);
+    L.publish(gp, par, k, a);
+  }
+  L.sync();
+  // ‖A‖² and the first stop test
+  R* part = L.part + 64 * (tests & 1);
+  stream_partials<true>(Ad, np, nt_ref, part, rank, G);
+  L.sync();
+  ++tests;
+  const R norm2 = stream_total(part + 32, nw);
+  if (!isfinite(norm2)) {
+    if (rank == 0) {
+      const R nan = R(0) / R(0);
+      for (int e = tid; e < n * n; e += STREAM_THREADS) V_b[e] = T(nan);
+      for (int i = tid; i < n; i += STREAM_THREADS) w_b[i] = T(nan);
+      if (tid == 0) {
+        info_b[0] = 0;
+        status[0] = NONFINITE;
+      }
+    }
+    return;
+  }
+  const R tol2 = EPS * EPS * norm2;
+  int verdict = stream_total(part, nw) <= tol2 ? DONE : (max_sweeps == 0 ? CAP : GO);
+  const int NJ = (h + 31) / 32, items = Sc * NJ;
+  constexpr int NUW = STREAM_THREADS / 32 - 1;
+  const TabView tb = P.view();
+  int sweeps = 0, g = 0;
+  while (verdict == GO) {
+    for (int rd = 0; rd < m; ++rd, ++g) {
+#ifdef SMALL_EIGH_SPLIT
+      const long long t0 = clock64();
+#endif
+      // the look-ahead's loads, the table's, the update warps' first
+      // loads of A, in that order (each comes back about in turn), then the
+      // table into shared memory
+      StreamBatch bt;
+      R tv[GridLink::IMPORT];
+      if (warp == 0 && lane < Sc) bt.load_ahead(s0 + lane, rd, P, Ad);
+      P.import_load(L.gtab, par, tv);
+      if (warp != 0) bt.load(warp - 1, rd, items, NJ, NUW, lane, P, Ad);
+      P.import_store(L.gtab, par, tv);
+      __syncthreads();
+#ifdef SMALL_EIGH_SPLIT
+      const long long t1 = clock64();
+#endif
+      if (warp == 0) {
+        // this round's rotations into the log, then next round's table of
+        // the CTA's slots, a lane per slot
+        for (int il = lane; il < Sc; il += 32) rlog[(size_t)g * h + s0 + il] = tb.cs[s0 + il];
+        for (int il = lane; il < Sc; il += 32) {
+          if (il >= 32) bt.load_ahead(s0 + il, rd, P, Ad);
+          L.publish(gp, par ^ 1, s0 + il,
+                    stream_ahead(s0 + il, rd, P, tb, bt.pqi[0], bt.pqj[0], bt.x[0], Ad));
+        }
+      } else {
+        bt.store(P, tb, Ad);
+        for (int it0 = warp - 1 + STREAM_SB * NUW; it0 < items; it0 += STREAM_SB * NUW) {
+          bt.load(it0, rd, items, NJ, NUW, lane, P, Ad);
+          bt.store(P, tb, Ad);
+        }
+      }
+#ifdef SMALL_EIGH_SPLIT
+      const long long t2 = clock64();
+#endif
+      L.sync();
+#ifdef SMALL_EIGH_SPLIT
+      if (probe && lane == 0 && warp <= 1) {
+        const long long t3 = clock64();
+        ck[0] += warp == 0;
+        ck[warp == 0 ? 1 : 2] += t2 - t1;
+        if (warp == 0) {
+          ck[3] += t3 - t2;
+          ck[4] += t1 - t0;
+        }
+      }
+#endif
+      par ^= 1;
+    }
+    ++sweeps;
+#ifdef SMALL_EIGH_SPLIT
+    const long long s_0 = clock64();
+#endif
+    part = L.part + 64 * (tests & 1);
+    stream_partials<false>(Ad, np, nt_ref, part, rank, G);
+    L.sync();
+    ++tests;
+    verdict = stream_total(part, nw) <= tol2 ? DONE : (sweeps == max_sweeps ? CAP : GO);
+#ifdef SMALL_EIGH_SPLIT
+    ck[5] += clock64() - s_0;
+    ck[6] += 1;
+#endif
+  }
+  // the diagonal (the table of the next round 0) at each of the CTA's pairs
+  P.import(L.gtab, par);
+  __syncthreads();
+  for (int il = tid; il < Sc; il += STREAM_THREADS) {
+    const int k = s0 + il, p = tb.pq[k] & 0xffff, q = tb.pq[k] >> 16;
+    __stcg(Ad + (size_t)p * np + p, tb.dp[k]);
+    __stcg(Ad + (size_t)q * np + q, tb.dq[k]);
+  }
+  if (rank == 0 && tid == 0) {
+    status[0] = verdict == DONE ? sweeps : -1;
+    status[1] = sweeps * m;
+  }
+#ifdef SMALL_EIGH_SPLIT
+  if (probe && tid == 0) {
+    ck[7] = clock64() - k_start;
+    for (int k = 0; k < 8; ++k)
+      if (k != 2) split_str[k] = ck[k];
+  }
+  if (probe && tid == 32) split_str[2] = ck[2];
+#endif
+}
+
+template <typename T>
+__global__ void __launch_bounds__(STREAM_THREADS)
+    small_eigh_stream_kernel(const T* __restrict__ A_in, T* __restrict__ w_out,
+                             T* __restrict__ V_out, int* __restrict__ info, int n,
+                             int max_sweeps, StreamLink link, R* __restrict__ work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StreamLink L = link;
+  L.begin(nullptr);
+  StreamPart P;
+  P.np = n + (n & 1);
+  P.h = P.np / 2;
+  P.m = P.np - 1;
+  P.S = (P.h + L.G - 1) / L.G;
+  P.s0 = min(L.rank * P.S, P.h);
+  P.s1 = min(P.h, P.s0 + P.S);
+  P.Sc = P.s1 - P.s0;
+  P.lo = P.s0 > 0 ? P.s0 - 1 : 0;
+  P.w = (P.s1 < P.h ? P.s1 + 1 : P.h) - P.lo;
+  P.TAB = 7 * P.h + (P.h & 1);
+  P.cs = reinterpret_cast<double2*>(smem_raw);
+  P.pq = reinterpret_cast<int*>(P.cs + P.h);
+  P.loc = reinterpret_cast<R*>(P.pq + P.h + (P.h & 1));
+  P.skip = reinterpret_cast<int*>(P.loc + 4 * (P.S + 2));
+  // the blocks the look-ahead lanes update: next slot k's, on the rows of
+  // its source slot L here (a slot is the source of at most two)
+  if (threadIdx.x == 0) {
+    for (int x = 0; x < 2 * P.Sc; ++x) P.skip[x] = -1;
+    for (int k = P.s0; k < P.s1; ++k) {
+      const AheadSrc src = ahead_src(k, 0, P.h, P.m, P.s0, P.s1);
+      const int x = src.L - P.s0;
+      P.skip[2 * x + (P.skip[2 * x] >= 0)] = src.O;
+    }
+  }
+  __syncthreads();
+  int par = 0, tests = 0;
+  for (int b = 0; b < L.batch; ++b) {
+    stream_rounds(L, P, A_in + (size_t)b * n * n, w_out + (size_t)b * n,
+                  V_out + (size_t)b * n * n, info + b, n, max_sweeps,
+                  work + (size_t)b * cluster_work_doubles(n, max_sweeps), par, tests,
+                  b == 0 && L.rank == 0);
+    // the next matrix's round-0 table goes to the other parity: a CTA may
+    // still be copying this one's
+    par ^= 1;
+    __syncthreads();
+  }
+}
+
+// (2') V from the rotation log with V's rows in shared memory by index (the
+// stream route, any h): a warp per row k of V, `rows` a CTA (the grid:
+// batch × ⌈n / rows⌉ CTAs), from V = I; a round applies `rotate_v` to (V[k][p],
+// V[k][q]) of each slot, lane l taking slots l, l + 32, … four at a time
+// (the pairs of a round are disjoint). The log is staged as in (2), but
+// `ce` entries ((c, s) of a slot) at a time, whole rounds or not: a round
+// split between two chunks is applied in its two parts in turn (its pairs
+// are disjoint, so every entry sees the same operations). The probe's build sums,
+// for matrix 0's first CTA, [8] the kernel's cycles and [9] its waits for
+// the log.
+__global__ void __launch_bounds__(32 * VS_MAX_ROWS)
+    small_eigh_vectors_smem_kernel(int n, int max_sweeps, R* __restrict__ work, int blocks,
+                                   int ce, int rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int np = n + (n & 1), h = np / 2, m = np - 1;
+  double2* stage = reinterpret_cast<double2*>(smem_raw);  // [2][ce]
+  const int b = blockIdx.x / blocks, blk = blockIdx.x - b * blocks;
+  R* ws = work + (size_t)b * cluster_work_doubles(n, max_sweeps);
+  const double2* rlog = reinterpret_cast<const double2*>(ws);
+  R* Vg = ws + 2 * ((size_t)max_sweeps * m + 1) * h;
+  const int* status = reinterpret_cast<const int*>(Vg + 2 * (size_t)np * np);
+  if (status[0] == NONFINITE) return;
+  const long long total = (long long)status[1] * h;  // the log's entries
+  const int tid = threadIdx.x, lane = tid & 31, nthreads = 32 * rows;
+  const int k = blk * rows + (tid >> 5);
+  const bool live = k < n;
+  R* vrow = reinterpret_cast<R*>(stage + 2 * (size_t)ce) + (size_t)(tid >> 5) * np;
+#ifdef SMALL_EIGH_SPLIT
+  const long long k_start = clock64();
+  long long stage_clk = 0;
+#endif
+  for (int x = lane; x < np; x += 32) vrow[x] = x == k ? R(1) : R(0);
+  __syncwarp();
+  auto fetch = [&](long long e0, int buf) {
+    const int cnt = (int)min((long long)ce, total - e0);
+    for (int e = tid; e < cnt; e += nthreads)
+      __pipeline_memcpy_async(stage + buf * ce + e, rlog + e0 + e, sizeof(double2));
+    __pipeline_commit();
+  };
+  if (total > 0) fetch(0, 0);
+  for (long long e0 = 0, buf = 0; e0 < total; e0 += ce, buf ^= 1) {
+    const long long e1 = min(e0 + ce, total);
+    const bool more = e1 < total;
+    if (more) fetch(e1, buf ^ 1);
+#ifdef SMALL_EIGH_SPLIT
+    const long long s_0 = clock64();
+#endif
+    if (more)
+      __pipeline_wait_prior(1);
+    else
+      __pipeline_wait_prior(0);
+    __syncthreads();
+#ifdef SMALL_EIGH_SPLIT
+    stage_clk += clock64() - s_0;
+#endif
+    // the rounds of the chunk, whole or in part: slots [ja, jb) of round g
+    for (long long g = e0 / h; live && g * h < e1; ++g) {
+      const int rd = (int)(g % m);
+      const int ja = (int)(max(e0, g * h) - g * h), jb = (int)(min(e1, g * h + h) - g * h);
+      const double2* cs = stage + (buf * ce + g * h - e0);  // at slot 0 of round g
+      for (int j0 = ja + lane; j0 < jb; j0 += 4 * 32) {
+        int p[4], qq[4];
+        R vp[4], vq[4];
+        double2 x[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = min(j0 + 32 * r, jb - 1);  // past the end: not stored
+          pair_fast(rd, j, np, p[r], qq[r]);
+          x[r] = cs[j];
+          vp[r] = vrow[p[r]];
+          vq[r] = vrow[qq[r]];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          R np_, nq_;
+          rotate_v_rn(x[r].x, x[r].y, vp[r], vq[r], np_, nq_);
+          if (j0 + 32 * r < jb) {
+            vrow[p[r]] = np_;
+            vrow[qq[r]] = nq_;
+          }
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // the chunk is read before the next fetch overwrites it
+  }
+  if (live)
+    for (int x = lane; x < np; x += 32) Vg[(size_t)k * np + x] = vrow[x];
+#ifdef SMALL_EIGH_SPLIT
+  if (b == 0 && blk == 0 && tid == 0) {
+    split_clu[8] = clock64() - k_start;
+    split_clu[9] = stage_clk;
+  }
+#endif
+}
+
+// (2') for `batch` matrices: the most rows a CTA (to VS_MAX_ROWS) whose
+// shared memory also holds two rounds of the log (one row past n ≈ 9 680,
+// where two rounds no longer fit beside it), and chunks of the log as
+// large as fit beside them (to VEC_ROUNDS rounds, at least VS_MIN_CHUNK
+// entries), whole rounds or not
+int launch_vectors_smem(int batch, int n, int max_sweeps, R* work, cudaStream_t st) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        small_eigh_vectors_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, VEC_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const size_t np = n + (n & 1), h = np / 2, entry = sizeof(double2);
+  int rows = VS_MAX_ROWS;
+  while (rows > 1 && rows * np * sizeof(R) + 2 * h * entry > (size_t)VEC_SMEM) --rows;
+  if (rows * np * sizeof(R) + 2 * VS_MIN_CHUNK * entry > (size_t)VEC_SMEM)
+    return (int)cudaErrorInvalidValue;
+  size_t ce = (VEC_SMEM - rows * np * sizeof(R)) / (2 * entry);
+  if (ce > VEC_ROUNDS * h) ce = VEC_ROUNDS * h;
+  const int blocks = (n + rows - 1) / rows;
+  small_eigh_vectors_smem_kernel<<<batch * blocks, 32 * rows,
+                                   2 * ce * entry + rows * np * sizeof(R), st>>>(
+      n, max_sweeps, work, blocks, (int)ce, rows);
+  return (int)cudaGetLastError();
+}
+
+// The stream route: G = stream_size(n) CTAs of a cooperative launch, as the
+// grid's (refused when the card does not hold them all at once), then (2')
+// and (3). `work`: batch × cluster_work_doubles(n, max_sweeps), then
+// stream_extra_doubles(n); the barrier's count is zeroed on the stream
+// first.
+template <typename T>
+int launch_stream(const void* A, void* w, void* V, void* info, int batch, int n,
+                  int max_sweeps, void* work, void* stream) {
+  const int G = stream_size(n);
+  if (batch < 1 || max_sweeps < 0 || !stream_fits(n)) return (int)cudaErrorInvalidValue;
+  const auto kernel = small_eigh_stream_kernel<T>;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = stream_smem_bytes(n, G);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CLUSTER_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, STREAM_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if ((long long)per_sm * sms < G) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const size_t h = (n + (n & 1)) / 2;
+  R* extra = (R*)work + (size_t)batch * cluster_work_doubles(n, max_sweeps);
+  StreamLink link = {};
+  link.G = G;
+  link.batch = batch;
+  link.gtab = extra;
+  link.part = extra + 2 * (7 * h + (h & 1));
+  link.count = reinterpret_cast<unsigned*>(link.part + 128);
+  e = cudaMemsetAsync(link.count, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, 1, 1);
+  cfg.blockDim = dim3(STREAM_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, (const T*)A, (T*)w, (T*)V, (int*)info, n, max_sweeps,
+                         link, (R*)work);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // V: the registers' kernel where a lane holds h (≤ 32·VEC_MAX_R), else
+  // the rows in shared memory
+  if ((n + (n & 1)) / 2 <= 32 * VEC_MAX_R)
+    return launch_tail<T>(w, V, info, batch, n, max_sweeps, (R*)work, st);
+  const int err = launch_vectors_smem(batch, n, max_sweeps, (R*)work, st);
+  if (err) return err;
+  return launch_sort<T>(w, V, info, batch, n, max_sweeps, (R*)work, st);
 }
 
 template <typename T>
@@ -2080,6 +2920,27 @@ int cora_small_eigh_grid_size(int n) { return grid_size(n); }
 
 int cora_small_eigh_grid_max_n() { return GRID_MAX_N; }
 
+int cora_small_eigh_stream_f32(const void* A, void* w, void* V, void* info, int batch,
+                               int n, int max_sweeps, void* work, void* stream) {
+  return launch_stream<float>(A, w, V, info, batch, n, max_sweeps, work, stream);
+}
+
+int cora_small_eigh_stream_f64(const void* A, void* w, void* V, void* info, int batch,
+                               int n, int max_sweeps, void* work, void* stream) {
+  return launch_stream<double>(A, w, V, info, batch, n, max_sweeps, work, stream);
+}
+
+// doubles of the stream route's workspace for `batch` matrices of size n
+long long cora_small_eigh_stream_work(int n, int max_sweeps, int batch) {
+  return (long long)((size_t)batch * cluster_work_doubles(n, max_sweeps) +
+                     stream_extra_doubles(n));
+}
+
+// the CTAs the stream route takes at n (0: below STREAM_MIN_N)
+int cora_small_eigh_stream_size(int n) { return stream_size(n); }
+
+int cora_small_eigh_stream_max_n() { return STREAM_MAX_N; }
+
 int cora_small_eigh_max_n() { return MAX_N; }
 
 int cora_small_eigh_warp_max_n() { return WARP_N; }
@@ -2095,6 +2956,12 @@ int cora_small_eigh_split_clocks(void* out) {
 // the host's out[12]
 int cora_small_eigh_cluster_split_clocks(void* out) {
   return (int)cudaMemcpyFromSymbol(out, split_clu, sizeof(split_clu));
+}
+
+// the split build's cycles of the last stream call's rounds (split_str)
+// into the host's out[8]
+int cora_small_eigh_stream_split_clocks(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, split_str, sizeof(split_str));
 }
 #endif
 

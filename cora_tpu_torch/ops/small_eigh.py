@@ -28,12 +28,24 @@ five routes, all giving the same bits where they overlap:
     `MAX_SWEEPS` × (n_p − 1) × n_p/2 × 16 B: 50 MB at n = 456, 267 MB at
     1056) is allocated per call, so inside LOBPCG's captured graphs it
     lives in the graph's memory pool;
-  * "global", n > 1056 (key `small_eigh_global`): the one-CTA kernel's
-    arithmetic with A and V in a global workspace that stays in L2, and
-    the comparator of the other routes past n = 96;
-  * "cta", n ≤ `MAX_N` = 96 (key `small_eigh_cta`): one CTA, a thread per
-    2 × 2 block, A and V in shared memory: the first design, routed to by
-    no size now, the comparator whose bits the others give.
+  * "stream", n > 1056 (rank ≥ 351; key `small_eigh_stream`), and any n ≥
+    `STREAM_MIN_N` = 5 where forced: the rounds on `stream_size(n)` ≤ 132
+    co-resident CTAs as the grid's, but with A by index in the workspace
+    (8·n_p² B: 9 MB at n = 1062, 36 MB at 2112, inside the H100's 50 MB
+    L2 to about n = 2500, past which the same kernel runs from HBM); each
+    CTA rewrites the rows of its slots in place, read from L2, so a round
+    moves no row between CTAs: one barrier a round. V from the same log
+    (1.07 GB at n = 2112, in the graphs' pool too): the registers' kernel
+    to n = 1088, past it V's rows in shared memory (the log staged in whole
+    rounds, past n ≈ 9 680 in parts of rounds); then the sort. It takes n
+    to `STREAM_MAX_N` = 19 370, where the sort's ranking fills a block's
+    shared memory; the card's memory runs out first (the log is 240·n² B:
+    80 GB at n ≈ 18 000);
+  * "global" (key `small_eigh_global`) and "cta", n ≤ `MAX_N` = 96 (key
+    `small_eigh_cta`), routed to by no size: the comparators. The one-CTA
+    kernel (a thread per 2 × 2 block, A and V in shared memory) is the
+    first design, whose bits the others give; the global kernel is its
+    body with A and V in a global workspace, for any n.
 A call launches on the current stream, never synchronises, and leaves a
 convergence report per matrix in a device int (`info`: sweeps taken, −1
 at the sweep cap), which the caller reads with its other results.
@@ -70,9 +82,21 @@ CLUSTER_MAX_C = 16
 # the card's count and that all of them are resident at once)
 GRID_MAX_N = 1056
 GRID_MAX_G = 132
+# the stream route's smallest n (at two pairs two look-ahead lanes would
+# update one block) and its largest (`stream_fits`)
+STREAM_MIN_N = 5
+STREAM_MAX_N = 19370
 # the sm_90 opt-in shared memory of a block, less room for the cluster
-# kernel's static shared memory (small_eigh.cu CLUSTER_SMEM)
+# kernel's static shared memory (small_eigh.cu CLUSTER_SMEM), and all of it
+# (VEC_SMEM: the vectors and sort kernels)
 CLUSTER_SMEM = 232448 - 1024
+VEC_SMEM = 232448
+# the fewest entries of the log the stream route's vectors kernel stages
+VS_MIN_CHUNK = 32
+# the n at which `load_library` holds the stream route's sizes to the
+# library's: each side of the routes' boundaries and the certificates' n
+STREAM_CHECKED = (4, 5, 6, 35, 36, 99, 516, 1056, 1057, 1062, 1536, 2112,
+                  2409 * 3 + 6, STREAM_MAX_N)
 # Jacobi sweeps before a kernel reports "not converged" (they take 7-9 at
 # n ≤ 96 on the card, PERF.md §6)
 MAX_SWEEPS = 30
@@ -83,11 +107,11 @@ NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel; the wrapper adds one where it launches (inside a
 # captured graph: each replay, `utils.graphs.COUNTERS`)
 LAUNCHES = {"small_eigh": 0, "small_eigh_cluster": 0, "small_eigh_grid": 0,
-            "small_eigh_cta": 0, "small_eigh_global": 0}
+            "small_eigh_stream": 0, "small_eigh_cta": 0, "small_eigh_global": 0}
 # route → launch key
 KEYS = {"warp": "small_eigh", "cluster": "small_eigh_cluster",
-        "grid": "small_eigh_grid", "cta": "small_eigh_cta",
-        "global": "small_eigh_global"}
+        "grid": "small_eigh_grid", "stream": "small_eigh_stream",
+        "cta": "small_eigh_cta", "global": "small_eigh_global"}
 loops.COUNTERS.append(LAUNCHES)
 BUILD_INFO: dict = {}
 
@@ -126,7 +150,8 @@ def load_library():
         fn.restype = ci
     for fn in (lib.cora_small_eigh_cluster_f32,
                lib.cora_small_eigh_cluster_f64, lib.cora_small_eigh_grid_f32,
-               lib.cora_small_eigh_grid_f64):
+               lib.cora_small_eigh_grid_f64, lib.cora_small_eigh_stream_f32,
+               lib.cora_small_eigh_stream_f64):
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
         fn.restype = ci
     lib.cora_small_eigh_global_work.argtypes = [ci]
@@ -135,17 +160,23 @@ def load_library():
     lib.cora_small_eigh_cluster_work.restype = ctypes.c_longlong
     lib.cora_small_eigh_grid_work.argtypes = [ci, ci, ci]
     lib.cora_small_eigh_grid_work.restype = ctypes.c_longlong
+    lib.cora_small_eigh_stream_work.argtypes = [ci, ci, ci]
+    lib.cora_small_eigh_stream_work.restype = ctypes.c_longlong
     lib.cora_small_eigh_cluster_size.argtypes = [ci]
     lib.cora_small_eigh_grid_size.argtypes = [ci]
+    lib.cora_small_eigh_stream_size.argtypes = [ci]
     for fn in (lib.cora_small_eigh_max_n, lib.cora_small_eigh_warp_max_n,
                lib.cora_small_eigh_cluster_max_n,
                lib.cora_small_eigh_cluster_size,
-               lib.cora_small_eigh_grid_max_n, lib.cora_small_eigh_grid_size):
+               lib.cora_small_eigh_grid_max_n, lib.cora_small_eigh_grid_size,
+               lib.cora_small_eigh_stream_size,
+               lib.cora_small_eigh_stream_max_n):
         fn.restype = ci
     if (lib.cora_small_eigh_max_n(), lib.cora_small_eigh_warp_max_n(),
             lib.cora_small_eigh_cluster_max_n(),
-            lib.cora_small_eigh_grid_max_n()) \
-            != (MAX_N, WARP_MAX_N, CLUSTER_MAX_N, GRID_MAX_N):
+            lib.cora_small_eigh_grid_max_n(),
+            lib.cora_small_eigh_stream_max_n()) \
+            != (MAX_N, WARP_MAX_N, CLUSTER_MAX_N, GRID_MAX_N, STREAM_MAX_N):
         raise KernelBuildError(f"{so} was built for another MAX_N")
     if any(lib.cora_small_eigh_cluster_size(n) != cluster_size(n)
            for n in range(1, CLUSTER_MAX_N + 2)):
@@ -153,6 +184,11 @@ def load_library():
     if any(lib.cora_small_eigh_grid_size(n) != grid_size(n)
            for n in range(1, GRID_MAX_N + 2)):
         raise KernelBuildError(f"{so} sizes its grid otherwise")
+    if any(lib.cora_small_eigh_stream_size(n) != stream_size(n)
+           or lib.cora_small_eigh_stream_work(n, MAX_SWEEPS, b)
+           != stream_work_doubles(n, MAX_SWEEPS, b)
+           for n in STREAM_CHECKED for b in (1, 2)):
+        raise KernelBuildError(f"{so} sizes its stream route otherwise")
     BUILD_INFO.update(path=str(so), seconds=time.time() - t0, log=log)
     _LIB = lib
     return lib
@@ -228,6 +264,54 @@ def grid_work_doubles(n: int, max_sweeps: int, batch: int) -> int:
     return batch * cluster_work_doubles(n, max_sweeps) + extra + extra % 2
 
 
+def stream_size(n: int) -> int:
+    """The CTAs of the stream route at n (small_eigh.cu `stream_size`): the
+    most with two or more pairs each, at most `GRID_MAX_G` (0 below
+    `STREAM_MIN_N`). Every CTA holds a pair; the last may hold one. A
+    round's update on a CTA streams its pairs' rows through L2, so more
+    CTAs share it; the barrier costs little more."""
+    if n < STREAM_MIN_N:
+        return 0
+    h = (n + n % 2) // 2
+    return next((-(-h // slots) for slots in range(2, h + 1)
+                 if -(-h // slots) <= GRID_MAX_G), 0)
+
+
+def stream_smem_bytes(n: int, ctas: int) -> int:
+    """The stream kernel's dynamic shared memory per CTA (small_eigh.cu
+    `stream_smem_bytes`): a round's (c, s) and pair of every slot (16 B and
+    4 B each, the ints rounded up to even), t and the three entries of the
+    CTA's ⌈h/G⌉ slots and their two neighbours' (32 B each), and the
+    look-ahead's two blocks per slot (8 B)."""
+    h = (n + n % 2) // 2
+    slots = -(-h // ctas)
+    return 16 * h + 4 * (h + h % 2) + 32 * (slots + 2) + 8 * slots
+
+
+def stream_fits(n: int) -> bool:
+    """Whether the stream route takes n (small_eigh.cu `stream_fits`): its
+    CTAs' round table (`stream_smem_bytes`), the vectors kernel's one row of
+    V and two chunks of the log, and the sort kernel's diagonal and ranking
+    (12·n B, which binds first) each fit a block's shared memory."""
+    ctas = stream_size(n)
+    np_ = n + n % 2
+    return (ctas > 0 and stream_smem_bytes(n, ctas) <= CLUSTER_SMEM
+            and 8 * np_ + 2 * VS_MIN_CHUNK * 16 <= VEC_SMEM
+            and 12 * n <= VEC_SMEM)
+
+
+def stream_work_doubles(n: int, max_sweeps: int, batch: int) -> int:
+    """Doubles of the stream route's workspace for `batch` matrices
+    (small_eigh.cu `cora_small_eigh_stream_work`): per matrix the cluster
+    family's (`cluster_work_doubles`: the log, V, A by index, two ints),
+    then the global round table (two parities of 7h doubles, h rounded up
+    to even), the stop test's partial sums (two buffers of 64) and the
+    barrier's count, rounded up to even."""
+    h = (n + n % 2) // 2
+    extra = 2 * (7 * h + h % 2) + 128 + 1
+    return batch * cluster_work_doubles(n, max_sweeps) + extra + extra % 2
+
+
 def cluster_work_doubles(n: int, max_sweeps: int) -> int:
     """Doubles of the cluster family's workspace per matrix
     (small_eigh.cu `cluster_work_doubles`): the rotation log ((c, s) per
@@ -242,27 +326,32 @@ def cluster_work_doubles(n: int, max_sweeps: int) -> int:
 def route(n: int, dtype, kernel: str | None = None) -> str:
     """The kernel an n × n matrix of `dtype` runs on the card: "warp" for
     n ≤ `WARP_MAX_N`, "cluster" for n ≤ `CLUSTER_MAX_N`, "grid" for n ≤
-    `GRID_MAX_N`, else "global"; `kernel` forces one (the comparisons of
-    the probe and the smoke test; "cta" only so), checked against its
-    sizes. Raises for a size or a dtype no kernel takes."""
+    `GRID_MAX_N`, else "stream" (to `STREAM_MAX_N`); `kernel` forces one
+    (the comparisons of the probe and the smoke test; "cta" and "global"
+    only so), checked against its sizes. Raises for a size or a dtype no
+    kernel takes."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"small_eigh: dtype {dtype}")
-    if kernel not in (None, "warp", "cluster", "grid", "cta", "global"):
+    if kernel not in (None, "warp", "cluster", "grid", "stream", "cta",
+                      "global"):
         raise ValueError(f"small_eigh: no kernel {kernel!r}")
     least, most = {"warp": (1, WARP_MAX_N), "cta": (1, MAX_N),
-                   "cluster": (CLUSTER_MIN_N, CLUSTER_MAX_N)}.get(
-                       kernel, (1, None))
+                   "cluster": (CLUSTER_MIN_N, CLUSTER_MAX_N),
+                   "stream": (STREAM_MIN_N, STREAM_MAX_N)}.get(kernel,
+                                                              (1, None))
     if kernel == "grid":
         if not grid_size(n):
             raise ValueError(f"small_eigh grid takes no n × n matrix with "
                              f"n = {n} (two pairs a CTA, n ≤ {GRID_MAX_N})")
         return kernel
+    if kernel is None and n > STREAM_MAX_N:
+        least, most, kernel = STREAM_MIN_N, STREAM_MAX_N, "stream"
     if n < least or (most is not None and n > most):
         raise ValueError(f"small_eigh {kernel} takes n × n matrices with "
                          f"{least} ≤ n ≤ {most}, got n = {n}")
     return kernel or ("warp" if n <= WARP_MAX_N else
                       "cluster" if n <= CLUSTER_MAX_N else
-                      "grid" if n <= GRID_MAX_N else "global")
+                      "grid" if n <= GRID_MAX_N else "stream")
 
 
 def small_eigh_plain(A: torch.Tensor):
@@ -283,9 +372,10 @@ def small_eigh(A: torch.Tensor, kernel: str | None = None):
     (its lower triangle is read): (w ascending, V with the eigenvectors as
     columns, info per matrix). On the CPU the plain twin; on the card the
     kernel `route` picks (or `kernel`; the cluster kernel on
-    `cluster_size(n)` CTAs, the grid on `grid_size(n)`), which raises for
-    another dtype or a failed launch (the grid also where the card cannot
-    hold its CTAs at once)."""
+    `cluster_size(n)` CTAs, the grid on `grid_size(n)`, the stream route on
+    `stream_size(n)`), which raises for another dtype or a failed launch
+    (the grid and the stream route also where the card cannot hold their
+    CTAs at once)."""
     if A.device.type == "cpu":
         return small_eigh_plain(A)
     from cora_tpu_torch.ops.tnt_kernels import KernelLaunchError
@@ -317,6 +407,11 @@ def small_eigh(A: torch.Tensor, kernel: str | None = None):
     elif which == "grid":
         work = torch.empty(lib.cora_small_eigh_grid_work(n, MAX_SWEEPS, batch),
                            dtype=torch.float64, device=A.device)
+        args.append(work.data_ptr())
+    elif which == "stream":
+        work = torch.empty(
+            lib.cora_small_eigh_stream_work(n, MAX_SWEEPS, batch),
+            dtype=torch.float64, device=A.device)
         args.append(work.data_ptr())
     err = fn(*args, torch.cuda.current_stream(A.device).cuda_stream)
     key = KEYS[which]

@@ -24,6 +24,15 @@
 //                         half an SM's shared memory) stream their shares of
 //                         an L2-resident buffer `reps` times with 16-byte
 //                         L2-only loads (__ldcg)
+//   probe_rows_round    — a model of small_eigh's stream route's round, for
+//                         the cost of updating V by index beside A: G CTAs
+//                         (one per SM) of a cooperative launch, CTA c owning
+//                         the rows of slots [cS, cS + S) of the circle
+//                         method's round (two a slot, by index in an np × np
+//                         array A), reading each from L2 and writing it back
+//                         (__ldcg / __stcg, eight doubles a thread in flight),
+//                         with `both` the same rows of a second array V too,
+//                         then the counter barrier; `rounds` rounds
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -120,6 +129,59 @@ l2_read_kernel(const float4* buf, int n4, int reps, float* sink) {
       acc += v.x + v.y + v.z + v.w;
     }
   if (acc == 12345.f) sink[0] = acc + hold[0];
+}
+
+constexpr int kRowThreads = 512;  // small_eigh.cu STREAM_THREADS
+constexpr int kMaxRows = 64;      // 2 sides × S ≤ 16 slots × 2 arrays
+
+// the index at (slot i, side) in round rd of the circle method over np =
+// m + 1 (small_eigh.cu index_at)
+__device__ __forceinline__ int index_at(int rd, int i, int side, int m) {
+  if (side == 0) {
+    const int a = rd + i;
+    return a >= m ? a - m : a;
+  }
+  if (i == 0) return m;
+  const int b = rd - i;
+  return b < 0 ? b + m : b;
+}
+
+__global__ void __launch_bounds__(kRowThreads, 1)
+rows_round_kernel(double* A, double* V, int np, int S, int rounds, int both,
+                  unsigned* count) {
+  extern __shared__ float hold[];  // only there to keep one CTA per SM
+  __shared__ double* base[kMaxRows];
+  const int G = gridDim.x, h = np / 2, m = np - 1, T = blockDim.x;
+  const int s0 = min(blockIdx.x * S, h), s1 = min(h, s0 + S), own = 2 * (s1 - s0);
+  const int rows = own * (1 + both);
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int r = rd % m;
+    for (int x = threadIdx.x; x < rows; x += T) {
+      const int y = x % own;
+      base[x] = (x < own ? A : V) + (size_t)index_at(r, s0 + y / 2, y & 1, m) * np;
+    }
+    __syncthreads();
+    int row = 0, col = threadIdx.x;  // T ≤ np: a step wraps at most once
+    while (row < rows) {
+      double x[8];
+      double* p[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        p[k] = row < rows ? base[row] + col : nullptr;
+        if (p[k]) x[k] = __ldcg(p[k]);
+        col += T;
+        if (col >= np) {
+          col -= np;
+          ++row;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (p[k]) __stcg(p[k], x[k]);
+    }
+    counter_barrier(count, (unsigned)G * (rd + 1));
+  }
+  if (hold[0] == 12345.f) A[0] = 0.0;
 }
 
 }  // namespace
@@ -228,6 +290,32 @@ int probe_l2_read(int blocks, const float* buf, int n4, int reps, float* sink,
   if (e != cudaSuccess) return (int)e;
   l2_read_kernel<<<blocks, kThreads, kOneCtaPerSm, (cudaStream_t)stream>>>(
       (const float4*)buf, n4, reps, sink);
+  return (int)cudaGetLastError();
+}
+
+// the stream round's model at np on G CTAs of S slots; `count` is zeroed
+// first
+int probe_rows_round(int G, int np, int S, int rounds, int both, double* A, double* V,
+                     unsigned* count, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (np < kRowThreads || 2 * S * 2 > kMaxRows) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)rows_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kOneCtaPerSm);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemsetAsync(count, 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, 1, 1);
+  cfg.blockDim = dim3(kRowThreads, 1, 1);
+  cfg.dynamicSmemBytes = kOneCtaPerSm;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, rows_round_kernel, A, V, np, S, rounds, both, count);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

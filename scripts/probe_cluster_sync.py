@@ -23,7 +23,14 @@ of `iters` barriers less that of none, over `iters`; median of 5):
   (b') `cluster.sync()` at 16 CTAs each holding `small_eigh`'s cluster
       shared memory (231 424 bytes: one CTA per SM), and how many fit;
   (d) the L2 read rate of 1, 8, 16 and all SMs (one CTA each) streaming
-      the plaza2-shaped graph's propagators' size (3 240 864 B) from L2.
+      the plaza2-shaped graph's propagators' size (3 240 864 B) from L2;
+  (e) a model of `small_eigh`'s stream route's round at n = 1062 and 2112
+      (107 and 132 CTAs of 5 and 8 slots, 512 threads): each CTA reads the
+      rows of its slots of the round (by index, L2) and writes them back,
+      then the counter barrier; per round, with A alone and with V by
+      index beside it (twice the rows): what updating V in the rounds
+      instead of from the rotation log would add (median of 3 launches of
+      2000 rounds).
 Prints one line per measurement and, last, one JSON object of them all
 with the card's name and power limit. `--quick` runs 10× fewer barriers
 and reads (what `chip_smoke.py` uses); `--out` also writes the JSON there.
@@ -49,6 +56,8 @@ GRID_KINDS = ("grid_sync", "counter")
 EIGH_SMEM = 232448 - 1024
 # the plaza2-shaped graph's propagators: 11 levels × 2046 blocks × 6 × 6
 L2_BYTES = 11 * 2046 * 36 * 4
+# the stream route's round modelled: n, its CTAs, slots a CTA
+STREAM_ROUNDS = ((1062, 107, 5), (2112, 132, 8))
 
 
 def build():
@@ -76,9 +85,11 @@ def build():
     lib.probe_l2_read.argtypes = [ci, vp, ci, ci, vp, vp]
     lib.probe_grid_barrier.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp]
     lib.probe_cluster_sync_smem.argtypes = [ci, ci, ci, vp, vp, vp]
+    lib.probe_rows_round.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp]
     for fn in (lib.probe_block_sync, lib.probe_cluster_sync,
                lib.probe_grid_sync, lib.probe_l2_read,
-               lib.probe_grid_barrier, lib.probe_cluster_sync_smem):
+               lib.probe_grid_barrier, lib.probe_cluster_sync_smem,
+               lib.probe_rows_round):
         fn.restype = ci
     return lib
 
@@ -188,6 +199,20 @@ def measure(lib, quick=False):
         ms = _ms(torch, lambda b=blocks: lib.probe_l2_read(
             b, buf.data_ptr(), n4, reps, sp, stream))
         out["l2_read_GBps"][str(blocks)] = reps * L2_BYTES / (ms * 1e6)
+    rounds = 200 if quick else 2000
+    out["stream_round_us"] = {}
+    for n, G, S in STREAM_ROUNDS:
+        if G > sms:
+            continue
+        np_ = n + n % 2
+        A = torch.randn(np_ * np_, dtype=torch.float64, device="cuda")
+        V = torch.randn_like(A)
+        row = out["stream_round_us"][str(n)] = {}
+        for both, name in ((0, "A"), (1, "A+V")):
+            ms = _ms(torch, lambda both=both: lib.probe_rows_round(
+                G, np_, S, rounds, both, A.data_ptr(), V.data_ptr(),
+                count.data_ptr(), stream), reps=3)
+            row[name] = 1e3 * ms / rounds
     return out
 
 
@@ -225,6 +250,10 @@ def main():
                   f"{res['grid_barrier_captured'][kind][G]}", flush=True)
     for b, r in res["l2_read_GBps"].items():
         print(f"[probe] L2 read, {b} SMs: {r:.1f} GB/s", flush=True)
+    for n, row in res["stream_round_us"].items():
+        print(f"[probe] stream round model, n = {n}: A alone "
+              f"{row['A']:.4f} us, A and V by index {row['A+V']:.4f} us",
+              flush=True)
     res.update(device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     line = json.dumps(res)
     if args.out:

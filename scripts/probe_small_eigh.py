@@ -3,6 +3,7 @@
 
     python3 scripts/probe_small_eigh.py [--split] [--parent FILE] [--sass DIR]
                                         [--out FILE] [--quick] [--define X]
+                                        [--stream] [--cert RANK]
 
 Builds only `cora_tpu_torch/ops/csrc/small_eigh.cu` (seconds): the
 package's library, whose one-warp kernel has 3 update warps, and beside it
@@ -21,7 +22,11 @@ parallel). Prints nvcc's `-Xptxas -v` lines of the package's kernels, then:
       (`small_eigh_global`), so that each cluster size the route picks (1,
       2, 4, 8, 16 CTAs) is checked at an n it is picked for, and at 449,
       456, 516, 768 and 1056 the grid (113, 114, 129, 128, 132 CTAs; past n =
-      320 the random, graded and NaN cases, batch 2 only to 516):
+      320 the random, graded and NaN cases, batch 2 only to 516), and the
+      stream route (`small_eigh_stream`) forced wherever n ≥ 5 and n ≤
+      1056 against the same comparator, and routed at 1062, 1200 and 1536
+      against the global kernel (the random and NaN cases; the global
+      kernel takes ~11, ~17 and ~35 s a call there):
       `torch.equal` on the bits of w, V and info, counted per case; the
       eigenvalues' error against `torch.linalg.eigh` in float64;
   (b) times: median of 20 single calls (CUDA events around each, as
@@ -33,7 +38,9 @@ parallel). Prints nvcc's `-Xptxas -v` lines of the package's kernels, then:
       grid against their comparator in turns (new, old, old, new; the
       one-CTA kernel at n = 36, the global one at n = 99, 150, 198, 246,
       324, 448 and 516; median of 5 past n = 96, of 3 past 320) in
-      float32, beside `torch.linalg.eigh`, with the CTA count;
+      float32, beside `torch.linalg.eigh`, with the CTA count; the stream
+      route at n = 1062, 1536 and 2112 (median of 3) beside
+      `torch.linalg.eigh`, and the global kernel once at 1062;
   (c) with `--split`: builds with `-DSMALL_EIGH_SPLIT` (never set by the
       package's build), whose one-warp kernel stamps `clock64()` in each
       round: the cycles per round of the rotation warp (the next round's
@@ -46,7 +53,19 @@ parallel). Prints nvcc's `-Xptxas -v` lines of the package's kernels, then:
       at the round's barrier, the first update warp's body and its wait;
       per sweep the stop test; the A kernel's whole run, and the V kernel's
       (the time V lags behind A: it runs after it) and its staging of the
-      log, and the sort kernel's.
+      log, and the sort kernel's; and whose stream route stamps, at n =
+      1062 and 2112 (107 and 132 CTAs), per round the table's import (the
+      round's first loads of A in flight), warp 0's body (the log and the
+      look-ahead) and update warp 1's, thread 0's wait at the barrier, per
+      sweep the stop test, and the three kernels.
+`--stream` runs the stream route alone: bits (forced at n = 5-1056
+against the one-CTA kernel, the global kernel and the grid, routed at
+1062 against the global kernel), times and, with `--split`, its split
+and, in turns with the grid (grid, stream, stream, grid; median of 3,
+float32), the stream route forced at n = 516, 768 and 1056 (~3 min of
+command). `--cert RANK` reruns `chip_smoke.py` phase 3b's
+certificate at RANK with its 3k × 3k matrices forced to the global kernel
+(rank 352: ~2.7 minutes) and nothing else.
 `--quick` runs (a) only, on fewer cases, each call of a kernel new to the
 card waited on with a timeout (a hang shows as such): the first call's
 check. `--define X` (repeatable) builds the source with `-DX` too, holds
@@ -82,6 +101,10 @@ SIZES = (10, 12, 30, 31, 32, 36, 64, 96)
 # 456 (114), 516 (129), 768 (128) and 1056 (132)
 GLOBAL_SIZES = (97, 99, 150, 198, 246, 320, 321, 324, 384, 448, 449, 456,
                 516, 768, 1056)
+# past the grid: the stream route against the global kernel (~11, ~17 and
+# ~35 s a call there), the random and the NaN case
+STREAM_SIZES = (1062, 1200, 1536)
+STREAM_CASES = ("random", "nonfinite")
 # past these, fewer cases (the global kernel takes seconds a call)
 LARGE_N = 320
 LARGE_CASES = ("random", "graded", "nonfinite")
@@ -93,6 +116,12 @@ SPLIT = (10, 30)
 # the cluster family's and the grid's clock64() split, at 1, 4, 8 and 16
 # CTAs and on the grid's 22 and 106
 CLUSTER_SPLIT = (99, 198, 246, 324, 516, 1056)
+# the stream route's split (107 and 132 CTAs) and times (median of 3,
+# beside torch.linalg.eigh)
+STREAM_SPLIT = (1062, 2112)
+STREAM_TIMED = (1062, 1536, 2112)
+# the stream route forced where the grid is routed, in turns with it
+STREAM_FORCED_TIMED = (516, 768, 1056)
 HANG_S = 60  # a first call of a kernel not done by then has hung
 WIDTHS = (1, 2, 3, 4)  # update warps of the one-warp kernel; the package: 3
 REPS = 20
@@ -215,7 +244,7 @@ def check_bits(torch, se, libs, quick=False):
     kernel's (n ≤ 96) or the global kernel's (n > 96) bit for bit; and the
     eigenvalues' error against float64 eigh."""
     rows, failed = [], []
-    for n in SIZES + GLOBAL_SIZES:
+    for n in SIZES + GLOBAL_SIZES + STREAM_SIZES:
         mats = [corpus(n, s) for s in range(4 if n <= LARGE_N else 2)]
         old = "cta" if n <= se.MAX_N else "global"
         for dt in (torch.float32, torch.float64):
@@ -224,6 +253,8 @@ def check_bits(torch, se, libs, quick=False):
                     if quick and name not in ("random", "nonfinite"):
                         continue
                     if n > LARGE_N and name not in LARGE_CASES:
+                        continue
+                    if n > se.GRID_MAX_N and name not in STREAM_CASES:
                         continue
                     A = torch.as_tensor(np.stack([m[name] for m in mats[:batch]])
                                         if batch > 1 else mats[0][name]
@@ -240,6 +271,11 @@ def check_bits(torch, se, libs, quick=False):
                         same = same and bits_equal(waited(
                             torch, lambda: se.small_eigh(A, kernel="grid")),
                             cta)
+                    if se.STREAM_MIN_N <= n <= se.GRID_MAX_N:
+                        # the stream route forced (2 to 132 CTAs here)
+                        same = same and bits_equal(waited(
+                            torch, lambda: se.small_eigh(
+                                A, kernel="stream")), cta)
                     if n <= se.WARP_MAX_N and not quick:
                         same = same and all(bits_equal(
                             run_warp(libs[w], A, torch, se), cta)
@@ -253,7 +289,7 @@ def check_bits(torch, se, libs, quick=False):
                                      case=name, route=se.route(n, dt),
                                      against=old, same=same,
                                      clusters=se.cluster_size(n)
-                                     or se.grid_size(n),
+                                     or se.grid_size(n) or se.stream_size(n),
                                      sweeps=routed[2].reshape(-1).tolist(),
                                      eig_err=err))
                     if not same:
@@ -384,6 +420,160 @@ def cluster_split(torch, se, lib):
     return out
 
 
+def time_stream(torch, se):
+    """(b): the stream route at STREAM_TIMED (median of 3 calls, float32)
+    beside torch.linalg.eigh; the global kernel, its comparator, one call
+    at the first n."""
+    out = []
+    rng = np.random.default_rng(11)
+    for n in STREAM_TIMED:
+        M = rng.standard_normal((n, n))
+        A = torch.as_tensor(M + M.T).to("cuda", torch.float32)
+        row = dict(n=n, dtype="float32", route=se.route(n, A.dtype),
+                   ctas=se.stream_size(n), sweeps=int(se.small_eigh(A)[2]),
+                   stream_ms=median_ms(lambda: se.small_eigh(A), torch, 3),
+                   eigh_ms=median_ms(lambda: torch.linalg.eigh(A), torch, 3))
+        if n == STREAM_TIMED[0]:
+            row["global_ms"] = median_ms(
+                lambda: se.small_eigh(A, kernel="global"), torch, 1)
+        out.append(row)
+        print(f"[times] stream n={n}: {json.dumps(row)}", flush=True)
+    return out
+
+
+def time_stream_vs_grid(torch, se):
+    """`--stream`'s turns: the stream route forced where the grid is routed
+    (STREAM_FORCED_TIMED), grid, stream, stream, grid (median of 3 calls
+    each), float32, beside the CTAs of each."""
+    out = []
+    rng = np.random.default_rng(11)
+    for n in STREAM_FORCED_TIMED:
+        M = rng.standard_normal((n, n))
+        A = torch.as_tensor(M + M.T).to("cuda", torch.float32)
+        runs = {"grid": lambda: se.small_eigh(A, kernel="grid"),
+                "stream": lambda: se.small_eigh(A, kernel="stream")}
+        turns = [(k, median_ms(runs[k], torch, 3))
+                 for k in ("grid", "stream", "stream", "grid")]
+        row = dict(n=n, dtype="float32", grid_ctas=se.grid_size(n),
+                   stream_ctas=se.stream_size(n),
+                   sweeps=int(se.small_eigh(A)[2]),
+                   grid_ms=[t for k, t in turns if k == "grid"],
+                   stream_ms=[t for k, t in turns if k == "stream"])
+        out.append(row)
+        print(f"[times] stream vs grid n={n}: {json.dumps(row)}", flush=True)
+    return out
+
+
+def stream_split(torch, se, lib):
+    """(c): the stream route's clock64() stamps (matrix 0, CTA 0) per round
+    (warp 0's log and look-ahead, update warp 1's body, thread 0's barrier
+    after its own body, the table's import), per stop test and per kernel,
+    from the -DSMALL_EIGH_SPLIT build."""
+    out = []
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.cora_small_eigh_stream_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                               vp, vp]
+    lib.cora_small_eigh_stream_work.argtypes = [ci, ci, ci]
+    lib.cora_small_eigh_stream_work.restype = ctypes.c_longlong
+    for n in STREAM_SPLIT:
+        A = torch.as_tensor(corpus(n)["random"]).to("cuda", torch.float32)
+        w = torch.empty(n, dtype=A.dtype, device="cuda")
+        V = torch.empty_like(A)
+        info = torch.empty(1, dtype=torch.int32, device="cuda")
+        work = torch.empty(lib.cora_small_eigh_stream_work(n, se.MAX_SWEEPS, 1),
+                           dtype=torch.float64, device="cuda")
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        err = lib.cora_small_eigh_stream_f32(
+            A.data_ptr(), w.data_ptr(), V.data_ptr(), info.data_ptr(), 1, n,
+            se.MAX_SWEEPS, work.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        t1.record()
+        if err:
+            raise RuntimeError(f"split stream kernel: CUDA error {err}")
+        torch.cuda.synchronize()
+        clk = (ctypes.c_longlong * 8)()
+        clu = (ctypes.c_longlong * 12)()
+        if lib.cora_small_eigh_stream_split_clocks(clk) \
+                or lib.cora_small_eigh_cluster_split_clocks(clu):
+            raise RuntimeError("split clocks: CUDA error")
+        c, u = list(clk), list(clu)
+        rounds = max(c[0], 1)
+        row = dict(n=n, route="stream", ctas=se.stream_size(n), rounds=c[0],
+                   sweeps=int(info), call_ms=t0.elapsed_time(t1),
+                   lookahead=c[1] / rounds, update=c[2] / rounds,
+                   barrier=c[3] / rounds, import_=c[4] / rounds,
+                   stop_test=c[5] / max(c[6], 1), stop_tests=c[6],
+                   a_kernel=c[7], v_kernel=u[8], v_staging=u[9],
+                   sort_kernel=u[10])
+        out.append(row)
+        print(f"[split] stream {json.dumps(row)}", flush=True)
+    return out
+
+
+def stream_bits(torch, se):
+    """`--stream`'s bits: the stream route forced against the one-CTA
+    kernel (n = 5, 36, 96), the global kernel (n = 99) and the grid (516,
+    1056), routed against the global kernel at 1062; float32 and float64,
+    the random and graded cases (the random only past 96)."""
+    rows, failed = [], []
+    for n, old in ((5, "cta"), (36, "cta"), (96, "cta"), (99, "global"),
+                   (516, "grid"), (1056, "grid"), (1062, "global")):
+        for dt in (torch.float32, torch.float64):
+            for name in ("random", "graded") if n <= 96 else ("random",):
+                A = torch.as_tensor(corpus(n)[name]).to("cuda", dt)
+                new = waited(torch, lambda: se.small_eigh(A, kernel="stream"))
+                same = bits_equal(new, se.small_eigh(A, kernel=old))
+                rows.append(dict(n=n, dtype=str(dt)[6:], case=name,
+                                 against=old, same=same))
+                print(f"[bits] stream {json.dumps(rows[-1])}", flush=True)
+                if not same:
+                    failed.append((n, str(dt)[6:], name))
+    return rows, failed
+
+
+def cert_against_global(torch, se, rank):
+    """`--cert RANK`: `chip_smoke.py` phase 3b's failed certificate at a
+    random point at `rank` on the plaza2-shaped graph, as routed, then
+    again with its 3k × 3k Rayleigh–Ritz matrices forced to the global
+    kernel: the same verdict and θ within `chip_smoke.CERT_THETA_TOL`
+    (relative), each run's LOBPCG as replayed graphs, with its launches and
+    seconds."""
+    import chip_smoke as cs
+
+    from cora_tpu_torch.models.synthetic import synthetic_problem
+
+    with open(cs.REFERENCE) as fh:
+        reference = json.load(fh)
+    problem = synthetic_problem(**reference["graphs"]["plaza2_shaped"]["graph"])
+    pd = problem.device_data(np.float32, "cuda")
+    cfg = cs.cert_config(reference)
+    Y = cs.cert_point(pd, rank)
+    k = max(cfg.cert.lobpcg_block_size, rank + 2)
+    out = dict(rank=rank, n=3 * k, route=se.KEYS[se.route(3 * k, torch.float32)])
+    runs = {}
+    for label, force in (("routed", None), ("global", "global")):
+        cert, took, lp = cs.certificate_run(problem, pd, cfg, Y, force_3k=force)
+        runs[label] = cert
+        out[label] = dict(certified=bool(cert.is_certified),
+                          theta=float(cert.theta), iterations=cert.num_iters,
+                          seconds=took, replays=lp["replays"],
+                          eager_calls=lp["eager_calls"],
+                          launches={k2: v for k2, v in se.LAUNCHES.items() if v})
+        print(f"[cert] rank {rank} {label}: {json.dumps(out[label])}",
+              flush=True)
+    a, b = runs["routed"], runs["global"]
+    out["theta_rel"] = abs(a.theta - b.theta) / max(abs(b.theta), 1e-30)
+    out["ok"] = bool(a.is_certified == b.is_certified
+                     and out["theta_rel"] <= cs.CERT_THETA_TOL
+                     and out["global"]["launches"].get("small_eigh_global", 0) > 0
+                     and out["routed"]["replays"] > 0
+                     and not out["routed"]["eager_calls"])
+    print(f"[cert] {json.dumps(out)}", flush=True)
+    return out
+
+
 def round_split(torch, se, libs):
     """(c): cycles per round of the rotation, the update and the barriers,
     from the `-DSMALL_EIGH_SPLIT` builds' clock64() stamps (matrix 0)."""
@@ -466,6 +656,8 @@ def main():
     ap.add_argument("--out")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--define", action="append", default=[])
+    ap.add_argument("--stream", action="store_true")
+    ap.add_argument("--cert", type=int)
     args = ap.parse_args()
     import torch
 
@@ -476,8 +668,14 @@ def main():
     sys.path.insert(0, REPO)
     from cora_tpu_torch.ops import small_eigh as se
 
+    if args.cert:
+        res = cert_against_global(torch, se, args.cert)
+        print(json.dumps(dict(card=card, cert=res)))
+        if not res["ok"]:
+            raise SystemExit("probe_small_eigh: the certificates differ")
+        return
     t0 = time.time()
-    variants = {} if args.quick else {
+    variants = {} if args.quick or args.stream else {
         ("width", w): [f"SMALL_EIGH_UPDATE_WARPS={w}"]
         for w in WIDTHS if w != 3}
     for d in args.define:
@@ -485,7 +683,7 @@ def main():
     if args.split:
         variants.update({("split", w): ["SMALL_EIGH_SPLIT",
                                         f"SMALL_EIGH_UPDATE_WARPS={w}"]
-                         for w in WIDTHS})
+                         for w in (WIDTHS if not args.stream else (3,))})
     with concurrent.futures.ThreadPoolExecutor(len(variants) + 1) as pool:
         package = pool.submit(se.load_library)
         built = {k: pool.submit(build, se, d) for k, d in variants.items()}
@@ -499,6 +697,21 @@ def main():
           f"{time.time() - t0:.1f} s ({se.BUILD_INFO['path']})", flush=True)
     for name, line in ptxas_lines(se.BUILD_INFO["log"]):
         print(f"[ptxas] {name}: {line}", flush=True)
+    if args.stream:
+        # the stream route alone: its bits, times and (--split) split
+        rows, failed = stream_bits(torch, se)
+        res = dict(card=card, bits=rows, failed=failed,
+                   stream_times=time_stream(torch, se),
+                   stream_vs_grid=time_stream_vs_grid(torch, se))
+        if args.split:
+            res["stream_split"] = stream_split(torch, se, built[("split", 3)])
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(json.dumps(res))
+        print(json.dumps(res))
+        if failed:
+            raise SystemExit(f"probe_small_eigh: results differ: {failed}")
+        return
     rows, failed = check_bits(torch, se, libs, args.quick)
     print("[bits] routed, the cluster family and every "
           "update-warp count against one-CTA (n ≤ 96) or global (n > 96), "
@@ -528,10 +741,12 @@ def main():
         return
     res["times"] = time_kernels(torch, se, libs)
     res["cluster_times"] = time_cluster(torch, se)
+    res["stream_times"] = time_stream(torch, se)
     if args.split:
         res["split"] = round_split(torch, se, {w: built[("split", w)]
                                                for w in WIDTHS})
         res["cluster_split"] = cluster_split(torch, se, built[("split", 3)])
+        res["stream_split"] = stream_split(torch, se, built[("split", 3)])
     if args.out:
         with open(args.out, "w") as fh:
             fh.write(json.dumps(res))

@@ -60,9 +60,11 @@ def ptxas_lines(log):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            m = re.search(r"(small_eigh_(?:warp|cta|global|cluster|vectors|sort)"
-                          r"_kernel)I(?:([fd])|Li(\d+)E)", name)
-            if m:
+            m = re.search(r"(small_eigh_(?:warp|cta|global|cluster|stream|vectors"
+                          r"|sort)_kernel)I(?:([fd])|Li(\d+)E)", name)
+            if "small_eigh_vectors_smem_kernel" in name:
+                name = "small_eigh_vectors_smem_kernel"
+            elif m:
                 args = ([{"f": "float", "d": "double"}[m.group(2)]]
                         if m.group(2) else [m.group(3)])
                 args += [link for link in ("ClusterLink", "GridLink")

@@ -8,8 +8,8 @@ port's kernels keep their rank-sized buffers in dynamic shared memory
 sized at launch, so their bound is `chain.rank_bound` (one block's shared
 memory), and the certificate's Rayleigh–Ritz matrices (n = 3k, k = r + 2)
 past the one-warp `small_eigh` kernel's n ≤ 32 go to its cluster family
-(n ≤ 448), then to its grid (n ≤ 1056) and past that to its global-memory
-route. Here:
+(n ≤ 448), then to its grid (n ≤ 1056) and past that to its stream route
+(A by index in L2). Here:
   * `PlainTNT` (the kernels' plain versions) at rank 12 (d = 2) and 11
     (d = 3) against the JAX package's interpret-mode `PallasTNT`, with the
     tests and tolerances of `test_torch_kernels_plain.py`;
@@ -306,10 +306,12 @@ def test_global_route_emulation_matches_numpy(n):
 
 @pytest.mark.parametrize("n", [1, 97, 246, 456, 1057])
 def test_route_global_by_size(n):
+    """The global kernel where forced, at any n; routed to by no size:
+    past the grid the stream route."""
     assert se.route(n, torch.float64, kernel="global") == "global"
     assert se.route(n, torch.float32) == (
         "warp" if n == 1 else "cluster" if n <= se.CLUSTER_MAX_N else
-        "grid" if n <= se.GRID_MAX_N else "global")
+        "grid" if n <= se.GRID_MAX_N else "stream")
 
 
 # ---------------------------------------------------------------------------

@@ -17,12 +17,17 @@ each kernel's order of operations: (a) block by block, (b) row by row,
 where a row's entry in a block (j, i) with slot j < i is computed as the
 one-CTA kernel's thread for (j, i) computes it (rows with Jⱼ first, then
 columns with Jᵢ) and transposed, (c) the cluster family's positions,
-tables and shift (`Cluster`), (d) with `grid`, the grid's. The stop test's sums are taken in the one-CTA kernel's
+tables and shift (`Cluster`), (d) with `grid`, the grid's, (e) the stream
+route past 1056 (`Stream`: A by index, each CTA rewriting its pairs' rows
+in place from its own rows and its copy of the table, the look-ahead lane
+updating the block it reads, V by index from the log, staged in chunks
+that may split a round). The stop test's sums are taken in the one-CTA kernel's
 order for its thread count (a strided sum per thread, a `__shfl_down` tree
 per warp, a tree over the warps), (b) replaying it virtual warp by
 virtual warp, as the one-warp kernel does, (c) with the terms read from
 the rows by position, up to ~60 a thread past n = 45, as the cluster
-family's CTA 0 does. They must agree bit for bit on A, V and the sweeps,
+family's CTA 0 does, (d) spread over the stream route's CTAs by virtual
+warp. They must agree bit for bit on A, V and the sweeps,
 and with `numpy.linalg.eigh` to the tolerances of `test_torch_cert_loop.py`.
 The wrapper's routing, cluster and grid sizes and workspace formulas and
 `pair_of`'s round-robin schedule are checked too. Everything here runs on the CPU and checks the
@@ -707,13 +712,15 @@ def test_cluster_stop_sum_replays_cta_order(n):
                                320, 321, 448, 449, 456, 1056, 1057])
 def test_route_cluster_and_global_by_size(n):
     """32 < n ≤ CLUSTER_MAX_N to the cluster family, to GRID_MAX_N the
-    grid, past it the global kernel; the cluster size is the smallest power
-    of two whose shared memory holds A twice (and two pairs a CTA)."""
+    grid, past it the stream route (the global kernel only where forced);
+    the cluster size is the smallest power of two whose shared memory holds
+    A twice (and two pairs a CTA)."""
     want = ("warp" if n <= se.WARP_MAX_N else
             "cluster" if n <= se.CLUSTER_MAX_N else
-            "grid" if n <= se.GRID_MAX_N else "global")
+            "grid" if n <= se.GRID_MAX_N else "stream")
     for dt in (torch.float32, torch.float64):
         assert se.route(n, dt) == want
+        assert se.route(n, dt, kernel="global") == "global"
     C = se.cluster_size(n)
     if n > se.CLUSTER_MAX_N:
         assert C == 0 and not any(se.cluster_fits(n, c) for c in range(1, 17))
@@ -753,14 +760,15 @@ def test_forced_cluster_checks_its_size(n):
 def test_grid_route_boundaries(n, dtype):
     """448 < n ≤ 1056 to the grid, on the most CTAs (at most the card's
     132) that hold the rows twice and the table with ≥ 2 pairs a CTA;
-    past 1056 the global kernel."""
+    past 1056 the stream route (A by index in L2, no rows in shared
+    memory), which the grid refuses."""
     dt = getattr(torch, dtype)
     want = ("cluster" if n <= se.CLUSTER_MAX_N else
-            "grid" if n <= se.GRID_MAX_N else "global")
+            "grid" if n <= se.GRID_MAX_N else "stream")
     assert se.route(n, dt) == want
     G = se.grid_size(n)
     if n > se.GRID_MAX_N:
-        assert G == 0
+        assert G == 0 and se.stream_size(n) == 106
         with pytest.raises(ValueError):
             se.route(n, dt, kernel="grid")
         return
@@ -915,3 +923,416 @@ def test_grid_stop_sum_replays_cta_order(n):
     # the first test sums the rows as loaded (the diagonal from the input)
     B = start(M + M.T)[0]
     assert cta_sum((B * B).ravel(), nt) == cta_sum((A * A).ravel(), nt)
+
+
+# ---------------------------------------------------------------------------
+# (e) the stream route
+
+
+def block_rows(lo, ci, si, cj, sj, x00, x01, x10, x11):
+    """The kernels' `block_rows_rn`: rows p_i and q_i's entries at columns
+    (p_j, q_j) of the block of slots i and j, the block (min, max) as the
+    one-CTA kernel's thread computes it (transposed where i > j)."""
+    z00, z01, z10, z11 = block(np.where(lo, ci, cj), np.where(lo, si, sj),
+                               np.where(lo, cj, ci), np.where(lo, sj, si),
+                               x00, np.where(lo, x01, x10),
+                               np.where(lo, x10, x01), x11)
+    return z00, np.where(lo, z01, z10), np.where(lo, z10, z01), z11
+
+
+def ahead_src(k, h, m, rd, s0, s1):
+    """Next round's slots k: their indices' positions this round, the
+    indices there, and of the two source slots the one on k's CTA (L, its
+    index uL) and the other (O, uO)."""
+    ia, sa = prev_pos(k, 0, h)
+    ib, sb = prev_pos(k, 1, h)
+    ua, ub = index_at(rd, ia, sa, m), index_at(rd, ib, sb, m)
+    own_a = (ia >= s0) & (ia < s1)
+    return dict(ia=ia, ib=ib, ua=ua, ub=ub, L=np.where(own_a, ia, ib),
+                O=np.where(own_a, ib, ia), uL=np.where(own_a, ua, ub),
+                uO=np.where(own_a, ub, ua))
+
+
+class Stream:
+    """The stream route's rounds on G co-resident CTAs: A by index in one
+    global array (the kernel's L2 workspace), CTA c owning the rows of its
+    slots [c·S, c·S + S) in every round and rewriting them in place, each
+    from what it may read: its own rows (every other row NaN in its view)
+    and its imported copy of the round's table ((c, s, p, q) of every slot,
+    t and the entries of its own and its neighbours' slots, NaN elsewhere).
+    Warp 0's look-ahead lane for next slot k updates the block of k's two
+    source slots on the rows of the one on k's CTA itself and takes the
+    entry between k's indices from it; the update warps skip those blocks.
+    Every off-diagonal entry of A is written once a round; the diagonal is
+    never written after the load nor read (NaN here: a read would show),
+    the table carries it."""
+
+    def __init__(self, M, G):
+        A, _, self.n, self.npad = start(M)
+        self.m, self.h = self.npad - 1, self.npad // 2
+        self.G, self.S = G, -(-self.h // G)
+        assert -(-self.h // self.S) == G  # every CTA holds a slot
+        P, Q = pairs(0, self.npad)
+        c, s, t = rotations(A[P, P], A[Q, Q], A[P, Q])
+        self.tab = dict(c=c, s=s, t=t, dp=A[P, P], dq=A[Q, Q], apq=A[P, Q],
+                        p=P, q=Q)
+        self.loaded = A.copy()
+        self.A = A
+        np.fill_diagonal(self.A, np.nan)
+        self.log = [(c, s)]
+        self.skips = [self.skip(c) for c in range(G)]
+
+    def slots(self, c):
+        return np.arange(c * self.S, min((c + 1) * self.S, self.h))
+
+    def skip(self, c):
+        """Per own slot, the column slots whose block the look-ahead lanes
+        update (on the slot's rows), at most two; −1: none."""
+        k = self.slots(c)
+        src = ahead_src(k, self.h, self.m, 0, k[0], k[-1] + 1)
+        out = np.full((len(k), 2), -1)
+        for L, O in zip(src["L"], src["O"]):
+            x = L - k[0]
+            out[x, int(out[x, 0] >= 0)] = O
+        return out
+
+    def imported(self, c):
+        k = self.slots(c)
+        lo, hi = max(k[0] - 1, 0), min(k[-1] + 2, self.h)
+        out = {key: v.copy() for key, v in self.tab.items()}
+        for key in ("t", "dp", "dq", "apq"):
+            out[key][:lo] = np.nan
+            out[key][hi:] = np.nan
+        return out
+
+    def round(self, rd):
+        h, m, npad = self.h, self.m, self.npad
+        new = self.A.copy()
+        written = np.zeros((npad, npad), dtype=int)
+        nxt = {key: np.zeros(h, dtype=v.dtype) for key, v in self.tab.items()}
+        for c in range(self.G):
+            k = self.slots(c)
+            tb = self.imported(c)
+            P, Q = tb["p"], tb["q"]
+            view = np.full((npad, npad), np.nan)  # what CTA c may read
+            own = np.r_[P[k], Q[k]]
+            view[own] = self.A[own]
+            # warp 0: next round's table of slots k, each lane updating the
+            # block it reads
+            src = ahead_src(k, h, m, rd, k[0], k[-1] + 1)
+            L, O = src["L"], src["O"]
+            assert np.isin(L, k).all()
+            pL, qL, pO, qO = P[L], Q[L], P[O], Q[O]
+            z = block_rows(L < O, tb["c"][L], tb["s"][L], tb["c"][O],
+                           tb["s"][O], view[pL, pO], view[pL, qO],
+                           view[qL, pO], view[qL, qO])
+            for (r, col), zz in zip(((pL, pO), (pL, qO), (qL, pO), (qL, qO)),
+                                    z):
+                new[r, col] = zz
+                written[r, col] += 1
+            top = src["uL"] == pL
+            at_p, at_q = np.where(top, z[0], z[2]), np.where(top, z[1], z[3])
+            ua, ub = src["ua"], src["ub"]
+            d = []
+            for slot, u in ((src["ia"], ua), (src["ib"], ub)):
+                pp, qq = rotate_diag(tb["dp"][slot], tb["dq"][slot],
+                                     tb["apq"][slot], tb["t"][slot])
+                d.append(np.where(u == P[slot], pp, qq))
+            apq = np.where(src["uO"] == pO, at_p, at_q)
+            app = np.where(ua < ub, d[0], d[1])
+            aqq = np.where(ua < ub, d[1], d[0])
+            cc, ss, tt = rotations(app, aqq, apq)
+            for key, v in dict(c=cc, s=ss, t=tt, dp=app, dq=aqq, apq=apq,
+                               p=np.minimum(ua, ub),
+                               q=np.maximum(ua, ub)).items():
+                assert np.isfinite(v).all() or key == "apq"
+                nxt[key][k] = v
+            # the update warps: every other block of the CTA's rows, in place
+            i = k[:, None]
+            j = np.arange(h)[None, :]
+            skip = self.skips[c]
+            todo = (j != i) & (j != skip[:, :1]) & (j != skip[:, 1:])
+            ii, jj = np.broadcast_arrays(i, j)
+            ii, jj = ii[todo], jj[todo]
+            z = block_rows(ii < jj, tb["c"][ii], tb["s"][ii], tb["c"][jj],
+                           tb["s"][jj], view[P[ii], P[jj]], view[P[ii], Q[jj]],
+                           view[Q[ii], P[jj]], view[Q[ii], Q[jj]])
+            for (r, col), zz in zip(((P[ii], P[jj]), (P[ii], Q[jj]),
+                                     (Q[ii], P[jj]), (Q[ii], Q[jj])), z):
+                new[r, col] = zz
+                written[r, col] += 1
+            new[P[k], Q[k]] = new[Q[k], P[k]] = 0.0
+            written[P[k], Q[k]] += 1
+            written[Q[k], P[k]] += 1
+        # every off-diagonal entry once, by the CTA that owns its row
+        assert (written == ~np.eye(npad, dtype=bool)).all()
+        self.A, self.tab = new, nxt
+        self.log.append((nxt["c"], nxt["s"]))
+
+    def natural(self):
+        A = self.A.copy()
+        A[self.tab["p"], self.tab["p"]] = self.tab["dp"]
+        A[self.tab["q"], self.tab["q"]] = self.tab["dq"]
+        return A
+
+    def stop_sum(self, nt, off=True):
+        """The stop test spread over the CTAs: virtual warp v of the one-CTA
+        kernel's nt threads on CTA v mod G, each lane's strided sum over A
+        by index (e = t, t + nt, …, its (u, v) stepped as the kernel steps
+        them, the diagonal an exact 0 where `off`, eight loads at a time),
+        the warp's tree into its partial; then the tree over the partials,
+        as every CTA takes it after the barrier. The sum with the diagonal
+        (`off` False) reads A as loaded (the first test's)."""
+        npad = self.npad
+        A = self.A if off else self.loaded
+        size, nw = npad * npad, nt // 32
+        du, dv = divmod(nt, npad)
+        part, done = np.zeros(32), []
+        for c in range(self.G):
+            for v in range(c, nw, self.G):
+                t = 32 * v + np.arange(32)
+                u, w = np.divmod(t, npad)
+                acc = np.zeros(32)
+                for e0 in range(0, size, 8 * nt):
+                    for kk in range(8):
+                        e = t + e0 + kk * nt
+                        live = e < size
+                        assert (u * npad + w == e)[live].all()
+                        a = A.ravel()[np.where(live, e, 0)]
+                        x = np.where(live & ~(off & (u == w)), a, 0.0)
+                        acc = np.where(live, acc + x * x, acc)
+                        u, w = np.where(live, u + du, u), np.where(live, w + dv, w)
+                        wrap = w >= npad
+                        u, w = np.where(wrap, u + 1, u), np.where(wrap, w - npad, w)
+                part[v] = warp_tree(acc)
+                done.append(v)
+        assert sorted(done) == list(range(nw))
+        return warp_tree(part)
+
+
+def vectors_by_index(log, n, npad, rounds):
+    """The stream route's vectors kernel: row k of V by index from V = I; a
+    round applies `rotate_v` to (V[k][p], V[k][q]) of each slot's pair."""
+    m = npad - 1
+    V = np.zeros((npad, npad))
+    V[:n, :n] = np.eye(n)
+    for g in range(rounds):
+        P, Q = pairs(g % m, npad)
+        c, s = log[g]
+        vp, vq = V[:n, P].copy(), V[:n, Q].copy()
+        V[:n, P] = c * vp - s * vq
+        V[:n, Q] = s * vp + c * vq
+    return V
+
+
+def vectors_by_chunks(log, n, npad, rounds, ce):
+    """The stream route's vectors kernel past h = 544: the log flattened
+    ((c, s) of slot j of round g at g·h + j) and staged `ce` entries at a
+    time, a round split between two chunks applied in its two parts in
+    turn (slots [ja, jb) of round g)."""
+    m, h = npad - 1, npad // 2
+    flat_c = np.concatenate([log[g][0] for g in range(rounds)])
+    flat_s = np.concatenate([log[g][1] for g in range(rounds)])
+    V = np.zeros((npad, npad))
+    V[:n, :n] = np.eye(n)
+    total = rounds * h
+    for e0 in range(0, total, ce):
+        e1 = min(e0 + ce, total)
+        for g in range(e0 // h, (e1 - 1) // h + 1):
+            ja, jb = max(e0, g * h) - g * h, min(e1, g * h + h) - g * h
+            P, Q = pairs(g % m, npad)
+            P, Q = P[ja:jb], Q[ja:jb]
+            c, s = flat_c[g * h + ja:g * h + jb], flat_s[g * h + ja:g * h + jb]
+            vp, vq = V[:n, P].copy(), V[:n, Q].copy()
+            V[:n, P] = c * vp - s * vq
+            V[:n, Q] = s * vp + c * vq
+    return V
+
+
+# the stream route emulated against the one-CTA kernel's blocks: two to nine
+# CTAs, uneven last ones (33 on 2: 9, 8 pairs; 99 on 9: 8 of 6, 2; 120 on 7:
+# 6 of 9, 6), one pair on the last (35 on 9: 8 of 2, 1; 64 on 8: 7 of 5, 1),
+# and the stream's smallest (5 on 2)
+STREAM_CASES = ((5, 2), (33, 2), (35, 9), (36, 6), (64, 8), (99, 9),
+                (120, 7))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n, G", STREAM_CASES)
+def test_stream_rounds_reproduce_blocks_bit_for_bit(n, G, dtype):
+    """A sweep and a round of the stream route, each CTA reading only its
+    own rows and its imported table and rewriting its rows in place,
+    against the one-CTA kernel's blocks, round by round: A (by index, the
+    diagonal from the table) and, from the log, V by index."""
+    M = corpus(n)["random"].astype(dtype).astype(np.float64)
+    A, V, _, npad = start(M)
+    emu = Stream(M, G)
+    rounds = npad  # a whole sweep and one round of the next
+    for g in range(rounds):
+        rd = g % (npad - 1)
+        A = round_blocks(A, V, n, rd)
+        emu.round(rd)
+        assert same_bits(emu.natural(), A), (G, g)
+    Vs = vectors_by_index(emu.log, n, npad, rounds)
+    assert same_bits(Vs[:n], V[:n])
+
+
+@pytest.mark.parametrize("n, G", [(33, 3), (64, 8), (99, 9), (120, 2)])
+def test_stream_runs_to_the_blocks_result(n, G):
+    """The stream route to convergence (the stop tests spread over its
+    CTAs) against `jacobi` by blocks: the same sweeps, A and V bit for
+    bit."""
+    M = corpus(n)["graded"]
+    A, V, info = jacobi(M, rows=False)
+    emu = Stream(M, G)
+    nt = cta_threads(n)
+    norm2 = emu.stop_sum(nt, off=False)
+    assert norm2 == cta_sum((start(M)[0] ** 2).ravel(), nt)
+    sweeps = 0
+    while emu.stop_sum(nt) > EPS * EPS * norm2:
+        for rd in range(emu.npad - 1):
+            emu.round(rd)
+        sweeps += 1
+    assert sweeps == info
+    assert same_bits(emu.natural(), A)
+    Vs = vectors_by_index(emu.log, n, emu.npad, sweeps * (emu.npad - 1))
+    assert same_bits(Vs[:n], V[:n])
+
+
+@pytest.mark.parametrize("n, G", [(36, 6), (99, 9)])
+@pytest.mark.parametrize("chunk", ["min", "part", "whole", "many"])
+def test_stream_vectors_in_chunks(n, G, chunk):
+    """V from the log staged in chunks that split rounds (the fewest entries,
+    a round less one, a round and three, several rounds and a part) has the
+    bits of V from the log a round at a time, and of the blocks' V."""
+    M = corpus(n)["random"]
+    A, V, _, npad = start(M)
+    h = npad // 2
+    emu = Stream(M, G)
+    rounds = 2 * (npad - 1) + 1  # two sweeps and a round
+    for g in range(rounds):
+        A = round_blocks(A, V, n, g % (npad - 1))
+        emu.round(g % (npad - 1))
+    ce = {"min": se.VS_MIN_CHUNK, "part": h - 1, "whole": h + 3,
+          "many": 3 * h + 5}[chunk]
+    Vc = vectors_by_chunks(emu.log, n, npad, rounds, ce)
+    assert same_bits(Vc[:n], vectors_by_index(emu.log, n, npad, rounds)[:n])
+    assert same_bits(Vc[:n], V[:n])
+
+
+def test_stream_largest_size():
+    """`STREAM_MAX_N`: the largest n whose sort ranking (12·n B) fits a
+    block's shared memory, the limit that binds first (the CTAs' round
+    table and the vectors kernel's row of V and two chunks of the log fit
+    past it); every n from `STREAM_MIN_N` to it fits. Past it the route
+    refuses, routed and forced; before it the card's memory runs out (the
+    rotation log, 240·n² B at `MAX_SWEEPS` = 30, is past 80 GB)."""
+    top = se.STREAM_MAX_N
+    assert se.stream_fits(top) and not se.stream_fits(top + 1)
+    assert 12 * top <= se.VEC_SMEM < 12 * (top + 1)
+    assert se.stream_smem_bytes(top + 1, se.stream_size(top + 1)) \
+        <= se.CLUSTER_SMEM
+    assert 8 * (top + 2) + 2 * se.VS_MIN_CHUNK * 16 <= se.VEC_SMEM
+    assert all(se.stream_fits(n) for n in range(se.STREAM_MIN_N, top + 1))
+    assert not any(se.stream_fits(n) for n in range(se.STREAM_MIN_N))
+    for dt in (torch.float32, torch.float64):
+        assert se.route(top, dt) == "stream"
+        assert se.route(top, dt, kernel="stream") == "stream"
+        assert se.route(top + 1, dt, kernel="global") == "global"
+        for kernel in (None, "stream"):
+            with pytest.raises(ValueError, match="19370"):
+                se.route(top + 1, dt, kernel=kernel)
+    log = 16 * (se.MAX_SWEEPS * (top - 1) + 1) * (top // 2)
+    assert log > 80e9 and top < 2 ** 15
+
+
+@pytest.mark.parametrize("n, G", [(33, 2), (45, 5), (99, 9), (200, 7),
+                                  (449, 113)])
+def test_stream_stop_sum_replays_cta_order(n, G):
+    """The stop test's partial sums spread over G CTAs by virtual warp (past
+    G = 32 one virtual warp a CTA, some CTAs none), eight loads at a time,
+    the tree over the partials after the barrier: the one-CTA kernel's sum
+    of the same entries, bit for bit, with and without the diagonal."""
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((n, n))
+    emu = Stream(M + M.T, G)
+    nt = cta_threads(n)
+    A = emu.natural()
+    offd = ~np.eye(emu.npad, dtype=bool)
+    assert emu.stop_sum(nt) == cta_sum(np.where(offd, A * A, 0.0).ravel(), nt)
+    B = start(M + M.T)[0]
+    assert emu.stop_sum(nt, off=False) == cta_sum((B * B).ravel(), nt)
+
+
+def test_stream_lookahead_blocks():
+    """The look-ahead lanes' blocks: at most two per source slot, each
+    update warp skipping them, and no block taken by two next slots once
+    there are three pairs (n ≥ STREAM_MIN_N); at two pairs both next slots
+    would take slots 0 and 1's block, hence the route's smallest n."""
+    for n in range(se.STREAM_MIN_N, 140):
+        h = (n + n % 2) // 2
+        G = se.stream_size(n)
+        S = -(-h // G)
+        blocks = []
+        for c in range(G):
+            k = np.arange(c * S, min((c + 1) * S, h))
+            src = ahead_src(k, h, h + h - 1, 0, k[0], k[-1] + 1)
+            assert np.isin(src["L"], k).all()
+            blocks += [frozenset(x) for x in zip(src["L"], src["O"])]
+        assert len(set(blocks)) == h, n
+    src = ahead_src(np.arange(2), 2, 3, 0, 0, 2)
+    assert {frozenset(x) for x in zip(src["L"], src["O"])} == {frozenset((0, 1))}
+
+
+@pytest.mark.parametrize("n", [1056, 1057, 1062, 1536, 2112])
+def test_stream_route_and_sizes(n):
+    """Past GRID_MAX_N the stream route, on the most CTAs (at most the
+    card's 132) with ≥ 2 pairs each; its shared memory (the table, not the
+    rows) far below the block's; at 1056 the grid, the stream where
+    forced."""
+    h = (n + n % 2) // 2
+    G = se.stream_size(n)
+    S = -(-h // G)
+    assert 2 <= G <= se.GRID_MAX_G and S >= 2 and -(-h // S) == G
+    assert S == 2 or -(-h // (S - 1)) > se.GRID_MAX_G
+    assert se.stream_smem_bytes(n, G) <= 25 * 1024 < se.CLUSTER_SMEM
+    for dt in (torch.float32, torch.float64):
+        assert se.route(n, dt) == ("grid" if n <= se.GRID_MAX_N else "stream")
+        assert se.route(n, dt, kernel="stream") == "stream"
+        assert se.route(n, dt, kernel="global") == "global"
+    assert {1057: 106, 1062: 107, 1536: 128, 2112: 132}.get(n, G) == G
+
+
+def test_stream_forced_sizes():
+    """The stream route where forced, from n = STREAM_MIN_N (the bit
+    comparisons with the one-CTA kernel, the grid and the global kernel);
+    below it refused."""
+    for n in (5, 36, 96, 99, 516, 1056):
+        assert se.route(n, torch.float32, kernel="stream") == "stream"
+        assert se.stream_size(n) >= 2
+    for n in (1, 3, 4):
+        assert se.stream_size(n) == 0
+        with pytest.raises(ValueError):
+            se.route(n, torch.float64, kernel="stream")
+    assert [se.stream_size(n) for n in (5, 36, 99, 516)] == [2, 9, 25, 129]
+
+
+def test_stream_workspace():
+    """The stream route's workspace: per matrix the cluster family's (the
+    log, V, A by index, two ints), then the global table (two parities of
+    7h), the partial sums (2 × 64) and the count once; the log is 270 MB at
+    n = 1062 and 1.07 GB at 2112, A 9 MB and 36 MB."""
+    for n in (5, 99, 1057, 1062, 2112):
+        npad = n + n % 2
+        h = npad // 2
+        per = se.cluster_work_doubles(n, se.MAX_SWEEPS)
+        for batch in (1, 2, 3):
+            total = se.stream_work_doubles(n, se.MAX_SWEEPS, batch)
+            extra = total - batch * per
+            assert total % 2 == 0
+            assert 0 <= extra - (2 * (7 * h + h % 2) + 128 + 1) <= 1
+    log = {n: 16 * (se.MAX_SWEEPS * (n - 1) + 1) * (n // 2)
+           for n in (1062, 2112)}
+    assert round(log[1062] / 1e6) == 270 and round(log[2112] / 1e9, 2) == 1.07
+    assert [round(8 * n * n / 1e6) for n in (1062, 2112)] == [9, 36]
