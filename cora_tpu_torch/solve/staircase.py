@@ -92,9 +92,12 @@ from cora_tpu_torch.utils.timing import PhaseTimer, named_scope
 
 SADDLE_GRAD_TOL = 1e-4  # reference `CORA.cpp:191-192`
 PRECON_SADDLE_GRAD_TOL = 1e-4
-# the device loops' counts, of which `CoraResult.counters` holds a solve's
+# the saddle escapes, on either path
+ESCAPE_STATS = dict(escapes=0)
+# the device loops' counts and the escapes', of which `CoraResult.counters`
+# holds a solve's
 LOOP_STATS = {"tnt": tnt.LOOP_STATS, "lobpcg": lobpcg.LOOP_STATS,
-              "polish": polish.LOOP_STATS}
+              "polish": polish.LOOP_STATS, "escape": ESCAPE_STATS}
 
 
 def _clamp(val, lo, hi):
@@ -552,6 +555,7 @@ def _solve_cora(problem, x0, max_rank, config, verbose, checkpoint_path,
         v = np.asarray(cert.x[:state_height], np.float64)
         v = v / max(np.linalg.norm(v), 1e-300)
         t_e = time.time()
+        ESCAPE_STATS["escapes"] += 1
         with timer("saddle_escape"):
             X = escape(result.x, cert.theta, v)
         vprint(f"[t={time.time()-t_start:7.2f}s] saddle escape took "

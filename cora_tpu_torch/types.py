@@ -200,7 +200,8 @@ class CoraResult:
     # seconds of each part of one under "<phase>/<part>"
     phases: dict | None = None
     iterates: list | None = None
-    # this solve's counts of the device loops: the change of each
-    # `LOOP_STATS` of `solve.tnt`, `ops.lobpcg` and `solve.polish` over the
-    # solve, keyed "tnt.captures", "lobpcg.capture_s", ...
+    # this solve's counts of the device loops and the saddle escapes: the
+    # change of each `LOOP_STATS` of `solve.tnt`, `ops.lobpcg` and
+    # `solve.polish`, and of `solve.staircase.ESCAPE_STATS`, over the solve,
+    # keyed "tnt.captures", "lobpcg.capture_s", "escape.escapes", ...
     counters: dict | None = None

@@ -9,7 +9,9 @@ card.
     `LOOP_STATS`, on the canonical and the chain path;
   * a certificate or polish called outside a solve names its ranges and
     times into no timer;
-  * the eager loops capture nothing; on a card, every capture is a range.
+  * the eager loops capture nothing; on a card, every capture is a range;
+  * each saddle escape counts once (`CoraResult.counters["escape.escapes"]`),
+    on the canonical and the chain path.
 
 Imports nothing of JAX, so the `cuda` tests run on a machine without it
 (`python -m pytest --noconftest -m cuda tests/test_torch_tracing.py`).
@@ -28,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 from cora_tpu_torch.io.pyfg import parse_pyfg
 from cora_tpu_torch.models.synthetic import synthetic_problem
 from cora_tpu_torch.ops.riemannian import project_to_manifold
+from cora_tpu_torch.ops.tnt_kernels import PlainTNT
 from cora_tpu_torch.solve import staircase
 from cora_tpu_torch.solve.certify import certify_solution
 from cora_tpu_torch.solve.polish import polish_solution
@@ -45,6 +48,8 @@ GRAPH = dict(n_robots=3, poses_per_robot=12, n_inter_ranges=30,
              seed=0)
 # the chain graph of tests/test_torch_solve.py
 SMALL_CHAIN = dict(n_poses=14, n_landmarks=2, n_ranges=10, dim=2, seed=3)
+# the families of `staircase.LOOP_STATS` that capture CUDA graphs
+LOOPS = ("tnt", "lobpcg", "polish")
 
 
 def config(iterations=20, tcg=10):
@@ -156,7 +161,7 @@ def test_top_level_phases_cover_the_solve(traced):
 def test_eager_loops_capture_nothing(traced):
     assert not [n for n in traced.ranges if n.endswith("/capture")]
     counters = traced.res.counters
-    for kind in staircase.LOOP_STATS:
+    for kind in LOOPS:
         assert counters[f"{kind}.captures"] == 0
         assert counters[f"{kind}.capture_s"] == 0.0
     assert counters["tnt.eager_calls"] > 0
@@ -191,6 +196,49 @@ def test_each_solve_counts_its_own_loops(graph_file, path):
         assert res.counters["tnt.tcg_iters"] > 0
         assert res.counters["tnt.host_reads"] > 0
         assert res.counters["tnt.outer_iters"] > 0
+
+
+def staircase_config(jump, init):
+    """The full TNT levels from rank d + `jump`, to rank 6."""
+    return SolverConfig(dtype=np.float32, seed=0, max_rank=6,
+                        initialization=init, init_rank_jump=jump)
+
+
+@pytest.fixture
+def ladder_calls(monkeypatch):
+    """Counts the plain chain kernels' `ladder` calls: one per escape."""
+    calls = []
+    ladder = PlainTNT.ladder
+
+    def counted(self, *a, **kw):
+        calls.append(1)
+        return ladder(self, *a, **kw)
+    monkeypatch.setattr(PlainTNT, "ladder", counted)
+    return calls
+
+
+@pytest.mark.parametrize("path, jump, init", [
+    ("chain", 0, Initialization.RANDOM),
+    ("canonical", 0, Initialization.ODOMETRY),
+    ("chain", 2, Initialization.ODOMETRY),
+], ids=["chain-from-rank-d", "canonical-from-rank-d", "first-level"])
+def test_each_escape_counts_once(graph_file, ladder_calls, path, jump, init):
+    """From rank d the first certificate fails and the solve escapes: each
+    escape counts once on either path (on the chain path, one `ladder`
+    call each). A solve that certifies at its first level counts none."""
+    problem = synthetic_problem(**SMALL_CHAIN) if path == "chain" \
+        else parse_pyfg(graph_file)
+    res = staircase.solve_cora(problem, config=staircase_config(jump, init),
+                               device="cpu")
+    escapes = res.counters["escape.escapes"]
+    assert res.certified
+    assert [k for k in res.counters if k.startswith("escape.")] == \
+        ["escape.escapes"]
+    if jump:
+        assert len(res.ranks_visited) == 1 and escapes == 0
+    else:
+        assert escapes >= 1
+    assert len(ladder_calls) == (escapes if path == "chain" else 0)
 
 
 @pytest.mark.parametrize("call", ["certify", "polish"])
@@ -228,8 +276,8 @@ def test_every_capture_is_a_range_on_the_card(card, graph_file):
     traced = traced_solve(graph_file, "cuda")
     check_ranges(traced)
     counters = traced.res.counters
-    assert sum(counters[f"{k}.captures"] for k in staircase.LOOP_STATS) > 0
-    for kind in staircase.LOOP_STATS:
+    assert sum(counters[f"{k}.captures"] for k in LOOPS) > 0
+    for kind in LOOPS:
         n = sum(c for name, (_, c) in traced.ranges.items()
                 if name.startswith(f"{kind}/") and name.endswith("/capture"))
         assert n == counters[f"{kind}.captures"], kind
