@@ -28,8 +28,10 @@ raises and the script exits non-zero:
      boundary after one iteration and one that runs tens of iterations
      (∇F = 0, Δ = 1e8); the second is timed and bounded. `ladder` gives
      the same bits at K = 1 and at the chosen K, agrees at each α with the
-     cluster `step` at s = α·Ẏ within 1e-6 (and says at how many α it is
-     bit-equal), and is timed at K = 1, 2, 3, 4, 6, 8 where they fit.
+     cluster `step` at s = α·Ẏ, f and ‖grad‖ bit for bit and √⟨g,Pg⟩
+     within 1e-6 (its band solve scans the whole band, the step's carries
+     between CTAs; it says at how many α that is bit-equal too), and is
+     timed at K = 1, 2, 3, 4, 6, 8 where they fit.
      Past rank 10 (HIGH_RANK_CASES: ranks 11, 32 and 80 on the
      plaza2-shaped graph, the JAX package's VMEM guard there being 80,
      and 12 on the single_drone-shaped one) the four kernels are held to
@@ -676,19 +678,23 @@ def phase_kernels(problems, hp, probe):
         check(torch.equal(one, la),
               f"ladder: K = 1 and K = {K} differ by {absdiff(one, la):.3e}")
         # ... and is the cluster step's at s = α·Ẏ (s rounded as the
-        # saddle escape forms it)
-        worst, equal = 0.0, 0
+        # saddle escape forms it): f and ‖grad‖ bit for bit, √⟨g,Pg⟩ to
+        # rounding (the two band solves scan in another order)
+        worst, equal, fg = 0.0, 0, 0
         for i, a in enumerate(al.tolist()):
             s = (torch.tensor(a, dtype=torch.float32, device="cuda") * V
                  ).contiguous()
             sc = cu.step(Y, s, 1)[3]
             worst = max(worst, rel(la[:, i], sc))
             equal += int(torch.equal(la[:, i], sc))
+            fg += int(torch.equal(la[:2, i], sc[:2]))
         print(f"[kernels] {gname} r={rank}: ladder (K = {K}) against the "
-              f"cluster step at each of {A} α: max rel {worst:.3e}, "
-              f"bit-equal at {equal} of {A}; K = 1 and K = {K} bit-equal",
-              flush=True)
+              f"cluster step at each of {A} α: max rel {worst:.3e}, f and "
+              f"|grad| bit-equal at {fg} of {A}, all three at {equal}; K = 1 "
+              f"and K = {K} bit-equal", flush=True)
         check(worst <= 1e-6, f"ladder vs cluster step: rel {worst:.3e}")
+        check(fg == A, f"ladder vs cluster step: f, |grad| bit-equal at {fg}"
+              f" of {A}")
         sweep = {}
         Ks = [k for k in LADDER_SWEEP if k <= cap]
         for k in Ks + Ks[::-1]:  # in turns, forward then back
@@ -844,13 +850,17 @@ def high_ranks(problems, hp, stats, barrier_us, note):
         one = cu.ladder(Y, V, al, clusters=1)
         check(torch.equal(one, la), f"ladder {what}: K = 1 ({len(grp1) - 1} "
               f"launches) and K = {K} differ by {absdiff(one, la):.3e}")
-        worst = 0.0
+        worst, fg = 0.0, 0
         for i, a in enumerate(al.tolist()):
             s = (torch.tensor(a, dtype=torch.float32, device="cuda") * V
                  ).contiguous()
-            worst = max(worst, rel(la[:, i], cu.step(Y, s, 1)[3]))
+            sc = cu.step(Y, s, 1)[3]
+            worst = max(worst, rel(la[:, i], sc))
+            fg += int(torch.equal(la[:2, i], sc[:2]))
         check(worst <= 1e-6, f"ladder {what} vs cluster step: rel "
               f"{worst:.3e}")
+        check(fg == A, f"ladder {what} vs cluster step: f, |grad| bit-equal "
+              f"at {fg} of {A}")
         nF = cases["long"][0]
         runs = {
             "step": (lambda: cu.step(Y, V, 1), lambda: pl.step(Y, V, 1),

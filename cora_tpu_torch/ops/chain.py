@@ -176,6 +176,7 @@ class ChainPlan:
     lm_rows: torch.Tensor  # (l, K) int64 ranges of landmark k, padded with m
     Linv: torch.Tensor  # (nb, w, w) inverse diagonal factor blocks
     AF: torch.Tensor  # (levels, nb, w, w) forward doubling propagators
+    A_host: np.ndarray  # (nb, w, w) float64 A_i = −L_i⁻¹M_i, A_0 = 0 (host)
     C: torch.Tensor  # (nb, w, l) Woodbury landmark columns
     BinvC: torch.Tensor  # (nb, w, l) B⁻¹C
     capinv: torch.Tensor  # (l, l) inverse capacitance
@@ -253,6 +254,8 @@ def build_chain_plan(problem, dtype=np.float32, device="cuda",
         raise ValueError(f"factor block {F.q} != pose-pair width {w}")
     Linv = F.Linv
     levels, AF = doubling_propagators(F)
+    # the band recurrence's steps, for the partitions' PF (M_0 = 0)
+    A_host = -np.einsum("nab,nbc->nac", Linv, F.M)
     C = np.zeros((nb * w, l))
     BinvC = np.zeros((nb * w, l))
     if l:
@@ -279,20 +282,28 @@ def build_chain_plan(problem, dtype=np.float32, device="cuda",
         cval=T(f(pd.rng_omega) * f(pd.rng_r)),
         slot=I(slot), lm_ptr=I(lm_ptr), lm_rng=I(lm_rng),
         slot_rows=I(slot_rows), lm_rows=I(lm_rows),
-        Linv=T(Linv), AF=T(AF), C=T(C.reshape(nb, w, l)),
+        Linv=T(Linv), AF=T(AF), A_host=A_host, C=T(C.reshape(nb, w, l)),
         BinvC=T(BinvC.reshape(nb, w, l)), capinv=T(capinv), qdwh=T(qd),
     )
 
 
 @dataclasses.dataclass
 class ClusterPartition:
-    """Which CTA of a `parts`-CTA group owns what (host numpy, int32).
+    """Which CTA of a `parts`-CTA group owns what (host numpy, int32), and
+    the band solve's per-CTA table.
 
     CTA c owns the band blocks [blk_ptr[c], blk_ptr[c+1]), the poses of
     those blocks (2·cb, 2·cb+1, below n), the ranges in those poses' slot
     rows, and the state rows of them all (rotation, bearing and translation
     rows); CTA 0 also owns the landmark rows. Every table lists a CTA's
-    entries in ascending order, so one part (parts = 1) is the identity."""
+    entries in ascending order, so one part (parts = 1) is the identity.
+
+    The band solve runs as a scan over each CTA's own blocks (`levels`
+    doubling levels) and one carry between CTAs each way (`precon_solve`
+    in csrc/chain_ops.cuh): CT[c, c'] takes the end block of CTA c' < c to
+    the block before CTA c's first, and PF[cb] = A_cb ⋯ A_{blk_ptr[c]} on
+    into block cb of CTA c. A CTA whose blocks start at 0 has no block
+    before it: its PF is zero (A_0 = 0), as the carry it takes."""
 
     parts: int
     blk_ptr: np.ndarray  # (parts + 1,)
@@ -302,31 +313,82 @@ class ClusterPartition:
     own_rng: np.ndarray  # (m,)
     lmc_ptr: np.ndarray  # (parts·l + 1,) CTA c's ranges of landmark k are
     lmc_rng: np.ndarray  # (m,)  lmc_rng[lmc_ptr[c·l+k]:lmc_ptr[c·l+k+1]]
+    levels: int  # the CTA-local scan's levels: ⌈log₂ (most blocks a CTA)⌉
+    PF: np.ndarray  # (nb, w, w) float64 products from the CTA's first block
+    CT: np.ndarray  # (parts, parts, w, w) float64 carries between CTA ends
 
     def poses(self, c: int, n: int) -> tuple[int, int]:
         """CTA c's poses [g0, g1)."""
         return (min(2 * int(self.blk_ptr[c]), n),
                 min(2 * int(self.blk_ptr[c + 1]), n))
 
-    def propagator_slice(self, c: int, k: int, nb: int,
-                         adjoint: bool) -> tuple[int, int]:
-        """The blocks [a, b) of propagator level k that CTA c reads: its own
-        blocks in the forward pass, and in the adjoint pass (x_cb +=
-        A_k[cb + 2ᵏ]ᵀ x_cb+2ᵏ for its own cb) the same range shifted by 2ᵏ,
-        cut at nb. Block cb's propagator sits at cb − blk_ptr[c] either way."""
+    def propagator_slice(self, c: int, k: int) -> tuple[int, int]:
+        """The blocks [a, b) of propagator level k that CTA c reads: in the
+        forward pass (u_cb += A_k[cb] u_cb−2ᵏ) and in the adjoint pass
+        (x_cb += A_k[cb + 2ᵏ]ᵀ x_cb+2ᵏ) alike, the own blocks from the
+        first plus 2ᵏ, since both ends of a product lie in the CTA."""
         b0, b1 = int(self.blk_ptr[c]), int(self.blk_ptr[c + 1])
-        s = (1 << k) if adjoint else 0
-        return min(b0 + s, nb), min(b1 + s, nb)
+        return min(b0 + (1 << k), b1), b1
+
+
+def block_split(nb: int, parts: int) -> np.ndarray:
+    """(parts + 1,) int64 blk_ptr: nb blocks in `parts` contiguous ranges
+    whose sizes differ by at most one."""
+    return (np.arange(parts + 1, dtype=np.int64) * nb) // parts
+
+
+def scan_levels(blk_ptr: np.ndarray) -> int:
+    """Doubling levels of a scan over each part's blocks [blk_ptr[c],
+    blk_ptr[c+1]): ⌈log₂⌉ of the most blocks one part owns."""
+    most = int(np.diff(blk_ptr).max())
+    return int(np.ceil(np.log2(most))) if most > 1 else 0
+
+
+def carry_propagators(A: np.ndarray, blk_ptr: np.ndarray) -> np.ndarray:
+    """PF[cb] = A_cb ⋯ A_a for block cb of the part whose blocks start at
+    a (float64; zero in a part that starts at block 0, as A_0 = 0): the
+    products of at most one part's steps, formed for all parts at once."""
+    PF = np.zeros_like(A)
+    b0, b1 = blk_ptr[1:-1].astype(np.int64), blk_ptr[2:].astype(np.int64)
+    live = b1 > b0
+    b0, b1 = b0[live], b1[live]
+    if not len(b0):
+        return PF
+    PF[b0] = A[b0]
+    for t in range(1, int((b1 - b0).max())):
+        cb = b0 + t
+        on = cb < b1
+        PF[cb[on]] = A[cb[on]] @ PF[cb[on] - 1]
+    return PF
+
+
+def carry_matrix(PF: np.ndarray, blk_ptr: np.ndarray) -> np.ndarray:
+    """CT[c, c'] = E_c−1 ⋯ E_c'+1 for a part c' < c that owns a block, where
+    E is PF at a part's last block (the identity for an empty part): it
+    takes the state at part c''s last block to the block before part c's
+    first. Zero elsewhere. (parts, parts, w, w) float64."""
+    parts, w = len(blk_ptr) - 1, PF.shape[1]
+    CT = np.zeros((parts, parts, w, w))
+    for src in range(parts):
+        if blk_ptr[src + 1] == blk_ptr[src]:
+            continue
+        M = np.eye(w)
+        for c in range(src + 1, parts):
+            CT[c, src] = M
+            if blk_ptr[c + 1] > blk_ptr[c]:
+                M = PF[blk_ptr[c + 1] - 1] @ M
+    return CT
 
 
 def cluster_partition(plan: ChainPlan, parts: int) -> ClusterPartition:
     """Split the band blocks into `parts` contiguous ranges of as equal a
-    size as the count allows, and give each CTA the poses, ranges and rows
-    that hang on its blocks (see `ClusterPartition`)."""
+    size as the count allows, give each CTA the poses, ranges and rows
+    that hang on its blocks, and form the band solve's carries for that
+    split (see `ClusterPartition`)."""
     if parts < 1:
         raise ValueError(f"parts={parts}")
     n, m, l, nb, d = plan.n, plan.m, plan.l, plan.nb, plan.d
-    blk_ptr = (np.arange(parts + 1, dtype=np.int64) * nb) // parts
+    blk_ptr = block_split(nb, parts)
     rng_pose = plan.rng_pose.cpu().numpy().astype(np.int64)
     rng_lm = plan.rng_lm.cpu().numpy().astype(np.int64)
     # the CTA of pose g: the one whose block range holds g // 2
@@ -350,11 +412,13 @@ def cluster_partition(plan: ChainPlan, parts: int) -> ClusterPartition:
     lmc_rng = lm_rng[np.argsort(key, kind="stable")]
     lmc_ptr = np.searchsorted(np.sort(key), np.arange(parts * l + 1))
     i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    PF = carry_propagators(plan.A_host, blk_ptr)
     return ClusterPartition(
         parts=parts, blk_ptr=i32(blk_ptr),
         row_ptr=i32(row_ptr), own_rows=i32(np.concatenate(rows)),
         rng_ptr=i32(rng_ptr), own_rng=i32(own_rng), lmc_ptr=i32(lmc_ptr),
-        lmc_rng=i32(lmc_rng))
+        lmc_rng=i32(lmc_rng), levels=scan_levels(blk_ptr), PF=PF,
+        CT=carry_matrix(PF, blk_ptr))
 
 
 def ladder_groups(A: int, K: int) -> np.ndarray:

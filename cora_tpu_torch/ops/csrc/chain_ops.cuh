@@ -25,10 +25,12 @@
 // the tables come from chain.cluster_partition. Each function writes only
 // the rows its CTA owns and ends with a CTA barrier, so its own rows are
 // complete for the CTA when it returns; a function that reads rows another
-// CTA owns (qv: the neighbouring poses and the landmark rows; each level of
-// the doubling scan: block cb ∓ 2^k) first syncs the group, and no pass
-// writes a buffer that another CTA may still be reading for the pass
-// before it (so Linvᵀ runs in place after the scan). Elementwise
+// CTA owns (qv: the neighbouring poses and the landmark rows; the band
+// scan's carries: the other CTAs' end blocks and sums) first syncs the
+// group, and no pass writes a buffer that another CTA may still be reading
+// for the pass before it. The band scan's levels read only the CTA's own
+// blocks (precon_solve; the α-batched ladder's precon_batch still scans
+// the whole band, a group barrier a level). Elementwise
 // passes and dot products run over the CTA's own rows; one CTA owns every
 // row in canonical order, so BlockGroup indexes the state directly. State,
 // scratch and the propagators live in global memory: at the reference
@@ -37,15 +39,15 @@
 // 39-78 MB of scratch.
 //
 // What bounds them on an H100 (numbers for the plaza2-shaped graph, r = 4;
-// PERF.md): a tCG iteration is a chain of dependent passes over ≤ 56k-element
-// vectors, each ended by a group barrier — 2·levels + 5 per iteration (27 at
-// 11 scan levels; tnt_kernels.work_counts counts them), 20.5 µs at the
-// measured 0.76 µs of a 16-CTA cluster.sync() — and it streams ~22 MB
-// through L2, ~20 µs at the 1.07 TB/s that 16 SMs read L2 at; its ~17 MFLOP
-// are nothing. One CTA streams those passes through one SM's L2 path
-// (92 GB/s); the cluster gives C SMs' L2 paths and keeps the barrier in
-// hardware. Measured, a tCG iteration takes 95-132 µs inside a solve: each
-// pass waits on its dependent loads for several times its barrier. Staging
+// PERF.md): a tCG iteration is a chain of ~40 dependent passes over ≤ 56k-
+// element vectors, 7 ended by a group barrier (tnt_kernels.work_counts
+// counts them; a 16-CTA cluster.sync() takes 0.76 µs) and the rest, the band
+// scan's 2·7 levels over each CTA's ~128 own blocks among them, by a CTA
+// barrier; a pass takes ~2 µs either way, most of it waiting on its loads
+// (a clock64() split of the tCG loop, PERF.md). It streams ~22 MB through
+// L2, ~20 µs at the 1.07 TB/s that 16 SMs read L2 at; its ~17 MFLOP are
+// nothing. One CTA streams those passes through one SM's L2 path (92 GB/s);
+// the cluster gives C SMs' L2 paths and keeps the barrier in hardware. Staging
 // each CTA's propagator slice in shared memory by TMA measured slower
 // (PERF.md), so the scan reads the propagators from L2.
 // No tensor cores: the products are (w × w)·(w × r) with w ∈ {6, 8} and
@@ -106,6 +108,10 @@ struct ChainPlanArgs {
   const int* own_rng;   // (m)
   const int* lmc_ptr;   // (parts * l + 1) CTA c's ranges of landmark k:
   const int* lmc_rng;   // (m) lmc_rng[lmc_ptr[c*l+k] .. lmc_ptr[c*l+k+1])
+  // the band solve's scan over each CTA's blocks (precon_solve):
+  const float* PF;      // (nb, w, w) A_cb ⋯ A_blk_ptr[c] for block cb of CTA c
+  const float* CT;      // (parts, parts, w, w) carries between CTA ends
+  int cta_levels;       // doubling levels over the most blocks one CTA owns
 };
 
 // TNT parameters (types.TNTParams), as float32 like the solve.
@@ -146,6 +152,7 @@ struct Ctx {
   int r;
   float* band0;  // (nb, w, r) scratch
   float* band1;  // (nb, w, r) scratch
+  float* carry;  // (parts, w, r) scratch of the scan's carries (parts > 1)
   int rank;      // CTA rank in the group
   int b0, b1;    // own band blocks
   int g0, g1;    // own poses
@@ -259,7 +266,8 @@ __device__ __forceinline__ void copy_state(const Ctx& c, const float* src,
 // Per-element bodies of the passes. Each pass below is a loop over its own
 // elements calling these; the α-batched passes of the ladder loop over
 // (trial point, element) and call the same bodies, so a trial point's
-// arithmetic is the single-state pass's, bit for bit.
+// arithmetic is the single-state pass's, bit for bit (all but the band
+// scan's: see the ladder's section).
 // ---------------------------------------------------------------------------
 
 // Q·Y's rotation and translation rows of pose g, column j (reference
@@ -707,7 +715,119 @@ __device__ void hvp(Ctx& c, const float* Y, const float* nF, const float* dY,
 }
 
 // ---------------------------------------------------------------------------
-// (Q + λI)⁻¹V: sphere elimination → banded doubling scan and its exact
+// The band solve's scan, B⁻¹ = L̃⁻ᵀL̃⁻¹ on the pose-pair band: the forward
+// recurrence u_cb = A_cb u_cb−1 + (Linv b)_cb and its exact adjoint, on the
+// partition's blocks (chain.ClusterPartition). Each CTA scans its own
+// blocks [b0, b1) from u_b0−1 := 0 in cta_levels doubling levels; the
+// carry then brings the true u_b0−1 = U in (u_cb += PF[cb]·U), and the
+// adjoint is the same network transposed, built from the same stored
+// numbers in mirrored order, so B⁻¹ is symmetric PSD whatever their
+// rounding. One part is the whole-band doubling scan of chain._solve_B,
+// product for product, and takes no carry.
+// ---------------------------------------------------------------------------
+
+// One doubling level over the own blocks, src → dst: forward u_cb +=
+// A_k[cb] u_cb−2^k, adjoint x_cb += A_k[cb + 2^k]ᵀ x_cb+2^k, each only where
+// the other block is the CTA's own. Ends with a CTA barrier.
+template <int D, bool Adjoint>
+__device__ void scan_level(const Ctx& c, int k, const float* src, float* dst) {
+  constexpr int w = 2 * (D + 1);
+  const int r = c.r, s = 1 << k, b0 = c.b0, b1 = c.b1;
+  const int nown = (b1 - b0) * w * r, off = b0 * w * r;
+  const float* A = c.P.AF + (size_t)k * c.P.nb * w * w;
+  for (int i = threadIdx.x; i < nown; i += blockDim.x) {
+    const int cb = b0 + i / (w * r), e = (i / r) % w, j = i % r;
+    float v = src[off + i];
+    if (!Adjoint && cb - s >= b0) {
+      const float* Ae = A + (size_t)(cb * w + e) * w;
+      const float* u = src + (size_t)(cb - s) * w * r + j;
+      for (int f = 0; f < w; ++f) v += Ae[f] * u[f * r];
+    }
+    if (Adjoint && cb + s < b1) {
+      const float* Ab = A + (size_t)(cb + s) * w * w + e;
+      const float* x = src + (size_t)(cb + s) * w * r + j;
+      for (int f = 0; f < w; ++f) v += Ab[f * w] * x[f * r];
+    }
+    dst[off + i] = v;
+  }
+  __syncthreads();
+}
+
+// The carries between CTAs are products with the partition's carry
+// matrix CT (chain.ClusterPartition), whose block CT[c][c'] takes the end
+// block of CTA c' < c to the block before CTA c's first: the PF ends of
+// the CTAs between, multiplied out on the host. One warp per (row e,
+// column j) of the w × r result, its lanes over the terms (CTA, f) in a
+// fixed order, then the warp's tree: no chain through the CTAs.
+
+// This CTA's carry-in U = Σ_{c' < c} CT[c][c'] ũ_end(c') into out (w, r),
+// over the CTAs before it that own a block.
+template <int D>
+__device__ void carry_in(const Ctx& c, const float* u, float* out) {
+  constexpr int w = 2 * (D + 1);
+  const ChainPlanArgs& P = c.P;
+  const int r = c.r, lane = threadIdx.x & 31, wid = threadIdx.x >> 5,
+            nw = blockDim.x >> 5;
+  const float* T = P.CT + (size_t)c.rank * P.parts * w * w;
+  for (int p = wid; p < w * r; p += nw) {
+    const int e = p / r, j = p % r;
+    float acc = 0.f;
+    for (int t = lane; t < c.rank * w; t += 32) {
+      const int cc = t / w, f = t - cc * w, end = P.blk_ptr[cc + 1] - 1;
+      if (end >= P.blk_ptr[cc])
+        acc += T[((size_t)cc * w + e) * w + f] *
+               u[((size_t)end * w + f) * r + j];
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) out[p] = acc;
+  }
+}
+
+// s = Σ_cb PF[cb]ᵀ x_cb over the own blocks into out (w, r): one warp per
+// (f, j), its lanes over the rows (cb, e) in a fixed order.
+template <int D>
+__device__ void carry_sum(const Ctx& c, const float* x, float* out) {
+  constexpr int w = 2 * (D + 1);
+  const int r = c.r, lane = threadIdx.x & 31, wid = threadIdx.x >> 5,
+            nw = blockDim.x >> 5;
+  const int rows = (c.b1 - c.b0) * w;
+  const size_t row0 = (size_t)c.b0 * w;
+  for (int p = wid; p < w * r; p += nw) {
+    const int f = p / r, j = p % r;
+    float acc = 0.f;
+    for (int t = lane; t < rows; t += 32)
+      acc += c.P.PF[(row0 + t) * w + f] * x[(row0 + t) * r + j];
+    acc = warp_sum(acc);
+    if (lane == 0) out[p] = acc;
+  }
+}
+
+// The carry's transpose: μ = Σ_{c' > c} CT[c'][c]ᵀ s_c' over the CTAs
+// after this one (an empty CTA's s is 0), added to this CTA's end block of
+// x. sums: (parts, w, r).
+template <int D>
+__device__ void carry_out(const Ctx& c, const float* sums, float* x) {
+  constexpr int w = 2 * (D + 1);
+  const ChainPlanArgs& P = c.P;
+  const int r = c.r, lane = threadIdx.x & 31, wid = threadIdx.x >> 5,
+            nw = blockDim.x >> 5;
+  if (c.b1 == c.b0) return;
+  const int first = c.rank + 1, terms = (P.parts - first) * w;
+  for (int p = wid; p < w * r; p += nw) {
+    const int e = p / r, j = p % r;
+    float acc = 0.f;
+    for (int t = lane; t < terms; t += 32) {
+      const int cc = first + t / w, f = t % w;
+      acc += P.CT[(((size_t)cc * P.parts + c.rank) * w + f) * w + e] *
+             sums[((size_t)cc * w + f) * r + j];
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) x[((size_t)(c.b1 - 1) * w + e) * r + j] += acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (Q + λI)⁻¹V: sphere elimination → the band solve's scan and its exact
 // adjoint → Woodbury landmark correction → sphere back-substitution.
 // out must not alias V.
 // ---------------------------------------------------------------------------
@@ -717,7 +837,7 @@ __device__ void precon_solve(Ctx& c, const float* V, float* out) {
   float* lmB = c.lmB;
   const ChainPlanArgs& P = c.P;
   const int r = c.r, l = P.l, lm0 = P.n * D + P.m + P.n;
-  const int q = D + 1, w = 2 * q, nb = P.nb;
+  const int q = D + 1, w = 2 * q;
   const int b0 = c.b0, nown = (c.b1 - b0) * w * r, off = b0 * w * r;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5,
             nw = blockDim.x >> 5;
@@ -752,46 +872,40 @@ __device__ void precon_solve(Ctx& c, const float* V, float* out) {
     dst[off + i] = acc;
   }
   { float* t = src; src = dst; dst = t; }
-
-  // 3) forward doubling levels: u_c += A_k[c] u_{c − 2^k}
-  const size_t ww = (size_t)w * w;
-  for (int k = 0; k < P.levels; ++k) {
-    const int s = 1 << k;
-    G::sync();
-    const float* A = P.AF + (size_t)k * nb * ww;
-    for (int i = threadIdx.x; i < nown; i += blockDim.x) {
-      const int cb = b0 + i / (w * r), e = (i / r) % w, j = i % r;
-      float v = src[off + i];
-      if (cb >= s) {
-        const float* Ae = A + (size_t)(cb * w + e) * w;
-        const float* u = src + (size_t)(cb - s) * w * r + j;
-        for (int f = 0; f < w; ++f) v += Ae[f] * u[f * r];
-      }
-      dst[off + i] = v;
-    }
-    { float* t = src; src = dst; dst = t; }
-  }
-  // 4) the exact adjoint, levels reversed: x_c += A_k[c + 2^k]ᵀ x_{c + 2^k}
-  for (int k = P.levels - 1; k >= 0; --k) {
-    const int s = 1 << k;
-    G::sync();
-    const float* A = P.AF + ((size_t)k * nb + s) * ww;  // A_k[cb + 2^k] at cb
-    for (int i = threadIdx.x; i < nown; i += blockDim.x) {
-      const int cb = b0 + i / (w * r), e = (i / r) % w, j = i % r;
-      float v = src[off + i];
-      if (cb < nb - s) {
-        const float* Ab = A + (size_t)cb * w * w + e;
-        const float* x = src + (size_t)(cb + s) * w * r + j;
-        for (int f = 0; f < w; ++f) v += Ab[f * w] * x[f * r];
-      }
-      dst[off + i] = v;
-    }
-    { float* t = src; src = dst; dst = t; }
-  }
   __syncthreads();
-  // 5) y1 = Linvᵀ · x in place, one thread per (own block, column): the
-  //    other buffer may still be read by a neighbouring CTA's last adjoint
-  //    level, and nobody else reads this one now
+
+  // 3) the scan over the own blocks, then with more than one part the
+  //    carry between CTAs and its transpose, then the adjoint scan over
+  //    the own blocks: every product is of two of the CTA's own blocks
+  //    but the carries', which cross the group's two barriers
+  for (int k = 0; k < P.cta_levels; ++k) {
+    scan_level<D, false>(c, k, src, dst);
+    { float* t = src; src = dst; dst = t; }
+  }
+  if (P.parts > 1) {
+    float* mine = c.carry + (size_t)c.rank * w * r;
+    G::sync();  // every CTA's end block
+    carry_in<D>(c, src, mine);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nown; i += blockDim.x) {
+      const int cb = b0 + i / (w * r), e = (i / r) % w, j = i % r;
+      const float* Pe = P.PF + (size_t)(cb * w + e) * w;
+      float v = src[off + i];
+      for (int f = 0; f < w; ++f) v += Pe[f] * mine[f * r + j];
+      dst[off + i] = v;
+    }
+    { float* t = src; src = dst; dst = t; }
+    __syncthreads();
+    carry_sum<D>(c, src, mine);  // over the carry-in, read by now
+    G::sync();  // every CTA's sum
+    carry_out<D>(c, c.carry, src);
+    __syncthreads();
+  }
+  for (int k = P.cta_levels - 1; k >= 0; --k) {
+    scan_level<D, true>(c, k, src, dst);
+    { float* t = src; src = dst; dst = t; }
+  }
+  // 4) y1 = Linvᵀ · x in place, one thread per (own block, column)
   for (int i = threadIdx.x; i < nown / w; i += blockDim.x) {
     const int cb = b0 + i / r, j = i % r;
     linvt_column<D>(P.Linv + (size_t)cb * w * w, src + (size_t)cb * w * r + j,
@@ -800,7 +914,7 @@ __device__ void precon_solve(Ctx& c, const float* V, float* out) {
   __syncthreads();
   const float* y1 = src;
 
-  // 6) Woodbury landmark correction (every CTA holds the l × r result),
+  // 5) Woodbury landmark correction (every CTA holds the l × r result),
   //    then scatter the own band blocks to pose rows
   if (l > 0) {
     float* wood = publish_slot(c);
@@ -825,7 +939,7 @@ __device__ void precon_solve(Ctx& c, const float* V, float* out) {
     band_to_pose<D>(c, b0 * w + i / r, i % r, y1[off + i], lmA, out);
   __syncthreads();
 
-  // 7) sphere back-substitution of the own ranges
+  // 6) sphere back-substitution of the own ranges
   const int e0 = P.rng_ptr[c.rank], e1 = P.rng_ptr[c.rank + 1];
   for (int i = threadIdx.x; i < (e1 - e0) * r; i += blockDim.x)
     sphere_back<D>(c, V, lmA, own_rng<G>(c, e0 + i / r), i % r, out);
@@ -1006,11 +1120,14 @@ __device__ TcgOut tcg_core(Ctx& c, const float* g, const float* Y,
 // runs the single-state pass's element body; each sum keeps the
 // single-state thread-to-element assignment, CTA tree and rank order, with
 // ring slots AB·max(l·r, 1) wide. So a trial point's scalars do not depend
-// on its batch, and equal the cluster step's at s = α·Ẏ: the retraction
-// adds the rounded product α·Ẏ (__fmul_rn keeps it from contracting into
-// an FMA), as the host forms s. What the batch saves: the dependent passes,
-// and their barriers, are paid once per cluster instead of once per α, and
-// each propagator and Linv element is loaded once per four band columns.
+// on its batch. f and ‖grad‖ equal the cluster step's at s = α·Ẏ, bit for
+// bit: the retraction adds the rounded product α·Ẏ (__fmul_rn keeps it
+// from contracting into an FMA), as the host forms s. √<g, P g> equals it
+// to rounding: precon_batch scans the whole band (a group barrier a level,
+// products in another order than precon_solve's carry). What the batch
+// saves: the dependent passes, and their barriers, are paid once per
+// cluster instead of once per α, and each propagator and Linv element is
+// loaded once per four band columns.
 // ===========================================================================
 struct Batch {
   int AB;       // trial points of this cluster
@@ -1279,7 +1396,8 @@ __device__ void precon_batch(Ctx& c, const Batch& B, const float* V0,
     { float* t = src; src = dst; dst = t; }
   }
   __syncthreads();
-  // 5) y1 = Linvᵀ · x in place (see precon_solve), four columns a thread
+  // 5) y1 = Linvᵀ · x in place, four columns a thread: the other buffer
+  //    may still be read by a neighbouring CTA's last adjoint level
   for (int i = threadIdx.x; i < nown4 / w; i += blockDim.x) {
     const int cb = b0 + i / R4, c4 = i % R4;
     const float* L = P.Linv + (size_t)cb * w * w;

@@ -15,13 +15,14 @@
 // of CORA_CLUSTER CTAs of 1024 threads on neighbouring SMs (ClusterGroup in
 // chain_ops.cuh), launched with cudaLaunchKernelEx and a cluster-dimension
 // attribute. chunk is a whole solver loop with data-dependent trip counts,
-// a group barrier per scan level and scalar control flow, so it stays one
+// group barriers in every pass chain and scalar control flow, so it stays one
 // launch per chunk; between chunks only the 12 scalars go back to the host.
-// What bounds them is the chain of dependent passes, each ended by a
-// cluster barrier (2·levels + 5 per tCG iteration: 27 × 0.76 µs = 20.5 µs at
-// plaza2's shapes, r = 4, measured by scripts/probe_cluster_sync.py), and
-// the latency of each pass's loads, not bytes (a call reads ~5 MB of inputs
-// once; a tCG iteration streams ~22 MB of L2, ~20 µs over 16 SMs) or FLOPs.
+// What bounds them is the chain of dependent passes, ~2 µs each, most of
+// it the latency of the pass's loads: per tCG iteration 7 ended by a
+// cluster barrier (0.76 µs each, scripts/probe_cluster_sync.py) and ~33 by
+// a CTA barrier at plaza2's shapes, r = 4, the band scan's 2·cta_levels
+// among them; not bytes (a call reads ~5 MB of inputs once; a tCG
+// iteration streams ~22 MB of L2, ~20 µs over 16 SMs) or FLOPs.
 // The cluster spreads each pass over CORA_CLUSTER SMs' L2 paths and keeps
 // the barrier in hardware; the times against one CTA's are in PERF.md.
 // Every CTA computes the same scalars from the same rank-ordered cluster
@@ -93,6 +94,7 @@ __device__ Ctx make_ctx(const ChainPlanArgs& P, int r, Carver& w,
   const size_t band = (size_t)P.nb * P.w * r;
   c.band0 = w.take(band);
   c.band1 = w.take(band);
+  c.carry = P.parts > 1 ? w.take((size_t)P.parts * P.w * r) : nullptr;
   c.rank = G::rank();
   c.b0 = P.blk_ptr[c.rank];
   c.b1 = P.blk_ptr[c.rank + 1];
@@ -342,6 +344,7 @@ ladder_kernel(ChainPlanArgs P, int r, const float* Y, const float* Ydot,
   c.r = r;
   c.band0 = work + band_off[k];
   c.band1 = c.band0 + nbw * B.Rp;
+  c.carry = nullptr;  // precon_batch scans the whole band
   c.rank = G::rank();
   c.b0 = P.blk_ptr[c.rank];
   c.b1 = P.blk_ptr[c.rank + 1];

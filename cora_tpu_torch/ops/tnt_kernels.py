@@ -22,17 +22,18 @@ versions run only for tensors on the CPU (or when the caller asks for them
 with `use_kernels="never"`); on a CUDA device the kernels launch or raise.
 
 What bounds them on the card: a tCG iteration is a chain of dependent
-passes over ≤ 56k-element vectors, each ended by a group barrier —
-2·levels + 5 per iteration (`work_counts`), 27 × 0.76 µs = 20.5 µs on the
-plaza2-shaped graph at r = 4 (`scripts/probe_cluster_sync.py`) — and the
-latency of each pass's loads; not bytes (each call reads its ~5 MB of
-inputs once; a tCG iteration streams ~22 MB through L2, ~20 µs over 16
-SMs) and not FLOPs. So `chunk`, `tcg` and `step` run as one thread-block
-cluster of `CLUSTER` CTAs on neighbouring SMs: each pass spread over
-`CLUSTER` SMs' L2 paths, the barrier in hardware (cluster.sync), each CTA
-owning a contiguous range of band blocks and the rows that hang on them
-(`chain.cluster_partition`). Measured, a tCG iteration takes 95-132 µs
-inside a solve. `ladder` is one step at each of A = 48 trial points: it
+passes over ≤ 56k-element vectors, 7 ended by a group barrier
+(`work_counts`; 7 × 0.76 µs on the plaza2-shaped graph at r = 4,
+`scripts/probe_cluster_sync.py`), the band scan's levels over each CTA's
+own blocks by a CTA barrier — and the latency of each pass's loads; not
+bytes (each call reads its ~5 MB of inputs once; a tCG iteration streams
+~22 MB through L2, ~20 µs over 16 SMs) and not FLOPs. So `chunk`, `tcg`
+and `step` run as one thread-block cluster of `CLUSTER` CTAs on
+neighbouring SMs: each pass spread over `CLUSTER` SMs' L2 paths, the
+barrier in hardware (cluster.sync), each CTA owning a contiguous range of
+band blocks and the rows that hang on them (`chain.cluster_partition`).
+Times per tCG iteration are in PERF.md. `ladder` is one step at each of
+A = 48 trial points: it
 launches K clusters (`LADDER_CLUSTERS`, at most what the card holds at
 once), each evaluating a contiguous group of trial points
 (`chain.ladder_groups`) in one pass chain, its band a solve with AB·r
@@ -72,6 +73,7 @@ from cora_tpu_torch.ops.chain import ChainPlan, ClusterPartition
 from cora_tpu_torch.solve.tnt import (
     DELTA_TOL,
     GRAD_TOL,
+    LOOP_STATS,
     PRECON_GRAD_TOL,
     RAMP_EXIT,
     REL_DECREASE,
@@ -125,7 +127,8 @@ class _PlanArgs(ctypes.Structure):
            ("kap", "R", "tau", "tvec", "slot", "rng_pose", "rng_lm", "lm_ptr",
             "lm_rng", "rr", "om", "spiv", "cval", "Linv", "AF", "Ct",
             "BinvCt", "capinv", "qdwh", "blk_ptr", "row_ptr", "own_rows",
-            "rng_ptr", "own_rng", "lmc_ptr", "lmc_rng")]
+            "rng_ptr", "own_rng", "lmc_ptr", "lmc_rng", "PF", "CT")]
+        + [("cta_levels", ctypes.c_int)]
     )
 
 
@@ -216,30 +219,44 @@ def work_counts(plan: ChainPlan, r: int, tcg_iters: int, kernel: str = "chunk",
     call's iteration counts: `bytes` (each input read once, each output
     written once), `flops` (the products and sums of the algorithm) and
     `phases` (dependent passes, each ended by a group barrier that spans
-    all the CTAs of a cluster: 2·levels + 3 per tCG iteration, + 2 with
-    landmarks). `parts` is the partition's CTA count, whose tables the
-    kernel also reads. `ladder`'s `clusters` each read the propagators
-    and Linv once for their group of trial points, which run their passes
-    side by side: its phases are one step's."""
+    all the CTAs of a cluster). `parts` is the partition's CTA count, whose
+    tables the kernel also reads. The band solve scans each CTA's own
+    blocks (`chain.scan_levels` levels, CTA barriers) and, at more than
+    one part, carries between the CTAs across two group barriers
+    (`chain_ops.cuh`): a tCG iteration's phases are 5 at more than one
+    part and 2·levels + 3 at one, + 2 with landmarks. `ladder`'s
+    `clusters` each read the propagators and Linv once for their group of
+    trial points, which run their passes side by side; its band solve
+    scans the whole band, a group barrier a level, so its phases are a
+    step's with 2·`plan.levels` for the solve's scan."""
     n, m, l, d, N = plan.n, plan.m, plan.l, plan.d, plan.N
     nb, w, S, L = plan.nb, plan.w, plan.S, plan.levels
     lm = 1 if l > 0 else 0
     f4 = 4
-    plan_bytes = f4 * (
+    carry = 1 if parts > 1 and kernel != "ladder" else 0
+    # the band solve: its propagator levels (and PF and CT with a carry),
+    # its products of w × w blocks per column, and its group barriers
+    if kernel == "ladder":
+        levels, products, precon = L, 2 * L * nb, 2 * L + lm
+    else:
+        levels = chain.scan_levels(chain.block_split(nb, parts))
+        products = 2 * (levels + carry) * nb + carry * parts * (parts - 1)
+        precon = (2 if carry else 2 * levels) + lm
+    propagators = f4 * nb * w * w * (1 + levels + carry)
+    plan_bytes = propagators + f4 * (
         n * (2 + d * d + d) + n * S + 2 * m + (l + 1) + m + 4 * m
-        + nb * w * w * (1 + L) + 2 * l * nb * w + l * l + 24
+        + 2 * l * nb * w + l * l + 24 + carry * parts * parts * w * w
         + 3 * (parts + 1) + N + m + parts * l + 1 + m)
     state = f4 * N * r
     # dependent group-barrier phases
-    precon = 2 * L + lm
     qv = 1 + lm
     step = qv + 3 + precon
     per_tcg = qv + 1 + precon + 1
     tcg_fixed = precon + 2
-    # FLOPs: doubling scan and its adjoint, Linv and Linvᵀ, Woodbury,
-    # Q·Y, the Weingarten and projection terms, elementwise updates and dots
-    f_precon = 2 * r * (2 * L * nb * w * w + 2 * nb * w * w
-                        + 2 * l * nb * w + l * l) + 8 * m * r
+    # FLOPs: the band scan, Linv and Linvᵀ, Woodbury, Q·Y, the Weingarten
+    # and projection terms, elementwise updates and dots
+    f_precon = 2 * r * ((products + 2 * nb) * w * w + 2 * l * nb * w
+                        + l * l) + 8 * m * r
     f_qv = r * (n * (4 * d * d + 8 * d + 4 + 4 * S) + 12 * m)
     f_proj = r * (n * 4 * d * d + 4 * m)
     f_hvp = f_qv + 3 * f_proj
@@ -262,7 +279,6 @@ def work_counts(plan: ChainPlan, r: int, tcg_iters: int, kernel: str = "chunk",
         phases = step + 1
         flops = f_step
     elif kernel == "ladder":
-        propagators = f4 * nb * w * w * (1 + L)
         # + the group table (int32) and the band offsets (int64)
         nbytes = (plan_bytes + (clusters - 1) * propagators + 2 * state
                   + f4 * 4 * alphas + 12 * (clusters + 1))
@@ -272,6 +288,19 @@ def work_counts(plan: ChainPlan, r: int, tcg_iters: int, kernel: str = "chunk",
         raise ValueError(f"kernel={kernel!r}")
     return dict(bytes=int(nbytes), flops=int(flops), phases=int(phases),
                 phases_per_tcg=per_tcg)
+
+
+def group_syncs(plan: ChainPlan, kernel: str, parts: int, launches: int = 1,
+                tcg_iters: int = 0, outer_iters: int = 0) -> int:
+    """The group barriers of `launches` launches of `kernel` on `parts`
+    CTAs (`work_counts`' phases, a host count): for "chunk", a TNT level's
+    launches together, the first evaluating the start, with their tCG and
+    outer iterations summed; for "step" and "ladder", per launch."""
+    if kernel == "chunk":
+        return work_counts(plan, 1, tcg_iters, "chunk",
+                           outer_iters=outer_iters, init=True,
+                           parts=parts)["phases"] + 2 * (launches - 1)
+    return launches * work_counts(plan, 1, 0, kernel, parts=parts)["phases"]
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -342,23 +371,39 @@ class CudaTNT:
         plan = self.plan
         tables = {k: torch.as_tensor(getattr(part, k)).to(plan.device)
                   for k in ("blk_ptr", "row_ptr", "own_rows", "rng_ptr",
-                            "own_rng", "lmc_ptr", "lmc_rng")}
+                            "own_rng", "lmc_ptr", "lmc_rng", "PF", "CT")}
+        for k in ("PF", "CT"):  # formed in float64
+            tables[k] = tables[k].to(plan.dtype)
         self._tables[part.parts] = tables  # outlive the launches, as _keep
         args = _PlanArgs(d=plan.d, n=plan.n, m=plan.m, l=plan.l, N=plan.N,
                          nb=plan.nb, w=plan.w, S=plan.S, levels=plan.levels,
-                         parts=part.parts)
+                         parts=part.parts, cta_levels=part.levels)
         for k, v in (*self._keep.items(), *tables.items()):
             setattr(args, k, v.data_ptr() if v.numel() else None)
         return args
 
     def _work(self, r: int, states: int, copies: int = 1) -> torch.Tensor:
         P = self.plan
-        per = states * P.N * r + 2 * P.nb * P.w * r
+        # the states, the band scan's two buffers and its carries
+        per = states * P.N * r + (2 * P.nb + self.cluster) * P.w * r
         return torch.empty(copies * per, dtype=torch.float32,
                            device=P.device)
 
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.plan.device).cuda_stream
+
+    def _count(self, kernel: str, launches: int = 1, **iters):
+        """Adds the cluster's group barriers of `launches` launches of
+        `kernel` to `tnt.LOOP_STATS["group_syncs"]` (`group_syncs`)."""
+        LOOP_STATS["group_syncs"] += group_syncs(
+            self.plan, kernel, self.cluster, launches, **iters)
+
+    def count_chunks(self, launches: int, outer_iters: int, tcg_iters: int):
+        """Counts the group barriers of a TNT level's `launches` cluster
+        `chunk` launches, from the iterations they ran (read back by the
+        level already), in `tnt.LOOP_STATS["group_syncs"]`."""
+        self._count("chunk", launches, tcg_iters=tcg_iters,
+                    outer_iters=outer_iters)
 
     @staticmethod
     def _done(name: str, err: int):
@@ -437,6 +482,8 @@ class CudaTNT:
                  int(bool(do_retract)), _ptr(Yn), _ptr(QY), _ptr(grad),
                  _ptr(scal), _ptr(self._work(r, 1)), self._stream())
         self._done("step_block" if block else "step", err)
+        if not block:
+            self._count("step")
         return Yn, QY, grad, scal
 
     def tcg(self, grad, Y, nablaF, delta: float, max_iters: int,
@@ -518,6 +565,7 @@ class CudaTNT:
                 _ptr(alphas), A, _ptr(grp_t[g0:]), _ptr(off_t[g0:]),
                 min(K, G - g0), ab, _ptr(out), _ptr(work), self._stream())
             self._done("ladder", err)
+            self._count("ladder")
         return out
 
 
@@ -534,6 +582,9 @@ class PlainTNT:
 
     def _scalar(self, x) -> torch.Tensor:
         return torch.tensor(x, dtype=self.plan.dtype, device=self.plan.device)
+
+    def count_chunks(self, launches: int, outer_iters: int, tcg_iters: int):
+        """The plain versions pass no group barrier: nothing to count."""
 
     def _step_core(self, Y, V, do_retract: bool):
         P = self.plan

@@ -97,9 +97,11 @@ TCG_BLOCK = 4
 # what the loop did, summed over levels until `reset_loop_stats()`:
 # captures and their seconds, graph replays, eager step calls, host reads
 # inside the loop (one per block, one per outer iteration), blocks, outer
-# and tCG iterations
+# and tCG iterations; on the chain kernels also their cluster's group
+# barriers (`tnt_kernels.group_syncs`, counted on the host)
 LOOP_STATS = dict(captures=0, capture_s=0.0, replays=0, eager_calls=0,
-                  host_reads=0, blocks=0, outer_iters=0, tcg_iters=0)
+                  host_reads=0, blocks=0, outer_iters=0, tcg_iters=0,
+                  group_syncs=0)
 
 
 def reset_loop_stats():

@@ -7,7 +7,8 @@ iterations is ONE `chunk` launch (`cora_tpu_torch.ops.tnt_kernels`), and
 between chunks only the 12 scalars come back to the host, for the
 wall-clock cap (reference `max_computation_time`, `src/CORA.cpp:106`).
 A level counts its host reads inside the loop (two per chunk), outer and
-tCG iterations into `tnt.LOOP_STATS`, as the canonical path's levels do.
+tCG iterations into `tnt.LOOP_STATS`, as the canonical path's levels do,
+and the chain kernels' group barriers, worked out from those counts.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ def tnt_solve_tiles(
     # cap is enforceable from the start
     chunk_iters = 8
     first_call = True
+    launches = 0
     while (status == RUNNING and k < iter_cap) or first_call:
         if k > 0 and max_time is not None:
             per_iter = max((time.time() - t0) / max(k, 1), 1e-6)
@@ -91,6 +93,7 @@ def tnt_solve_tiles(
         init_flag = 0
         with named_scope("tnt/chunk"):
             kern.chunk(Y, grad, nablaF, fscal, iscal, hist)
+            launches += 1
             f, gn, pgn, Delta = (float(x) for x in fscal[:4].tolist())
             k, status, finish, dec, stp = (int(x) for x in iscal[:5].tolist())
         LOOP_STATS["host_reads"] += 2
@@ -108,6 +111,7 @@ def tnt_solve_tiles(
     h = hist[:, :k].cpu().numpy()
     LOOP_STATS["outer_iters"] += k
     LOOP_STATS["tcg_iters"] += int(h[4].sum())
+    kern.count_chunks(launches, k, int(h[4].sum()))
     elapsed = time.time() - t0
     if status == RUNNING:
         status = TIME_CAP if timed_out else MAX_ITERS

@@ -2,23 +2,31 @@
 
 The CUDA kernels run only on the card; everything they take from the host
 is checked here: the partition tables of `chain.cluster_partition` (who owns
-which band block, pose, range and state row), a plain PyTorch emulation of
-the partitioned preconditioner solve driven only by those tables, the
-rank-ordered cluster sum and `tnt_kernels.work_counts`; and for the
+which band block, pose, range and state row, and the band solve's carry
+propagators PF), a plain PyTorch emulation of the partitioned
+preconditioner solve driven only by those tables, the rank-ordered cluster
+sum and `tnt_kernels.work_counts` and `group_syncs`; and for the
 α-batched `ladder`, the split of the trial points over clusters
 (`chain.ladder_groups`), its scratch layout (`chain.LadderLayout`) and the
 batched banded solve on that layout.
 
-Tolerances: the emulation reorders only the sums of the landmark
-right-hand side and the Woodbury products (per CTA, then in rank order), so
-in float64 it agrees with `chain.precon_solve` to rounding, 1e-14 relative;
-the doubling scan does the same products as `chain._solve_B`; the batched
-solve, AB trial points' right-hand sides side by side as AB·r columns of
-one band, agrees with `chain.precon_solve` per trial point to the same
-1e-14 (the columns never mix). The cluster
+The chain kernels' band solve scans each CTA's own blocks and carries
+between the CTAs (`emulate_carry_scan`, with the partition's PF); the
+ladder's scans the whole band (`emulate_cluster_scan`).
+
+Tolerances: the emulation reorders the sums of the landmark right-hand
+side and the Woodbury products (per CTA, then in rank order) and, with the
+carry, the band recurrence at each CTA's start, so in float64 it agrees
+with `chain.precon_solve` to rounding, 1e-14 relative (each test states
+what it measured); at one part the scan does the same products as
+`chain._solve_B`; the batched solve, AB trial points' right-hand sides
+side by side as AB·r columns of one band, agrees with `chain.precon_solve`
+per trial point to the same 1e-14 (the columns never mix). The cluster
 sum is held to `torch.sum` at 1e-6 relative in float32 (a 56k-term sum in
 another order).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -105,18 +113,116 @@ def _ranked(partials):
     return acc
 
 
-def emulate_precon_solve(plan, part, V):
-    """(Q + λI)⁻¹V as the cluster kernel computes it, CTA by CTA: each CTA
-    writes only its own band blocks and rows (everything else starts as NaN,
-    so a row nobody owns shows), reads block cb ∓ 2ᵏ from the shared band,
-    takes propagators only from its propagator slice, and the landmark sums
-    are per-CTA partials added in rank order."""
-    d, n, nb, w, l, L = plan.d, plan.n, plan.nb, plan.w, plan.l, plan.levels
+def _own(part):
+    return [(int(part.blk_ptr[c]), int(part.blk_ptr[c + 1]))
+            for c in range(part.parts)]
+
+
+def emulate_carry_scan(plan, part, u, products=None):
+    """The band solve's scan and its adjoint on u = Linv·b (nb, w, r), as
+    `precon_solve` in chain_ops.cuh runs them on the partition `part`, CTA
+    by CTA, each pass into a fresh NaN buffer (a block nobody writes
+    shows):
+
+    * `part.levels` doubling levels over each CTA's own blocks, a read
+      of block cb − 2ᵏ only where it lies in the CTA, the propagators
+      taken from the CTA's `propagator_slice`;
+    * with more than one part, the carry: CTA c's carry-in U = Σ_c' CT[c,
+      c'] ũ_end(c') from the ends of the CTAs before it that own a block,
+      each own block fixed up by PF[cb]·U; then the transpose: each CTA's
+      s_c = Σ_cb PF[cb]ᵀ x_cb, and μ = Σ_c' CT[c', c]ᵀ s_c' from the CTAs
+      after it, added to the own end block;
+    * the adjoint levels, reversed, reads of cb + 2ᵏ only inside the CTA.
+
+    `products`, if a list, receives (level, block, block read, adjoint)
+    for every propagator product of the levels."""
+    own, C, nan = _own(part), part.parts, float("nan")
+    PF = torch.as_tensor(part.PF, dtype=u.dtype)
+    CT = torch.as_tensor(part.CT, dtype=u.dtype)
+
+    def levels(src, adjoint):
+        for k in (reversed(range(part.levels)) if adjoint
+                  else range(part.levels)):
+            s = 1 << k
+            dst = torch.full_like(src, nan)
+            for c, (b0, b1) in enumerate(own):
+                a, b = part.propagator_slice(c, k)
+                A = plan.AF[k, a:b]  # the CTA's slice: block cb at cb − a
+                for cb in range(b0, b1):
+                    v = src[cb].clone()
+                    j = cb + s if adjoint else cb - s
+                    if b0 <= j < b1:
+                        v += (A[j - a].T if adjoint else A[cb - a]) @ src[j]
+                        if products is not None:
+                            products.append((k, cb, j, adjoint))
+                    dst[cb] = v
+            src = dst
+        return src
+
+    src = levels(u, False)
+    if C > 1:
+        zero = torch.zeros_like(src[0])
+        dst = torch.full_like(src, nan)
+        for c, (b0, b1) in enumerate(own):
+            U = zero
+            for cc, (a, b) in enumerate(own[:c]):
+                if b > a:
+                    U = U + CT[c, cc] @ src[b - 1]
+            for cb in range(b0, b1):
+                dst[cb] = src[cb] + PF[cb] @ U
+        src = dst
+        sums = []
+        for b0, b1 in own:
+            acc = zero
+            for cb in range(b0, b1):
+                acc = acc + PF[cb].T @ src[cb]
+            sums.append(acc)
+        for c, (b0, b1) in enumerate(own):
+            mu = zero
+            for cc in range(c + 1, C):
+                mu = mu + CT[cc, c].T @ sums[cc]
+            if b1 > b0:
+                src[b1 - 1] = src[b1 - 1] + mu
+    return levels(src, True)
+
+
+def emulate_cluster_scan(plan, part, u):
+    """The scan of the α-batched ladder's `precon_batch`: `plan.levels`
+    doubling levels over the whole band and their adjoint, each CTA
+    writing its own blocks and reading block cb ∓ 2ᵏ wherever it lies, a
+    group barrier before each level."""
+    nb, own, nan = plan.nb, _own(part), float("nan")
+    passes = [(k, False) for k in range(plan.levels)] + [
+        (k, True) for k in reversed(range(plan.levels))]
+    for k, adj in passes:
+        s = 1 << k
+        dst = torch.full_like(u, nan)
+        for b0, b1 in own:
+            for cb in range(b0, b1):
+                v = u[cb].clone()
+                if not adj and cb >= s:
+                    v += plan.AF[k, cb] @ u[cb - s]
+                if adj and cb < nb - s:
+                    v += plan.AF[k, cb + s].T @ u[cb + s]
+                dst[cb] = v
+        u = dst
+    return u
+
+
+def emulate_precon_solve(plan, part, V, scan=emulate_carry_scan):
+    """(Q + λI)⁻¹V as the cluster kernels compute it, CTA by CTA: each CTA
+    writes only its own band blocks and rows (everything else starts as
+    NaN, so a row nobody owns shows), `scan` runs the band solve's scan
+    and its adjoint (the chain kernels' by default, `emulate_cluster_scan`
+    for the ladder's), and the landmark sums are per-CTA partials added in
+    rank order. Returns the scan's output, before Linvᵀ, and the
+    solution."""
+    d, n, nb, w, l = plan.d, plan.n, plan.nb, plan.w, plan.l
     r, q, C = V.shape[1], d + 1, part.parts
     nd, tr0 = n * d, n * d + plan.m
     lm0 = tr0 + n
     nan = float("nan")
-    own = [(int(part.blk_ptr[c]), int(part.blk_ptr[c + 1])) for c in range(C)]
+    own = _own(part)
     sph = V[nd:tr0]
     cw = (plan.cval * plan.spiv_inv)[:, None] * sph
     band = torch.full((nb, w, r), nan, dtype=V.dtype)
@@ -143,22 +249,7 @@ def emulate_precon_solve(plan, part, V):
     src = torch.full_like(band, nan)
     for b0, b1 in own:
         src[b0:b1] = plan.Linv[b0:b1] @ band[b0:b1]
-    passes = [(k, False) for k in range(L)] + [(k, True)
-                                              for k in reversed(range(L))]
-    for k, adj in passes:
-        s = 1 << k
-        dst = torch.full_like(src, nan)
-        for c, (b0, b1) in enumerate(own):
-            a, b = part.propagator_slice(c, k, nb, adj)
-            A = plan.AF[k, a:b]  # the CTA's slice: block cb at cb − b0
-            for cb in range(b0, b1):
-                v = src[cb].clone()
-                if not adj and cb >= s:
-                    v += A[cb - b0] @ src[cb - s]
-                if adj and cb < nb - s:
-                    v += A[cb - b0].T @ src[cb + s]
-                dst[cb] = v
-        src = dst
+    src = scan(plan, part, src)
     y1 = torch.full_like(src, nan)
     for b0, b1 in own:
         y1[b0:b1] = plan.Linv[b0:b1].transpose(1, 2) @ src[b0:b1]
@@ -189,9 +280,31 @@ def emulate_precon_solve(plan, part, V):
     return src, out
 
 
+def _band_rhs(plan, V):
+    """The band right-hand side b (nb, w, r) of `chain.precon_solve`."""
+    rot, sph, tr, _ = chain.split(plan, V)
+    r = V.shape[1]
+    band = V.new_zeros((2 * plan.nb, plan.d + 1, r))
+    band[:plan.n, :plan.d] = rot
+    band[:plan.n, plan.d] = tr + chain._per_pose(
+        plan, (plan.cval * plan.spiv_inv)[:, None] * sph)
+    return band.view(plan.nb, plan.w, r)
+
+
 @pytest.mark.parametrize("parts", [1, 3, 8, 16])
-@pytest.mark.parametrize("name", ["odd_37", "small_14", "plaza2_shaped"])
+@pytest.mark.parametrize("name", ["odd_37", "small_14", "plaza2_shaped",
+                                  "single_drone_shaped"])
 def test_partitioned_precon_matches_plain(name, parts):
+    """The chain kernels' preconditioner solve, emulated CTA by CTA on the
+    partition (`emulate_precon_solve`), against `chain.precon_solve` in
+    float64: the solution, and the scan's output before Linvᵀ against
+    `chain._solve_B` on the same right-hand side. The carry reassociates
+    the recurrence at each CTA's first block, through products of up to
+    682 A's (plaza2-shaped on 3 parts). Over these 16 cases the two differ
+    by at most 5.8e-16 and 1.05e-15 of their largest entry; held at 1e-14,
+    nine times that. A fault moves them by far more: PF shifted one block,
+    the last CTA's PF zeroed, one local level short read 6e-4 to 0.49 on
+    odd_37 and plaza2-shaped at 16 parts."""
     plan = _plan(name)
     part = chain.cluster_partition(plan, parts)
     V = torch.as_tensor(np.random.default_rng(parts).standard_normal(
@@ -200,16 +313,106 @@ def test_partitioned_precon_matches_plain(name, parts):
     ref = chain.precon_solve(plan, V)
     assert torch.isfinite(x).all()
     assert float((x - ref).abs().max() / ref.abs().max()) < 1e-14
-    # the scan alone against `_solve_B` on the same right-hand side: the
-    # adjoint's output, before Linvᵀ
-    rot, sph, tr, _ = chain.split(plan, V)
-    band = V.new_zeros((2 * plan.nb, plan.d + 1, 4))
-    band[:plan.n, :plan.d] = rot
-    band[:plan.n, plan.d] = tr + chain._per_pose(
-        plan, (plan.cval * plan.spiv_inv)[:, None] * sph)
-    y1 = chain._solve_B(plan, band.view(plan.nb, plan.w, 4))
+    y1 = chain._solve_B(plan, _band_rhs(plan, V))
     y1_emul = plan.Linv.transpose(1, 2) @ x_band
     assert float((y1_emul - y1).abs().max() / y1.abs().max()) < 1e-14
+
+
+@pytest.mark.parametrize("name", ["odd_37", "plaza2_shaped",
+                                  "single_drone_shaped"])
+def test_one_part_scan_is_the_doubling_scan(name):
+    """At one part the carry scan is the whole-band doubling scan of
+    `chain._solve_B`: the same propagator products, of the same blocks at
+    the same levels in the same order, and no carry. The numbers differ
+    only by the order of each product's sums (block by block here, batched
+    there): at most 3.0e-16 of the largest entry, held at 1e-14."""
+    plan = _plan(name)
+    part = chain.cluster_partition(plan, 1)
+    assert part.levels == plan.levels and not part.PF.any()
+    nb, L = plan.nb, plan.levels
+    got = []
+    u = plan.Linv @ _band_rhs(plan, torch.as_tensor(
+        np.random.default_rng(3).standard_normal((plan.N, 2))))
+    x = emulate_carry_scan(plan, part, u, products=got)
+    want = [(k, cb, cb - (1 << k), False) for k in range(L)
+            for cb in range(1 << k, nb)]
+    want += [(k, cb, cb + (1 << k), True) for k in reversed(range(L))
+             for cb in range(nb - (1 << k))]
+    assert got == want
+    ref = u.clone()
+    for k in range(L):  # `_solve_B`'s scan, before its Linvᵀ
+        s = 1 << k
+        ref[s:] += plan.AF[k, s:] @ ref[:nb - s]
+    for k in reversed(range(L)):
+        s = 1 << k
+        ref[:nb - s] += plan.AF[k, s:].transpose(1, 2) @ ref[s:]
+    assert float((x - ref).abs().max() / ref.abs().max()) < 1e-14
+
+
+@pytest.mark.parametrize("name", ["odd_37", "small_14", "plaza2_shaped",
+                                  "single_drone_shaped"])
+def test_carry_scan_is_symmetric(name):
+    """B̃⁻¹ = Linvᵀ·scan·Linv on 16 parts is symmetric, ⟨x, B̃⁻¹y⟩ =
+    ⟨B̃⁻¹x, y⟩ to float64 rounding (the adjoint is the forward network
+    transposed, the same stored numbers in mirrored order), and positive
+    at x. The two sides differ by at most 4.7e-18 of Σ|x·B̃⁻¹y| on these
+    graphs; held at 1e-14."""
+    plan = _plan(name)
+    part = chain.cluster_partition(plan, 16)
+    rng = np.random.default_rng(5)
+    x, y = (torch.as_tensor(rng.standard_normal((plan.nb, plan.w, 3)))
+            for _ in range(2))
+
+    def apply(b):
+        u = emulate_carry_scan(plan, part, plan.Linv @ b)
+        return plan.Linv.transpose(1, 2) @ u
+
+    Bx, By = apply(x), apply(y)
+    lhs, rhs = float((x * By).sum()), float((Bx * y).sum())
+    scale = float((x * By).abs().sum())
+    assert abs(lhs - rhs) <= 1e-14 * scale
+    assert float((x * Bx).sum()) > 0
+
+
+@pytest.mark.parametrize("parts", [3, 16])
+@pytest.mark.parametrize("name", ["odd_37", "small_14", "plaza2_shaped",
+                                  "single_drone_shaped"])
+def test_carry_propagators_are_dense_products(name, parts):
+    """PF[cb] against the product A_cb ⋯ A_a (a the CTA's first block)
+    multiplied out again from the left, A_cb·(A_cb−1·(…)) read the other
+    way round: (A_cb A_cb−1) A_cb−2 ⋯; zero in a CTA that starts at block
+    0, as A_0 = 0. CT[c, c'] against the carry's recurrence through the
+    CTAs between (U ← PF[end]·U), the same products in the same order.
+    The partition's levels are the fewest doublings that span the most
+    blocks a CTA owns. Up to 682 factors (plaza2-shaped on 3
+    parts) the two orders differ by at most 7.6e-15 of the product's
+    largest entry; held at 1e-13."""
+    plan = _plan(name)
+    part = chain.cluster_partition(plan, parts)
+    sizes = np.diff(part.blk_ptr)
+    assert 2 ** part.levels >= sizes.max()
+    assert part.levels == 0 or 2 ** (part.levels - 1) < sizes.max()
+    A = plan.A_host
+    assert not A[0].any()
+    for c in range(parts):
+        b0, b1 = int(part.blk_ptr[c]), int(part.blk_ptr[c + 1])
+        for cb in range(b0, b1):
+            want = functools.reduce(np.matmul, A[b0:cb + 1][::-1])
+            err = np.abs(part.PF[cb] - want).max()
+            assert err <= 1e-13 * np.abs(want).max()
+    # CT[c, c']: the recurrence U ← E_c'' U through the CTAs between
+    own = _own(part)
+    for c in range(parts):
+        for src in range(parts):
+            want = np.zeros((plan.w, plan.w))
+            if src < c and own[src][1] > own[src][0]:
+                want = np.eye(plan.w)
+                for a, b in own[src + 1:c]:
+                    if b > a:
+                        want = part.PF[b - 1] @ want
+            assert np.array_equal(part.CT[c, src], want)
+    # the A_i are the first propagator level's entries
+    assert np.array_equal(A[1:], plan.AF[0, 1:].numpy())
 
 
 def _warp_tree(x):
@@ -292,15 +495,19 @@ def test_work_counts_hand_count():
 
 
 
-def _plan_words(plan, parts):
-    n, m, l, N, nb, w, S, L = (plan.n, plan.m, plan.l, plan.N, plan.nb,
-                               plan.w, plan.S, plan.levels)
+def _plan_words(plan, parts, tables, carry=True):
+    """The plan's words that a kernel on `parts` CTAs reads, with `tables`
+    (nb, w, w) tables for its band solve (Linv, propagator levels, PF) and,
+    with a `carry` between CTAs, the (parts, parts, w, w) carry matrix."""
+    n, m, l, N, nb, w, S = (plan.n, plan.m, plan.l, plan.N, plan.nb,
+                            plan.w, plan.S)
     d = plan.d
     return (n * (1 + d * d + 1 + d)  # kap, R, tau, tvec
             + n * S + 2 * m + (l + 1) + m  # slot, range/landmark tables
             + 4 * m  # rr, om, spiv, cval
-            + nb * w * w * (1 + L)  # Linv, the propagator levels
+            + nb * w * w * tables  # the band solve's tables
             + 2 * l * nb * w + l * l + 24  # Ct, BinvCt, capinv, qdwh
+            + (parts * parts * w * w if carry and parts > 1 else 0)  # CT
             + 3 * (parts + 1) + N + m + parts * l + 1 + m)  # partition
 
 
@@ -310,26 +517,63 @@ def test_work_counts_step_ladder_parts():
     plan = chain.build_chain_plan(problem, dtype=np.float32, device="cpu")
     nb, w, L, N, r, parts = 2, 6, 1, 12, 3, 16
     assert (plan.nb, plan.w, plan.levels, plan.N) == (nb, w, L, N)
-    words = _plan_words(plan, parts)
     st = tnt_kernels.work_counts(plan, r, 0, kernel="step", parts=parts)
-    # Q·Y (2), three dots, the preconditioner (1 + 1 levels + Woodbury),
-    # the exit barrier: every one spans the 16 CTAs
+    # Q·Y (2), three dots, the preconditioner (its two carry barriers +
+    # Woodbury; at most one block a CTA, so no level), the exit barrier:
+    # every one spans the 16 CTAs
     assert st["phases"] == 2 + 3 + 3 + 1
-    # Y and s in; Yn, QY, grad out; three scalars
-    assert st["bytes"] == 4 * (words + 5 * N * r + 3)
+    # Y and s in; Yn, QY, grad out; three scalars; Linv, PF and CT
+    assert st["bytes"] == 4 * (_plan_words(plan, parts, 2) + 5 * N * r + 3)
     one = tnt_kernels.work_counts(plan, r, 0, kernel="ladder", alphas=6,
                                   parts=parts)
     lad = tnt_kernels.work_counts(plan, r, 0, kernel="ladder", alphas=6,
                                   parts=parts, clusters=3)
-    # the trial points run side by side: one step's phases, at any K
-    assert one["phases"] == lad["phases"] == st["phases"]
+    # the trial points run side by side: one step's phases, at any K, with
+    # the whole band's scan (1 + 1 levels + Woodbury)
+    assert one["phases"] == lad["phases"] == 2 + 3 + 3 + 1
     # Y and Ẏ, 6 α in and 3 × 6 scalars out, the group table (K + 1
-    # int32) and the band offsets (K + 1 int64), and Linv and the
-    # propagators once more for each cluster past the first
+    # int32) and the band offsets (K + 1 int64), Linv and the propagator
+    # level, and those once more for each cluster past the first
+    words = _plan_words(plan, parts, 1 + L, carry=False)
     assert one["bytes"] == 4 * (words + 2 * N * r + 4 * 6) + 12 * 2
     assert lad["bytes"] == 4 * (words + 2 * nb * w * w * (1 + L)
                                 + 2 * N * r + 4 * 6) + 12 * 4
-    assert lad["flops"] == one["flops"] == 6 * st["flops"]
+    # each trial point: a step's work with the whole band's scan, as one
+    # part runs it
+    st1 = tnt_kernels.work_counts(plan, r, 0, kernel="step")
+    assert lad["flops"] == one["flops"] == 6 * st1["flops"]
+
+
+def test_work_counts_carry_scan():
+    """odd_37: nb = 19 blocks, 5 whole-band levels; on 16 CTAs of one or
+    two blocks, 1 local level. A tCG iteration's group barriers: Q·Ẏ (2),
+    ⟨d, Hd⟩, the preconditioner, ⟨r, z⟩, where the preconditioner is the
+    two carry barriers + Woodbury on 16 parts, 5 + 5 levels + Woodbury on
+    one; `group_syncs` sums a level's chunk launches from them."""
+    plan = _plan("odd_37", np.float32)
+    assert (plan.nb, plan.levels, plan.l > 0) == (19, 5, True)
+    assert chain.scan_levels(chain.block_split(19, 16)) == 1
+    C = tnt_kernels.CLUSTER
+    per = {p: tnt_kernels.work_counts(plan, 4, 0, "tcg", parts=p)[
+        "phases_per_tcg"] for p in (1, 3, C)}
+    assert per == {1: 2 + 1 + 11 + 1, 3: 2 + 1 + 3 + 1, C: 2 + 1 + 3 + 1}
+    # the kernel reads Linv, its local level, PF and CT; the ladder Linv
+    # and the five levels
+    st = tnt_kernels.work_counts(plan, 4, 0, "step", parts=C)
+    lad = tnt_kernels.work_counts(plan, 4, 0, "ladder", alphas=1, parts=C)
+    N4 = plan.N * 4 * 4
+    assert st["bytes"] - 5 * N4 - 12 == 4 * _plan_words(plan, C, 3)
+    assert lad["bytes"] - 2 * N4 - 16 - 24 == 4 * _plan_words(plan, C, 6,
+                                                             carry=False)
+    # step: Q·Y (2) + three dots + the preconditioner (3) + exit
+    assert tnt_kernels.group_syncs(plan, "step", C, launches=2) == 2 * 9
+    assert tnt_kernels.group_syncs(plan, "ladder", C) == 2 + 3 + 11 + 1
+    # a level of 3 chunk launches: 2 a launch, the start's step once, 7 a
+    # tCG iteration, and per outer iteration the tCG's fixed 3 + 2, the
+    # trial step's 8 and the history's barrier
+    got = tnt_kernels.group_syncs(plan, "chunk", C, launches=3,
+                                  tcg_iters=40, outer_iters=4)
+    assert got == 3 * 2 + 8 + 40 * 7 + 4 * (5 + 8 + 1)
 
 
 @pytest.mark.parametrize("K", [1, 3, 8, 48])
@@ -356,7 +600,8 @@ def test_batched_precon_on_ladder_layout(name, parts):
     12). Each trial point's right-hand side sits in its own grad state;
     each cluster's band holds its group's right-hand sides side by side
     (trial point al in columns al·r .. al·r + r) and goes through ONE
-    partitioned solve (`emulate_precon_solve` on those columns); each
+    partitioned solve (`emulate_precon_solve` on those columns, with the
+    ladder's whole-band scan, `emulate_cluster_scan`); each
     trial point's solution lands in its own QY state. Every region is
     written once (the scratch starts as NaN and each write checks it was
     untouched), and each trial point's solution equals `chain.precon_solve`
@@ -387,7 +632,8 @@ def test_batched_precon_on_ladder_layout(name, parts):
         a0, AB = int(grp[k]), int(grp[k + 1] - grp[k])
         grads = [work[lay.state(a) + 2 * NR:lay.state(a) + 3 * NR].view(N, r)
                  for a in range(a0, a0 + AB)]
-        x_band, x = emulate_precon_solve(plan, part, torch.cat(grads, dim=1))
+        x_band, x = emulate_precon_solve(plan, part, torch.cat(grads, dim=1),
+                                         scan=emulate_cluster_scan)
         assert 2 * lay.band_len(k) == off[k + 1] - off[k]
         band0 = region(int(off[k]), lay.band_len(k)).view(nb, w, lay.cols(k))
         band1 = region(int(off[k]) + lay.band_len(k), lay.band_len(k))
@@ -397,7 +643,8 @@ def test_batched_precon_on_ladder_layout(name, parts):
             out = region(lay.state(a0 + al) + NR, NR)
             out.copy_(x[:, al * r:(al + 1) * r].reshape(-1))
             # the band's columns al·r .. al·r + r are this trial point's
-            single, _ = emulate_precon_solve(plan, part, Vs[a0 + al])
+            single, _ = emulate_precon_solve(plan, part, Vs[a0 + al],
+                                             scan=emulate_cluster_scan)
             col = band0[:, :, al * r:(al + 1) * r]
             assert float((col - single).abs().max()
                          / single.abs().max()) < 1e-14
@@ -428,3 +675,31 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         fn(*args)
     if entry != "polish_solution":
         assert fn(*args, device="cpu").device.type == "cpu"
+
+
+def test_level_counts_its_chunks(monkeypatch):
+    """A TNT level on the chain kernels hands `count_chunks` its chunk
+    launches and the outer and tCG iterations it read back (what
+    `tnt_kernels.group_syncs` turns into the cluster's barriers), with no
+    read of its own: a level of the plain versions, whose `chunk` is
+    counted, and whose histories give the iterations."""
+    from cora_tpu_torch.ops.riemannian import random_initial_guess
+    from cora_tpu_torch.ops.tnt_kernels import PlainTNT
+    from cora_tpu_torch.solve.tnt import HashableParams
+    from cora_tpu_torch.solve.tnt_kernel import tnt_solve_tiles
+    from cora_tpu_torch.types import TNTParams
+
+    problem = synthetic_problem(**GRAPHS["odd_37"])
+    plan = _plan("odd_37", np.float32)
+    kern = PlainTNT(plan, HashableParams(TNTParams(max_iterations=12)))
+    calls, counted = [], []
+    chunk = kern.chunk
+    monkeypatch.setattr(kern, "chunk", lambda *a: calls.append(1) or chunk(*a))
+    monkeypatch.setattr(kern, "count_chunks",
+                        lambda *a: counted.append(a))
+    pd = problem.device_data(np.float32, "cpu")
+    Y0 = random_initial_guess(pd, 3, torch.Generator().manual_seed(4))
+    res = tnt_solve_tiles(kern, Y0, kern.params)
+    assert counted == [(len(calls), res.num_iterations,
+                        int(res.inner_iterations.sum()))]
+    assert len(calls) >= 2 and res.num_iterations > 0
